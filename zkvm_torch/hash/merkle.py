@@ -1,0 +1,92 @@
+"""Merkle heap over BLAKE3 digests, built and kept on the device.
+
+Port of ``blake3_jax.merge`` / ``merkle_flat`` and
+``zkvm.hash.merkle.DeviceMerkleTree``.  The reference builds the tree in
+XLA, outside any Pallas kernel, so this is plain PyTorch: one vectorised
+BLAKE3 compress per level (a hand-written Merkle kernel is later work).
+
+Heap layout (winter-crypto style): nodes[1] = root, children of i at 2i and
+2i+1, leaf j at nodes[N + j], nodes[0] unused; digests are 8 little-endian
+32-bit words (int32 bits), one row each.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+
+from zkvm.hash.blake3 import CHUNK_END, CHUNK_START, IV, ROOT
+from zkvm_torch.field.limbs import to_numpy
+from .blake3_t import compress, M32
+
+_MERGE_FLAGS = CHUNK_START | CHUNK_END | ROOT
+
+
+def _merge_t(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+    """(8, N) x (8, N) int64 digest words -> (8, N) parent digests."""
+    n = left.shape[-1]
+    cv = torch.tensor(IV, dtype=torch.int64, device=left.device)[:, None].expand(8, n)
+    return compress(cv, torch.cat([left, right], dim=0), 64, _MERGE_FLAGS)
+
+
+def merge(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+    """Merkle node of (..., 8) digest pairs: hash of the 64-byte
+    concatenation (``blake3_jax.merge``)."""
+    shape = left.shape
+    l = left.reshape(-1, 8).transpose(0, 1).long() & M32
+    r = right.reshape(-1, 8).transpose(0, 1).long() & M32
+    return _merge_t(l, r).transpose(0, 1).to(torch.int32).reshape(shape)
+
+
+def merkle_flat(leaves: torch.Tensor) -> torch.Tensor:
+    """(N, 8) leaf digests -> (2N, 8) heap (``blake3_jax.merkle_flat``)."""
+    cur = leaves.transpose(0, 1).long() & M32  # (8, N)
+    levels = [cur]
+    while cur.shape[-1] > 1:
+        cur = _merge_t(cur[:, 0::2], cur[:, 1::2])
+        levels.append(cur)
+    zero = cur.new_zeros(8, 1)
+    heap = torch.cat([zero] + levels[::-1], dim=1)
+    return heap.transpose(0, 1).to(torch.int32).contiguous()
+
+
+class DeviceMerkleTree:
+    """Merkle tree kept on the device as a (2N, 8) heap.
+
+    Only the 32-byte root crosses to the host eagerly; :meth:`open_many`
+    gathers the requested authentication paths on the device and moves
+    just those nodes."""
+
+    def __init__(self, nodes: torch.Tensor):
+        self.nodes = nodes
+        self.n = int(nodes.shape[0]) // 2
+        self._root = None
+
+    @property
+    def root(self) -> bytes:
+        if self._root is None:
+            self._root = to_numpy(self.nodes[1]).astype("<u4").tobytes()
+        return self._root
+
+    @property
+    def depth(self) -> int:
+        return self.n.bit_length() - 1
+
+    def _path_indices(self, position: int) -> List[int]:
+        idx = []
+        i = position + self.n
+        while i > 1:
+            idx.append(i ^ 1)
+            i >>= 1
+        return idx
+
+    def open_many(self, positions: Sequence[int]) -> List[List[bytes]]:
+        """Authentication paths (leaf -> root sibling digests)."""
+        flat = [i for p in positions for i in self._path_indices(p)]
+        index = torch.tensor(flat, dtype=torch.int64, device=self.nodes.device)
+        arr = to_numpy(self.nodes.index_select(0, index)).astype("<u4")
+        d = self.depth
+        return [
+            [arr[k * d + t].tobytes() for t in range(d)] for k in range(len(positions))
+        ]

@@ -1,0 +1,13 @@
+"""Prover layer: the T-mode STARK pipeline on PyTorch and CUDA.
+
+trace commit -> constraint composition -> composition commit -> OOD ->
+DEEP -> FRI -> queries, with the host-side Fiat-Shamir transcript of the
+JAX package (copied here with options, proof and wire; see each file's
+header).
+"""
+
+from .options import ProofOptions
+from .proof import Proof
+from .pipeline import prove
+
+__all__ = ["ProofOptions", "Proof", "prove"]

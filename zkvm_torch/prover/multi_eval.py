@@ -1,0 +1,67 @@
+"""Multi-point polynomial evaluation as one exact float64 matrix product.
+
+Port of ``zkvm.prover.eval_mxu`` (``_contract``, ``multi_eval_rows``).
+rows[q][c] = sum_t coeffs[c][t] * pt_q^t.  Each field element splits into
+32 four-bit nibbles, so the evaluation becomes one (C*32, T) x (T, Q*32)
+product S[c*32+i][q*32+j] = sum_t A_i[c,t] B_j[q,t].  The reference runs it
+as an int8 dot; here it is ``torch.matmul`` on float64, which is exact:
+every partial sum is at most 15*15*T < 2^53 (float32 would not be past
+T = 2^16, and CUDA has no int64 matmul).  The anti-diagonal buckets over
+i + j and the base-2^4 recombination mod p happen on the host.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from zkvm.field import f128
+from zkvm_torch.field.limbs import from_numpy, to_limbs
+from zkvm_torch.ntt import ntt_t as nt
+
+MAX_T = 1 << 40  # 225 * T stays below 2^53 (exact float64 sums)
+
+
+def _nibbles(x: torch.Tensor) -> torch.Tensor:
+    """(..., 8, T) 16-bit limbs -> (..., 32, T) nibbles, LSB first (slot
+    4i + k holds bits 4k..4k+3 of limb i)."""
+    parts = [(x >> (4 * k)) & 0xF for k in range(4)]
+    s = torch.stack(parts, dim=-2)  # (..., 8, 4, T)
+    return s.reshape(x.shape[:-2] + (32, x.shape[-1]))
+
+
+def _contract(coeffs_t: torch.Tensor, lads_t: torch.Tensor) -> np.ndarray:
+    """(C, 8, T) x (Q, 8, T) -> exact bucket sums (63, C, Q) int64 (host)."""
+    c, _, t = coeffs_t.shape
+    q = lads_t.shape[0]
+    a = _nibbles(coeffs_t).reshape(c * 32, t).double()
+    b = _nibbles(lads_t).reshape(q * 32, t).double()
+    s = torch.matmul(a, b.transpose(0, 1)).cpu().numpy().astype(np.int64)
+    s = s.reshape(c, 32, q, 32)
+    out = np.zeros((63, c, q), dtype=np.int64)
+    for i in range(32):
+        out[i : i + 32] += np.transpose(s[:, i, :, :], (2, 0, 1))  # (j, c, q)
+    return out
+
+
+def multi_eval_rows(coeffs_t: torch.Tensor, points: Sequence[int]) -> List[List[int]]:
+    """Evaluate the C transposed column polynomials at each point; host ints
+    as rows[q][c]."""
+    t = coeffs_t.shape[-1]
+    if t > MAX_T:
+        raise ValueError(f"multi_eval_rows: T={t} exceeds exact float64 range")
+    bases = from_numpy(to_limbs(list(points)), coeffs_t.device)
+    vals = _contract(coeffs_t, nt.ladders_t(bases, t))
+    c = coeffs_t.shape[0]
+    rows: List[List[int]] = []
+    for qi in range(len(points)):
+        row = []
+        for ci in range(c):
+            acc = 0
+            for k in range(63):
+                acc += int(vals[k, ci, qi]) << (4 * k)
+            row.append(acc % f128.P)
+        rows.append(row)
+    return rows

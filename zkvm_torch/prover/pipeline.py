@@ -1,0 +1,352 @@
+"""The transposed-layout, class-decomposed STARK prover ("T-mode").
+
+Port of ``zkvm.prover.pipeline._prove_t`` and its stages.  The LDE domain
+of size D = blowup * T splits into ``blowup`` residue classes (position
+i = r + blowup*k); each class is a T-point coset NTT of the trace
+coefficients, the AIR's next row is the next index within a class, and the
+periodic columns have period 16 within a class — so no stage ever holds
+the full (28, 8, D) LDE.  Stages, in proof order:
+
+1. trace commit: iNTT the 28 columns; per class, coset NTT (K1) and BLAKE3
+   row hashes (K2); Merkle heap;
+2. composition: per class, coset NTT (K1) and the fused composition (K3);
+3. composition commit: size-D iNTT, split into 8 columns, per class coset
+   NTT (K1) and row hashes (K2); Merkle heap;
+4. OOD frame: multi-point evaluation (float64 matrix product);
+5. DEEP: weighted column sums and suffix-scan synthetic division in
+   coefficient space, then one coset NTT per class (K1);
+6. FRI: per layer, group hashes (K2), Merkle heap, 8-point iNTT fold (K1);
+7. queries: multi-point evaluation at the query points, Merkle openings.
+
+Transcript and proof bytes are identical to the reference's (exact field
+arithmetic).  Only the T <= 2^17 forms of the stages are ported.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+import time
+
+import numpy as np
+import torch
+
+from zkvm.air.layout import (
+    NUM_ASSERTIONS,
+    NUM_EXEMPTIONS,
+    NUM_TRANSITION_CONSTRAINTS,
+    TRACE_WIDTH,
+    PublicInputs,
+    get_assertions,
+)
+from zkvm.field import f128
+from zkvm_torch.air import composition as cp
+from zkvm_torch.air.periodic import periodic_class_patterns
+from zkvm_torch.field import f128t as ft
+from zkvm_torch.field.limbs import from_limbs, from_numpy, tensor, to_limbs, ttensor
+from zkvm_torch.hash import blake3_t as b3t
+from zkvm_torch.hash.merkle import DeviceMerkleTree, merkle_flat
+from zkvm_torch.ntt import ntt_t as nt
+from . import multi_eval as me
+from . import wire
+from .fri import FOLD, fri_prove_t, gather_groups
+from .options import ProofOptions
+from .proof import FriLayerOpening, Proof, QueryOpening
+from .transcript import RandomCoin
+
+NUM_COMP_COLUMNS = 8  # ce blowup for max constraint degree 7
+MAX_TRACE_LENGTH = 1 << 17  # the chunked T >= 2^18 stage forms are not ported
+
+
+@functools.lru_cache(maxsize=None)
+def _class_constants_t(t_len: int, blowup: int, device):
+    """Proof-independent device tensors for one (T, blowup, device):
+    class coset bases and their NTT scales, periodic patterns, and the
+    composition's domain factors ee = (x-e1)(x-e2)/(x^T-1), i0 = 1/(x-1),
+    i1 = 1/(x-x_last) per class — the hot path inverts nothing."""
+    d = t_len * blowup
+    offset = f128.DOMAIN_OFFSET
+    g_trace = f128.get_root_of_unity(t_len)
+    w_d = f128.get_root_of_unity(d)
+    bases = [f128.fmul(offset, pow(w_d, r, f128.P)) for r in range(blowup)]
+    s_t = pow(offset, t_len, f128.P)
+    w_b = f128.get_root_of_unity(blowup)
+    inv_xt = [f128.finv(f128.fsub(f128.fmul(s_t, pow(w_b, r, f128.P)), 1)) for r in range(blowup)]
+    e1 = pow(g_trace, t_len - 1, f128.P)
+    e2 = pow(g_trace, t_len - 2, f128.P)
+    x_last = pow(g_trace, t_len - NUM_EXEMPTIONS, f128.P)
+
+    mask_cls, ark_cls = periodic_class_patterns(t_len, blowup)
+    col = lambda v: ft.const_col(v, device)
+    w_t = ttensor(g_trace, device)
+    ee, den0, den1 = [], [], []
+    for r in range(blowup):
+        x_r = nt.ladder_t(w_t, ttensor(bases[r], device), t_len)  # class points
+        ex = ft.fmul(ft.fsub(x_r, col(e1)), ft.fsub(x_r, col(e2)))
+        ee.append(ft.fmul(ex, col(inv_xt[r])))
+        den0.append(ft.fsub(x_r, col(1)))
+        den1.append(ft.fsub(x_r, col(x_last)))
+    inv = ft.batch_inverse(torch.stack(den0 + den1))  # (2B, 8, T)
+    class_bases_t = tensor(bases, device)  # (B, 8)
+    return dict(
+        d=d,
+        g_trace=g_trace,
+        w_d=w_d,
+        class_bases_t=class_bases_t,
+        class_scales=[nt.class_scale(class_bases_t[r], t_len) for r in range(blowup)],
+        mask_cls_t=from_numpy(np.swapaxes(mask_cls, -1, -2), device),  # (B, 8, 16)
+        ark_cls_t=from_numpy(np.swapaxes(ark_cls, -1, -2), device),  # (B, 8, 8, 16)
+        ee_cls_t=torch.stack(ee),
+        i0_cls_t=inv[:blowup],
+        i1_cls_t=inv[blowup:],
+        inv_off_t=nt.ladder_t_host(f128.finv(offset), d, device=device),  # (8, D)
+    )
+
+
+def _class_ntt(coeffs_t, dct, r):
+    return nt.class_ntt_t(coeffs_t, dct["class_bases_t"][r], dct["class_scales"][r])
+
+
+def _interleave(per_class):
+    """B class tensors (8, T) -> (8, D) in domain order i = r + B*k."""
+    return torch.stack(per_class, dim=-1).reshape(8, -1)
+
+
+def _commit_classes(coeffs_t, dct):
+    """Row hashes of every class's coset evaluations -> Merkle heap over
+    the domain-ordered leaves."""
+    digs = [b3t.hash_rows_t(_class_ntt(coeffs_t, dct, r)) for r in range(len(dct["class_scales"]))]
+    return merkle_flat(_interleave(digs).transpose(0, 1))
+
+
+def _stage_trace_commit_t(cols_t, dct):
+    """(28, 8, T) transposed trace -> (coefficients, Merkle heap)."""
+    coeffs_t = nt.intt_t(cols_t)
+    return coeffs_t, _commit_classes(coeffs_t, dct)
+
+
+def _stage_composition_t(coeffs_t, dct, alphas, bv0, bb0, bv1, bb1, delta, bcols0, bcols1):
+    """Constraint composition per class; returns (8, D) evaluations."""
+    q = []
+    for r in range(len(dct["class_scales"])):
+        lde = _class_ntt(coeffs_t, dct, r)
+        q.append(
+            cp.composition_t(
+                lde, dct["mask_cls_t"][r], dct["ark_cls_t"][r], dct["ee_cls_t"][r],
+                dct["i0_cls_t"][r], dct["i1_cls_t"][r], alphas, bv0, bb0, bv1, bb1,
+                delta, bcols0, bcols1,
+            )
+        )
+    return _interleave(q)
+
+
+def _stage_comp_commit_t(comp_t, dct):
+    """(8, D) composition evaluations -> (h coefficients (8, 8, T), heap)."""
+    d = comp_t.shape[-1]
+    t = d // NUM_COMP_COLUMNS
+    coeffs = ft.fmul(nt.intt_t(comp_t), dct["inv_off_t"])  # (8, D)
+    h_t = coeffs.reshape(8, t, NUM_COMP_COLUMNS).permute(2, 0, 1).contiguous()
+    return h_t, _commit_classes(h_t, dct)
+
+
+def _deep_quotient_t(a_t, zlad, zinvlad):
+    """Coefficients of (A(x) - A(z)) / (x - z) from A's coefficients:
+    c_i = z^-(i+1) * sum_{j>i} a_j z^j.  The suffix sums are a Hillis-Steele
+    scan of exact modular adds; zlad[i] = z^i, zinvlad[i] = z^-(i+1)."""
+    u = ft.fmul(a_t, zlad)
+    n = u.shape[-1]
+    s = u
+    step = 1
+    while step < n:
+        s = ft.fadd(s, torch.nn.functional.pad(s[..., step:], (0, step)))
+        step *= 2
+    return ft.fmul(ft.fsub(s, u), zinvlad)
+
+
+def _stage_deep_t(coeffs_t, h_t, gammas_t, deltas_t, epsilons_t, z, zg, zm, dct):
+    """DEEP witness Y over the domain, (8, D): three synthetic-division
+    quotients combined in coefficient space, one coset NTT per class."""
+    t = coeffs_t.shape[-1]
+    dev = coeffs_t.device
+    a = ft.fsum(ft.fmul(coeffs_t, gammas_t[:, :, None]), axis=0)
+    b = ft.fsum(ft.fmul(coeffs_t, deltas_t[:, :, None]), axis=0)
+    h = ft.fsum(ft.fmul(h_t, epsilons_t[:, :, None]), axis=0)
+    one = ttensor(1, dev)
+    y = None
+    for poly, pt in ((a, z), (b, zg), (h, zm)):
+        pl, pil = ttensor(pt, dev), ttensor(f128.finv(pt), dev)
+        quo = _deep_quotient_t(poly, nt.ladder_t(pl, one, t), nt.ladder_t(pil, pil, t))
+        y = quo if y is None else ft.fadd(y, quo)
+    return _interleave([_class_ntt(y, dct, r) for r in range(len(dct["class_scales"]))])
+
+
+def _assemble_proof(t_len, options, trace_tree, comp_tree, ood_cur, ood_nxt, ood_comp,
+                    fri, nonce, positions, trace_rows, trace_paths, comp_rows, comp_paths, d):
+    proof = Proof(
+        trace_length=t_len,
+        trace_width=TRACE_WIDTH,
+        num_queries=options.num_queries,
+        blowup=options.blowup,
+        grinding_factor=options.grinding_factor,
+        fri_folding_factor=options.fri_folding_factor,
+        fri_remainder_max_degree=options.fri_remainder_max_degree,
+        trace_root=trace_tree.root,
+        comp_root=comp_tree.root,
+        ood_trace_cur=ood_cur,
+        ood_trace_nxt=ood_nxt,
+        ood_comp=ood_comp,
+        fri_roots=[t.root for t in fri.trees],
+        fri_remainder=fri.remainder,
+        pow_nonce=nonce,
+    )
+    for p, trow, tpath, crow, cpath in zip(positions, trace_rows, trace_paths, comp_rows, comp_paths):
+        proof.queries.append(
+            QueryOpening(position=p, trace_row=trow, trace_path=tpath, comp_row=crow, comp_path=cpath)
+        )
+    # FRI openings per layer
+    size = d
+    layer_positions = list(positions)
+    for layer_idx, tree in enumerate(fri.trees):
+        group_idx = sorted(set(p % (size // FOLD) for p in layer_positions))
+        gathered = from_limbs(gather_groups(fri, layer_idx, group_idx))
+        groups_host = {j: [int(v) for v in g] for j, g in zip(group_idx, gathered)}
+        paths_host = dict(zip(group_idx, tree.open_many(group_idx)))
+        layer = []
+        folded = []
+        for p in layer_positions:
+            j = p % (size // FOLD)
+            layer.append(FriLayerOpening(group=groups_host[j], path=paths_host[j]))
+            folded.append(j)
+        proof.fri_openings.append(layer)
+        layer_positions = folded
+        size //= FOLD
+    return proof
+
+
+def _trace_limbs_t(trace) -> np.ndarray:
+    """(28, 8, T) uint32 limbs of an ExecutionTrace, converted from its
+    columns once and kept on the trace (as ``ExecutionTrace.as_limbs``
+    does, without its JAX import)."""
+    if trace.limbs is None:
+        trace.limbs = to_limbs(trace.columns)  # (28, T, 8)
+    return np.ascontiguousarray(np.swapaxes(np.asarray(trace.limbs), 1, 2))
+
+
+class _Stages:
+    """Per-stage wall clock, when asked for: the device is synchronised at
+    the end of each stage, so a stage's time includes its kernels."""
+
+    def __init__(self, seconds, device):
+        self.seconds = seconds
+        self.sync = torch.device(device).type == "cuda"
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        if self.seconds is None:
+            yield
+            return
+        t0 = time.perf_counter()
+        yield
+        if self.sync:
+            torch.cuda.synchronize()
+        self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+
+
+def prove(trace, pub_inputs: PublicInputs, options: ProofOptions = ProofOptions(),
+          device="cpu", stage_seconds=None) -> Proof:
+    """Prove an execution trace on ``device``.
+
+    ``stage_seconds``: a dict to receive each stage's wall-clock seconds
+    (the device is synchronised per stage only when it is given)."""
+    t_len = trace.length
+    if t_len > MAX_TRACE_LENGTH:
+        raise ValueError(f"trace length {t_len} > {MAX_TRACE_LENGTH} is not supported yet")
+    device = torch.device(device)
+    blowup = options.blowup
+    delta = pub_inputs.server_key.parameters.delta
+    stage = _Stages(stage_seconds, device)
+    with stage("constants"):
+        dct = _class_constants_t(t_len, blowup, device)
+    d = dct["d"]
+
+    assertions = get_assertions(pub_inputs, t_len)
+    bcols0 = tuple(c for (c, s, _) in assertions if s == 0)
+    bcols1 = tuple(c for (c, s, _) in assertions if s != 0)
+
+    # ---- 1. trace LDE + commitment -----------------------------------
+    with stage("trace_commit"):
+        cols_t = from_numpy(_trace_limbs_t(trace), device)
+        coeffs_t, trace_nodes = _stage_trace_commit_t(cols_t, dct)
+        trace_tree = DeviceMerkleTree(trace_nodes)
+        del cols_t
+        trace_root = trace_tree.root
+
+    coin = RandomCoin(wire.coin_seed(t_len, TRACE_WIDTH, options, pub_inputs))
+    coin.reseed(trace_root)
+    alphas = coin.draw_elements(NUM_TRANSITION_CONSTRAINTS)
+    betas = coin.draw_elements(NUM_ASSERTIONS)
+
+    # ---- 2. constraint composition -----------------------------------
+    vals0 = [v for (c, s, v) in assertions if s == 0]
+    vals1 = [v for (c, s, v) in assertions if s != 0]
+    b0 = [b for (c, s, v), b in zip(assertions, betas) if s == 0]
+    b1 = [b for (c, s, v), b in zip(assertions, betas) if s != 0]
+    with stage("composition"):
+        comp_t = _stage_composition_t(
+            coeffs_t, dct, tensor(alphas, device), tensor(vals0, device), tensor(b0, device),
+            tensor(vals1, device), tensor(b1, device), delta, bcols0, bcols1,
+        )
+
+    # ---- 3. composition commitment -----------------------------------
+    with stage("comp_commit"):
+        h_t, comp_nodes = _stage_comp_commit_t(comp_t, dct)
+        comp_tree = DeviceMerkleTree(comp_nodes)
+        del comp_t
+        comp_root = comp_tree.root
+    coin.reseed(comp_root)
+
+    # ---- 4. OOD frame -------------------------------------------------
+    z = coin.draw()
+    zg = f128.fmul(z, dct["g_trace"])
+    z_m = pow(z, NUM_COMP_COLUMNS, f128.P)
+    with stage("ood"):
+        ood_cur, ood_nxt = me.multi_eval_rows(coeffs_t, [z, zg])
+        coin.reseed_with_elements(ood_cur + ood_nxt)
+        ood_comp = me.multi_eval_rows(h_t, [z_m])[0]
+        coin.reseed_with_elements(ood_comp)
+
+    # winterfell 0.9 DEEP coefficients: one per trace column (shared by the
+    # z and z*g terms) and one per composition column
+    gammas = coin.draw_elements(TRACE_WIDTH)
+    deltas = gammas
+    epsilons = coin.draw_elements(NUM_COMP_COLUMNS)
+
+    # ---- 5. DEEP ------------------------------------------------------
+    with stage("deep"):
+        y_t = _stage_deep_t(
+            coeffs_t, h_t, tensor(gammas, device), tensor(deltas, device),
+            tensor(epsilons, device), z, zg, z_m, dct,
+        )
+
+    # ---- 6. FRI -------------------------------------------------------
+    with stage("fri"):
+        fri = fri_prove_t(coin, y_t, f128.DOMAIN_OFFSET, options)
+
+    nonce = 0
+    while coin.leading_zeros(nonce) < options.grinding_factor:
+        nonce += 1
+    # winterfell sorts and deduplicates the drawn positions
+    positions = sorted(set(coin.draw_integers(options.num_queries, d, nonce)))
+
+    # ---- 7. queries ---------------------------------------------------
+    with stage("queries"):
+        x_pts = [f128.fmul(f128.DOMAIN_OFFSET, pow(dct["w_d"], p, f128.P)) for p in positions]
+        trace_rows = me.multi_eval_rows(coeffs_t, x_pts)
+        comp_rows = me.multi_eval_rows(h_t, x_pts)
+        trace_paths = trace_tree.open_many(positions)
+        comp_paths = comp_tree.open_many(positions)
+        proof = _assemble_proof(
+            t_len, options, trace_tree, comp_tree, ood_cur, ood_nxt, ood_comp,
+            fri, nonce, positions, trace_rows, trace_paths, comp_rows, comp_paths, d,
+        )
+    return proof

@@ -1,0 +1,70 @@
+"""Top-level API: run, prove and verify a program on PyTorch / CUDA.
+
+Port of ``zkvm.vm``: ``prove(program, inputs, device=...)`` executes the
+program with the JAX package's golden processor (pure Python), builds the
+28-column trace and proves it with the T-mode pipeline on ``device``,
+using the reference parameter preset by default (32 queries, blowup 8,
+grinding 0, FRI fold 8, remainder degree <= 127).
+
+The host-side types a caller builds its inputs from (program, inputs, FHE
+key and parameters, public inputs and the AIR's assertions) come from the
+JAX package's JAX-free modules and are re-exported here, so a caller needs
+to import nothing but :mod:`zkvm_torch`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+from zkvm.air.layout import PublicInputs, get_assertions
+from zkvm.fhe import ServerKey
+from zkvm.fhe.lwe import DEMO_PARAMETERS
+from zkvm.isa import Program, ProgramInputs
+from zkvm.processor import Processor
+from zkvm_torch.prover import Proof, ProofOptions
+from zkvm_torch.prover.pipeline import prove as stark_prove
+from zkvm_torch.verifier import verify as stark_verify
+from zkvm_torch.verifier import verify_bytes as stark_verify_bytes
+
+DEFAULT_SEED = 0xD15EA5E  # randomizer-row seed, as the JAX package's default
+MIN_SECURITY = 95  # AcceptableOptions::MinConjecturedSecurity(95)
+BENCH_N_OPS = 20000  # the bench's primary configuration: T = 2^16
+
+
+def read_add_chain(n_ops: int, key) -> Tuple[Program, ProgramInputs]:
+    """The bench's primary program (``bench.py::_read_add_trace``): READ
+    public inputs and an ADD chain; n_ops = 20000 gives T = 2^16."""
+    ops = ["read"] + ["read", "add"] * ((n_ops - 1) // 2)
+    return Program.compile("\n".join(ops)), ProgramInputs(tuple([1] * (n_ops // 2 + 2)), (), key)
+
+
+def run(program: Program, inputs: ProgramInputs):
+    """Execute a program; returns its ExecutionTrace."""
+    return Processor.run(program, inputs).trace(seed=DEFAULT_SEED)
+
+
+def prove(
+    program: Program,
+    inputs: ProgramInputs,
+    options: Optional[ProofOptions] = None,
+    device="cpu",
+) -> Tuple[tuple, tuple, Proof]:
+    """Prove a program run; returns (program_hash, stack_outputs, proof)."""
+    trace = run(program, inputs)
+    pub = PublicInputs(program.hash, trace.outputs, inputs.server_key)
+    proof = stark_prove(trace, pub, options or ProofOptions(), device=device)
+    return program.hash, trace.outputs, proof
+
+
+def verify(proof: Proof, program_hash: tuple, stack_outputs: tuple, server_key,
+           min_security: int = MIN_SECURITY):
+    """Raises VerificationError when the proof does not check out."""
+    pub = PublicInputs(tuple(program_hash), tuple(stack_outputs), server_key)
+    stark_verify(proof, pub, min_security)
+
+
+def verify_bytes(proof_bytes: bytes, program_hash: tuple, stack_outputs: tuple, server_key,
+                 min_security: int = MIN_SECURITY):
+    """Verify a proof in the winterfell wire format."""
+    pub = PublicInputs(tuple(program_hash), tuple(stack_outputs), server_key)
+    stark_verify_bytes(proof_bytes, pub, min_security)
