@@ -42,7 +42,7 @@ def test_merkle_heap_matches_reference():
     got = tmerkle.merkle_flat(from_numpy(leaves))
     np.testing.assert_array_equal(to_numpy(got), want)
     np.testing.assert_array_equal(
-        to_numpy(tmerkle.merge(from_numpy(leaves[0::2]), from_numpy(leaves[1::2]))), want[32:64]
+        to_numpy(tmerkle.merge_t(from_numpy(leaves[0::2]), from_numpy(leaves[1::2]))), want[32:64]
     )
 
 

@@ -76,3 +76,30 @@ def test_composition_emulated(emu):
     got = tcp.launch_composition(emu, 0, *args, delta, bcols0, bcols1)
     want = tcp.composition_t(*args, delta, bcols0, bcols1)
     np.testing.assert_array_equal(to_numpy(got), to_numpy(want))
+
+
+@pytest.mark.parametrize("domain", ["full", "class"])
+def test_transition_emulated(emu, domain):
+    """K4 over the full domain (next row +blowup, period-16*blowup tables)
+    and over one class (next row +1, 16-step patterns); the last ``step``
+    rows read rows 0 .. step-1 (wrap-around)."""
+    from zkvm_torch.air import periodic as tper
+    from zkvm_torch.air import transition as ttr
+
+    t, blowup = 32, 4
+    rng = np.random.default_rng(41 if domain == "full" else 42)
+    if domain == "full":
+        n, step = t * blowup, blowup
+        tab = from_numpy(tper.periodic_table(t, blowup))
+        mask, ark = tab[0], tab[1:].contiguous()
+    else:
+        n, step = t, 1
+        mask_p, ark_p = tper.periodic_class_patterns(t, blowup)
+        mask = from_numpy(np.ascontiguousarray(np.swapaxes(mask_p[1], -1, -2)))
+        ark = from_numpy(np.ascontiguousarray(np.swapaxes(ark_p[1], -1, -2)))
+    lde = from_numpy(rand_limbs(rng, (28, 8, n)))
+    alphas = from_numpy(np.ascontiguousarray(np.swapaxes(rand_limbs(rng, (8, 20)), 0, 1)))
+    got = to_numpy(ttr.launch_transition(emu, 0, lde, mask, ark, alphas, 12345, step))
+    want = to_numpy(ttr.merged_transition(lde, mask, ark, alphas, 12345, step))
+    np.testing.assert_array_equal(got[:, n - step:], want[:, n - step:])  # the wrap-around rows
+    np.testing.assert_array_equal(got, want)

@@ -2,10 +2,12 @@
 evaluation, the DEEP quotient and the FRI fold (exact equality on inputs
 from numpy seeds), and the copied host modules against their originals."""
 
+import random
 from pathlib import Path
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 import torch
 
 from zkvm.field import f128
@@ -91,20 +93,108 @@ def _code_lines(path, strip_header):
     return lines
 
 
-def test_copied_host_modules_equal_originals():
+# The copies of the JAX package's host modules in zkvm_torch/ (the port
+# imports nothing of zkvm), as (original, copy) under zkvm/ and zkvm_torch/.
+_COPIES = [(f"prover/{m}.py",) * 2 for m in ("options", "proof", "transcript", "wire")] + [
+    (m, m) for m in (
+        "verifier/verifier.py", "field/f128.py", "hash/blake3.py", "hash/rescue.py",
+        "air/layout.py", "air/constraints_golden.py", "ntt/golden.py", "utils/serde.py",
+        "fhe/__init__.py", "fhe/lwe.py", "isa/__init__.py", "isa/opcodes.py", "isa/program.py",
+        "processor/__init__.py", "processor/golden.py",
+    )
+]
+
+# The named deviations, per copy: (lines of the original, lines of the copy).
+_DEVIATIONS = {
+    # the native fast path is deleted (it produced the same digest)
+    "isa/program.py": [(
+        [
+            '    """Rescue-Prime program hash; native fast path for large programs."""',
+            "    if len(code) >= 256:",
+            "        try:",
+            "            from zkvm.runtime.native import program_hash",
+            "",
+            "            digest = program_hash(code)",
+            "            if digest is not None:",
+            "                return digest",
+            "        except Exception:",
+            "            pass",
+        ],
+        ['    """Rescue-Prime program hash, by the Python sponge for every length."""'],
+    )],
+    # the limb conversions come from zkvm_torch.field.limbs, not jax_f128
+    "processor/golden.py": [
+        ([f"            from zkvm.field.jax_f128 import {f}"],
+         [f"            from zkvm_torch.field.limbs import {f}"])
+        for f in ("to_limbs", "from_limbs")
+    ],
+}
+
+
+def _apply(lines, old, new):
+    hits = [i for i in range(len(lines)) if lines[i:i + len(old)] == old]
+    assert len(hits) == 1, old[0]
+    return lines[: hits[0]] + new + lines[hits[0] + len(old):]
+
+
+@pytest.mark.parametrize("orig,copy", _COPIES, ids=[c for _, c in _COPIES])
+def test_copied_host_modules_equal_originals(orig, copy):
     """Each copy is its original with only import lines rewritten from
-    zkvm.* to zkvm_torch.* (below a comment header)."""
-    pairs = [(f"zkvm/prover/{m}.py", f"zkvm_torch/prover/{m}.py") for m in
-             ("options", "proof", "transcript", "wire")]
-    pairs.append(("zkvm/verifier/verifier.py", "zkvm_torch/verifier/verifier.py"))
-    for orig, copy in pairs:
-        a = _code_lines(REPO / orig, False)
-        b = _code_lines(REPO / copy, True)
-        assert len(a) == len(b), copy
-        changed = 0
-        for la, lb in zip(a, b):
-            if la != lb:
-                assert lb.lstrip().startswith(("from ", "import ")), (copy, lb)
-                assert lb.replace("zkvm_torch.", "zkvm.") == la, (copy, lb)
-                changed += 1
-        assert changed > 0 or copy.endswith(("options.py", "transcript.py"))
+    zkvm.* to zkvm_torch.* (below a comment header), apart from the named
+    deviations."""
+    a = _code_lines(REPO / "zkvm" / orig, False)
+    b = _code_lines(REPO / "zkvm_torch" / copy, True)
+    for old, new in _DEVIATIONS.get(copy, []):
+        a = _apply(a, old, new)
+    assert len(a) == len(b), copy
+    for la, lb in zip(a, b):
+        if la != lb:
+            assert lb.lstrip().startswith(("from ", "import ")), (copy, lb)
+            assert lb.replace("zkvm_torch.", "zkvm.") == la, (copy, lb)
+
+
+def test_copied_merkle_tree_equals_original():
+    """zkvm_torch/hash/merkle.py ends with zkvm/hash/merkle.py's host
+    MerkleTree, word for word."""
+    a = (REPO / "zkvm/hash/merkle.py").read_text()
+    b = (REPO / "zkvm_torch/hash/merkle.py").read_text()
+    assert b[b.index("class MerkleTree:"):] == a[a.index("class MerkleTree:"):]
+
+
+def test_limb_conversions_equal_jax_f128():
+    """The processor copy's deviation: zkvm_torch.field.limbs gives the
+    arrays jax_f128 gives, for values, for a trace and back."""
+    from zkvm.field import jax_f128 as jf
+    from zkvm.processor import ExecutionTrace as JaxTrace
+    from zkvm.processor import Processor as JaxProcessor
+    from zkvm_torch import vm
+    from zkvm_torch.field import limbs
+    from zkvm_torch.processor import ExecutionTrace
+
+    vals = [int(v) for v in _vals(7, (40,))] + [0, 1, f128.P - 1, f128.P, 2**128 - 1]
+    np.testing.assert_array_equal(limbs.to_limbs(vals), jf.to_limbs(vals))
+    arr = jf.to_limbs(vals)
+    assert list(limbs.from_limbs(arr)) == list(jf.from_limbs(arr))
+    assert limbs.from_limbs(arr[3]) == jf.from_limbs(arr[3])
+
+    import zkvm.isa
+
+    source = "\n".join(["read"] + ["read", "add"] * 19)
+    key = vm.ServerKey(vm.DEMO_PARAMETERS, random.Random(1))
+    port = vm.run(vm.Program.compile(source), vm.ProgramInputs((1,) * 22, (), key))
+    jax_inputs = zkvm.isa.ProgramInputs((1,) * 22, (), key)
+    jax_trace = JaxProcessor.run(zkvm.isa.Program.compile(source), jax_inputs).trace(seed=vm.DEFAULT_SEED)
+    np.testing.assert_array_equal(port.as_limbs(), jax_trace.as_limbs())
+    cols = ExecutionTrace(None, port.program_hash, port.outputs, limbs=port.as_limbs())._materialize_columns()
+    want = JaxTrace(None, port.program_hash, port.outputs, limbs=port.as_limbs())._materialize_columns()
+    assert cols == want == port.columns
+
+
+def test_program_hash_equals_reference_past_256_ops():
+    """The program copy's deviation: without the native fast path, a
+    program of 256 ops or more hashes to the reference's digest."""
+    import zkvm.isa
+    from zkvm_torch.isa import Program
+
+    source = "\n".join(["push.1"] + ["push.2", "add"] * 150)
+    assert Program.compile(source).hash == zkvm.isa.Program.compile(source).hash

@@ -1,28 +1,35 @@
-"""zkvm_torch: the zkvm T-mode STARK prover on PyTorch and CUDA (Hopper).
+"""zkvm_torch: the zkvm STARK prover on PyTorch and CUDA (Hopper).
 
-A port of the transposed-layout, class-decomposed prover of the JAX package
-:mod:`zkvm` (``zkvm/prover/pipeline.py::_prove_t``).  The JAX package stays
-the reference: every tensor, Merkle root, transcript draw and proof byte of
-this package is equal to the reference's (the field arithmetic is exact).
+A port of the JAX package :mod:`zkvm`'s prover in two layouts: the
+transposed, class-decomposed "T-mode" (``zkvm/prover/pipeline.py::
+_prove_t``) and the full-LDE "mono" prover (``prove`` with
+``ZKVM_CLASS=0``).  The JAX package stays the reference: every tensor,
+Merkle root, transcript draw and proof byte of this package is equal to the
+reference's (the field arithmetic is exact), and both modes give the same
+bytes.
 
 Layer map (mirrors :mod:`zkvm`):
 
-  field/     f128 limb arithmetic in the transposed (..., 8, N) layout
+  field/     f128 limb arithmetic in the transposed (..., 8, N) layout, and
+             the golden field
   ntt/       four-step NTT; the stage network is CUDA kernel K1
-  hash/      SoA BLAKE3 row hash (CUDA kernel K2) and the Merkle heap
-  air/       periodic columns; the fused composition (CUDA kernel K3)
-  prover/    the T-mode pipeline, FRI, multi-point evaluation, and copies
-             of the JAX package's host modules (options, proof, transcript,
-             wire)
-  verifier/  copy of the JAX package's host verifier
+  hash/      SoA BLAKE3 row hash (CUDA kernel K2), the Merkle heap, and the
+             golden BLAKE3 and Rescue
+  air/       layout, golden constraints and periodic columns; the fused
+             composition (CUDA kernel K3) and the merged transition (K4)
+  prover/    the T-mode and mono pipelines, FRI, multi-point evaluation,
+             options, proof, transcript and wire format
+  verifier/  the host verifier
+  isa/, processor/, fhe/, utils/  assembler, golden processor, LWE, serde
   csrc/      the CUDA C++ sources, built with nvcc at first use
+  convert.py build the port's trace, key and public inputs from plain data
   vm.py      prove / verify a program
 
 Limbs are ``torch.int32`` tensors holding 16-bit values, laid out
 ``(..., 8, N)``: the same bits as the reference's ``uint32`` arrays.  The
-package never imports JAX; it imports only those :mod:`zkvm` modules that
-load without it (field golden, hashes, ISA, FHE, processor, AIR layout and
-golden constraints, golden NTT, serde).
+package imports neither JAX nor :mod:`zkvm`: the host modules it shares
+with the reference are its own copies, each pinned to its original by
+``tests/test_torch_prover.py``.
 """
 
 __version__ = "0.1.0"

@@ -1,1 +1,2 @@
-"""AIR layer: periodic columns and the fused composition (kernel K3)."""
+"""AIR layer: layout, golden constraints, periodic columns, the fused
+composition (kernel K3) and the merged transition (kernel K4)."""

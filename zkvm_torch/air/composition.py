@@ -3,7 +3,8 @@ domain factor and the boundary groups, over (28, 8, T) limbs.
 
 Port of ``zkvm.air.constraints_pallas`` (``merged_transition_t``,
 ``composition_body_t``, ``composition_t``) and of the MDS constants of
-``zkvm.hash.rescue_jax``.  :func:`composition_t` is kernel K3
+``zkvm.hash.rescue_jax``.  :func:`merged_transition_t` is also the plain
+version of kernel K4 (:mod:`zkvm_torch.air.transition`).  :func:`composition_t` is kernel K3
 (``csrc/composition.cu``) for CUDA tensors and :func:`composition_body_t`
 in plain PyTorch for CPU tensors.  Unlike the reference, it takes the
 periodic columns as their 16-step patterns (8, 16) / (8, 8, 16): the kernel
@@ -14,9 +15,9 @@ from __future__ import annotations
 
 import torch
 
-from zkvm.air.constraints_golden import LWE_SIZE
-from zkvm.air.layout import Columns
-from zkvm.hash import rescue
+from zkvm_torch.air.constraints_golden import LWE_SIZE
+from zkvm_torch.air.layout import Columns
+from zkvm_torch.hash import rescue
 from zkvm_torch import kernels
 from zkvm_torch.field import f128t as ft
 from zkvm_torch.field.limbs import from_numpy, to_limbs
@@ -136,21 +137,24 @@ def merged_transition_t(cur, nxt, mask, ark, mds, inv_mds, alphas, delta):
     return acc
 
 
+def boundary_group(cur, cols, bvals, bbetas):
+    """sum_j (cur[cols_j] - bvals_j) * bbetas_j as (8, N); cur (28, 8, N),
+    bvals/bbetas (k, 8).  One column at a time, so the limb products never
+    span more than one (8, N) column."""
+    acc = torch.zeros_like(cur[0])
+    for slot, c in enumerate(cols):
+        term = ft.fmul(ft.fsub(cur[c], bvals[slot][:, None]), bbetas[slot][:, None])
+        acc = ft.fadd(acc, term)
+    return acc
+
+
 def composition_body_t(cur, nxt, mask, ark, ee, i0, i1, mds, inv_mds, alphas,
                        bvals0, bbetas0, bvals1, bbetas1, delta, bcols0, bcols1):
     """Per-class composition value (8, N), plain PyTorch: the merged
     transition value x ee, plus boundary group 0 x i0 and group 1 x i1."""
     q = ft.fmul(merged_transition_t(cur, nxt, mask, ark, mds, inv_mds, alphas, delta), ee)
-
-    def group(cols, bvals, bbetas):
-        acc = torch.zeros_like(ee)
-        for slot, c in enumerate(cols):
-            term = ft.fmul(ft.fsub(cur[c], bvals[slot][:, None]), bbetas[slot][:, None])
-            acc = ft.fadd(acc, term)
-        return acc
-
-    q = ft.fadd(q, ft.fmul(group(bcols0, bvals0, bbetas0), i0))
-    return ft.fadd(q, ft.fmul(group(bcols1, bvals1, bbetas1), i1))
+    q = ft.fadd(q, ft.fmul(boundary_group(cur, bcols0, bvals0, bbetas0), i0))
+    return ft.fadd(q, ft.fmul(boundary_group(cur, bcols1, bvals1, bbetas1), i1))
 
 
 # ---------------------------------------------------------------------------

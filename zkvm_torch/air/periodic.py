@@ -1,10 +1,12 @@
 """Periodic columns (CYCLE_MASK + 8 ARK columns) on the host.
 
-Port of ``zkvm.air.periodic.periodic_class_patterns`` and ``periodic_at``
-with numpy and the JAX package's golden Rescue constants and NTT.  A
-periodic column with a 16-step cycle has interpolant poly16(x^(T/16)); on
-the LDE coset its values restricted to one blowup class repeat with literal
-period 16 in the class index, so a class's column is one 16-value pattern.
+Port of ``zkvm.air.periodic`` with numpy and the golden Rescue constants
+and NTT.  A periodic column with a 16-step cycle has interpolant
+poly16(x^(T/16)); on the LDE coset its values repeat with period
+16 * blowup, so the full domain needs one table of that length
+(:func:`periodic_table`), and its values restricted to one blowup class
+repeat with literal period 16 in the class index, so a class's column is
+one 16-value pattern (:func:`periodic_class_patterns`).
 """
 
 from __future__ import annotations
@@ -13,10 +15,10 @@ import functools
 
 import numpy as np
 
-from zkvm.air.layout import CYCLE_MASK
-from zkvm.field import f128
-from zkvm.hash.rescue import get_round_constants
-from zkvm.ntt import golden as gntt
+from zkvm_torch.air.layout import CYCLE_MASK
+from zkvm_torch.field import f128
+from zkvm_torch.hash.rescue import get_round_constants
+from zkvm_torch.ntt import golden as gntt
 from zkvm_torch.field.limbs import to_limbs
 
 CYCLE = 16
@@ -29,6 +31,22 @@ def _periodic_small(trace_len: int, blowup: int) -> np.ndarray:
     cols = [CYCLE_MASK] + get_round_constants()
     out = [gntt.coset_lde(gntt.intt(list(c)), blowup, offset) for c in cols]
     return to_limbs(out)
+
+
+def periodic_table(trace_len: int, blowup: int) -> np.ndarray:
+    """(9, 8, 16*blowup) transposed uint32 limbs: CYCLE_MASK then the 8 ARK
+    columns over one period of the LDE domain (domain point i reads i mod
+    16*blowup)."""
+    return np.ascontiguousarray(np.swapaxes(_periodic_small(trace_len, blowup), -1, -2))
+
+
+def periodic_lde(trace_len: int, blowup: int):
+    """The tables tiled over the domain D = trace_len * blowup: mask (8, D)
+    and ark (8, 8, D) transposed limbs (``zkvm.air.periodic.periodic_lde``
+    in the transposed layout)."""
+    tab = periodic_table(trace_len, blowup)
+    tiled = np.tile(tab, (1, 1, trace_len // CYCLE))
+    return tiled[0], tiled[1:]
 
 
 def periodic_class_patterns(trace_len: int, blowup: int):

@@ -1,1 +1,2 @@
-"""f128 field layer: limb conversion and transposed-layout limb arithmetic."""
+"""f128 field layer: the golden field, limb conversion and transposed-layout
+limb arithmetic."""

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from zkvm.field import f128
+from zkvm_torch.field import f128
 from .limbs import MASK, NLIMBS
 
 EPS = 45 * 2**40 - 1  # 2^128 mod p

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from zkvm.field import f128
+from zkvm_torch.field import f128
 
 NLIMBS = 8
 LIMB_BITS = 16
@@ -47,7 +47,7 @@ def from_limbs(arr) -> np.ndarray:
         lo |= arr[..., i] << np.uint64(16 * i)
         hi |= arr[..., 4 + i] << np.uint64(16 * i)
     out = (hi.astype(object) << 64) | lo.astype(object)
-    if out.ndim == 0:
+    if np.ndim(out) == 0:  # numpy gives a bare int for a 0-d object result
         return int(out)
     return out
 

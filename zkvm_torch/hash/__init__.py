@@ -1,1 +1,2 @@
-"""Hash layer: SoA BLAKE3 row hashing (kernel K2) and the Merkle heap."""
+"""Hash layer: SoA BLAKE3 row hashing (kernel K2), the Merkle heap and host
+tree, and the golden BLAKE3 and Rescue."""

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from zkvm.hash.blake3 import CHUNK_END, CHUNK_START, IV, MSG_PERMUTATION, ROOT
+from zkvm_torch.hash.blake3 import CHUNK_END, CHUNK_START, IV, MSG_PERMUTATION, ROOT
 from zkvm_torch import kernels
 
 M32 = 0xFFFFFFFF

@@ -14,9 +14,10 @@ from __future__ import annotations
 
 from typing import List, Sequence
 
+import numpy as np
 import torch
 
-from zkvm.hash.blake3 import CHUNK_END, CHUNK_START, IV, ROOT
+from zkvm_torch.hash.blake3 import CHUNK_END, CHUNK_START, IV, ROOT, merge
 from zkvm_torch.field.limbs import to_numpy
 from .blake3_t import compress, M32
 
@@ -30,7 +31,7 @@ def _merge_t(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     return compress(cv, torch.cat([left, right], dim=0), 64, _MERGE_FLAGS)
 
 
-def merge(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+def merge_t(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     """Merkle node of (..., 8) digest pairs: hash of the 64-byte
     concatenation (``blake3_jax.merge``)."""
     shape = left.shape
@@ -90,3 +91,57 @@ class DeviceMerkleTree:
         return [
             [arr[k * d + t].tobytes() for t in range(d)] for k in range(len(positions))
         ]
+
+
+# Copy of zkvm/hash/merkle.py:137-186 (the host tree the verifier opens),
+# word for word; tests/test_torch_prover.py pins it to the original.
+class MerkleTree:
+    def __init__(self, levels: List[List[bytes]]):
+        self.levels = levels  # levels[0] = leaves ... levels[-1] = [root]
+
+    @staticmethod
+    def from_leaves(leaves: Sequence[bytes]) -> "MerkleTree":
+        n = len(leaves)
+        assert n & (n - 1) == 0, "leaf count must be a power of two"
+        levels = [list(leaves)]
+        cur = list(leaves)
+        while len(cur) > 1:
+            cur = [merge(cur[i], cur[i + 1]) for i in range(0, len(cur), 2)]
+            levels.append(cur)
+        return MerkleTree(levels)
+
+    @staticmethod
+    def from_device_levels(device_levels) -> "MerkleTree":
+        """Adopt levels computed by blake3_jax.merkle_levels."""
+        levels = []
+        for lv in device_levels:
+            arr = np.asarray(lv, dtype="<u4")
+            levels.append([arr[i].tobytes() for i in range(arr.shape[0])])
+        return MerkleTree(levels)
+
+    @property
+    def root(self) -> bytes:
+        return self.levels[-1][0]
+
+    @property
+    def depth(self) -> int:
+        return len(self.levels) - 1
+
+    def open(self, index: int) -> List[bytes]:
+        """Sibling digests from leaf to root (leaf itself not included)."""
+        path = []
+        for level in self.levels[:-1]:
+            path.append(level[index ^ 1])
+            index >>= 1
+        return path
+
+    @staticmethod
+    def verify(root: bytes, index: int, leaf: bytes, path: List[bytes]) -> bool:
+        node = leaf
+        for sibling in path:
+            if index & 1:
+                node = merge(sibling, node)
+            else:
+                node = merge(node, sibling)
+            index >>= 1
+        return node == root

@@ -1,8 +1,9 @@
 """Build and bind the CUDA kernels of ``zkvm_torch/csrc``.
 
 The kernels are compiled at first use, from the sources in the checkout,
-with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into one shared library
-with a plain C interface, and loaded with :mod:`ctypes`.  The library lands
+with ``nvcc -gencode arch=compute_90a,code=sm_90a`` (one nvcc per source,
+all started together, then one link) into one shared library with a plain
+C interface, and loaded with :mod:`ctypes`.  The library lands
 in ``zkvm_torch/build/`` under a name keyed by a digest of the sources and
 flags, so an edited source rebuilds and an unchanged one loads at once.
 
@@ -25,12 +26,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
-SOURCES = ("ntt_stages.cu", "blake3_rows.cu", "composition.cu")
-HEADERS = ("zk_common.cuh", "f128.cuh", "host_emu.h")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SOURCES = ("ntt_stages.cu", "blake3_rows.cu", "composition.cu", "transition.cu")
+HEADERS = ("zk_common.cuh", "f128.cuh", "transition.cuh", "host_emu.h")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,6 +43,8 @@ SIGNATURES = {
     # cur, mask, ark, ee, i0, i1, mds, imds, alphas, delta,
     # bv0, bb0, bc0, k0, bv1, bb1, bc1, k1, out, T, stream
     "zk_composition": (_P,) * 13 + (_I, _P, _P, _P, _I, _P, _L, _P),
+    # lde, mask, ark, mds, imds, alphas, delta, out, N, P, step, stream
+    "zk_transition": (_P,) * 8 + (_L, _L, _L, _P),
 }
 
 build_seconds = 0.0  # wall time of the last nvcc build in this process
@@ -73,21 +74,35 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernels (if this source digest is not built yet)."""
+    """Compile the kernels (if this source digest is not built yet): each
+    source to an object file, all at once, then link them."""
     global build_seconds, build_log
     so = library_path()
     if so.exists():
         return so
     BUILD.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    objs = [tmp.with_name(f"{Path(s).stem}.{os.getpid()}.o") for s in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)] for o, s in zip(objs, SOURCES)]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [(c, p.returncode) for c, p in zip(cmds, procs) if p.returncode != 0]
+    if not failed:
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *(str(o) for o in objs)]
+        res = subprocess.run(link, capture_output=True, text=True)
+        cmds.append(link)
+        logs.append(res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append((link, res.returncode))
     build_seconds = time.perf_counter() - t0
-    build_log = res.stdout + res.stderr
-    (BUILD / "nvcc.log").write_text(" ".join(cmd) + "\n" + build_log)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log[-4000:]}")
+    build_log = "\n".join(" ".join(c) + "\n" + log for c, log in zip(cmds, logs))
+    (BUILD / "nvcc.log").write_text(build_log)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed[0][1]}):\n{build_log[-4000:]}")
     os.replace(tmp, so)
     return so
 

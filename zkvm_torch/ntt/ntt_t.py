@@ -25,7 +25,7 @@ import functools
 import numpy as np
 import torch
 
-from zkvm.field import f128
+from zkvm_torch.field import f128
 from zkvm_torch import kernels
 from zkvm_torch.field import f128t as ft
 from zkvm_torch.field.limbs import from_numpy, to_limbs
@@ -377,3 +377,14 @@ def class_ntt_t(coeffs_t: torch.Tensor, base: torch.Tensor, scale=None) -> torch
     if scale is None:
         scale = class_scale(base, t)
     return _ntt_t_core(coeffs_t, False, scale_r1=scale)
+
+
+def coset_lde_t(coeffs_t: torch.Tensor, blowup: int, offset: int = f128.DOMAIN_OFFSET) -> torch.Tensor:
+    """Evaluate degree-<T polynomials (..., 8, T) on the whole coset
+    offset*<w_D>, D = blowup*T: (..., 8, D) in natural order
+    (``ntt_jax.coset_lde``).  Scale by the offset ladder, zero-pad to D and
+    run one size-D transform (pass 1 recurses past MAX_AXIS)."""
+    t = coeffs_t.shape[-1]
+    base = ft.const_col(offset, coeffs_t.device)[:, 0]
+    scaled = scale_by_ladder_t(coeffs_t, base, t)
+    return ntt_t(torch.nn.functional.pad(scaled, (0, (blowup - 1) * t)))

@@ -1,6 +1,6 @@
-"""Where the time of one T-mode prove goes, on a CUDA card.
+"""Where the time of one prove goes, on a CUDA card.
 
-    python -m zkvm_torch.profile_prove
+    python -m zkvm_torch.profile_prove [--mode tmode|mono]
 
 Proves the bench's READ/ADD chain (n_ops = 20000 gives T = 2^16) once to
 warm up, once with per-stage synchronised wall clocks, and once under
@@ -21,7 +21,7 @@ import time
 import torch
 
 from zkvm_torch import vm
-from zkvm_torch.prover.pipeline import prove
+from zkvm_torch.prover.pipeline import MODES, prove
 
 
 def _busy_seconds(events) -> float:
@@ -39,7 +39,9 @@ def _busy_seconds(events) -> float:
 
 
 def main():
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--mode", choices=MODES, default="tmode", help="the prover's stages")
+    mode = parser.parse_args().mode
     if not torch.cuda.is_available():
         raise SystemExit("profile_prove: no CUDA device")
     dev = torch.device("cuda", 0)
@@ -53,18 +55,18 @@ def main():
     trace = vm.run(program, inputs)
     pub = vm.PublicInputs(program.hash, trace.outputs, key)
 
-    prove(trace, pub, device=dev)  # warm-up: kernel build, device tables
+    prove(trace, pub, device=dev, mode=mode)  # warm-up: kernel build, device tables
     stages = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    prove(trace, pub, device=dev, stage_seconds=stages)
+    prove(trace, pub, device=dev, stage_seconds=stages, mode=mode)
     synced = time.perf_counter() - t0
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        prove(trace, pub, device=dev)
+        prove(trace, pub, device=dev, mode=mode)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -76,7 +78,7 @@ def main():
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
 
     print(json.dumps({
-        "card": smi, "trace_length": trace.length, "stage_seconds": stages,
+        "card": smi, "mode": mode, "trace_length": trace.length, "stage_seconds": stages,
         "synced_prove_seconds": synced, "profiled_prove_seconds": wall,
         "device_busy_seconds": busy, "device_idle_share": 1.0 - busy / wall,
         "device_kernels": len(kernels),

@@ -1,4 +1,5 @@
-"""Prover layer: the T-mode STARK pipeline on PyTorch and CUDA.
+"""Prover layer: the STARK pipeline on PyTorch and CUDA, in T-mode
+(``pipeline.py``) or full-LDE mode (``mono.py``).
 
 trace commit -> constraint composition -> composition commit -> OOD ->
 DEEP -> FRI -> queries, with the host-side Fiat-Shamir transcript of the

@@ -17,7 +17,7 @@ from typing import List
 import numpy as np
 import torch
 
-from zkvm.field import f128
+from zkvm_torch.field import f128
 from zkvm_torch.field import f128t as ft
 from zkvm_torch.field.limbs import from_t, to_numpy
 from zkvm_torch.hash import blake3_t as b3t

@@ -17,7 +17,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from zkvm.field import f128
+from zkvm_torch.field import f128
 from zkvm_torch.field.limbs import from_numpy, to_limbs
 from zkvm_torch.ntt import ntt_t as nt
 

@@ -1,8 +1,6 @@
-# Copy of zkvm/prover/options.py, with its imports of zkvm.prover
-# pointed at the zkvm_torch counterparts.  The original cannot be imported
-# without JAX: zkvm/prover/__init__.py imports the JAX pipeline.
-# ROADMAP item A0 folds this copy back once the JAX package's shared host
-# layer imports without JAX.
+# Copy of zkvm/prover/options.py, with its imports of zkvm pointed at the zkvm_torch
+# copies: the port needs nothing of the JAX package at run time.
+# tests/test_torch_prover.py pins it to the original.
 """STARK protocol parameters.
 
 The reference preset matches vm/src/lib.rs:20:

@@ -31,7 +31,7 @@ import time
 import numpy as np
 import torch
 
-from zkvm.air.layout import (
+from zkvm_torch.air.layout import (
     NUM_ASSERTIONS,
     NUM_EXEMPTIONS,
     NUM_TRANSITION_CONSTRAINTS,
@@ -39,7 +39,7 @@ from zkvm.air.layout import (
     PublicInputs,
     get_assertions,
 )
-from zkvm.field import f128
+from zkvm_torch.field import f128
 from zkvm_torch.air import composition as cp
 from zkvm_torch.air.periodic import periodic_class_patterns
 from zkvm_torch.field import f128t as ft
@@ -140,12 +140,18 @@ def _stage_composition_t(coeffs_t, dct, alphas, bv0, bb0, bv1, bb1, delta, bcols
     return _interleave(q)
 
 
+def comp_columns(comp_t, inv_off_t):
+    """(8, D) composition evaluations -> the coefficients of its
+    NUM_COMP_COLUMNS column polynomials, (8, 8, T): a size-D iNTT, the
+    inverse-offset ladder, and h_k = coeffs[k::8]."""
+    t = comp_t.shape[-1] // NUM_COMP_COLUMNS
+    coeffs = ft.fmul(nt.intt_t(comp_t), inv_off_t)  # (8, D)
+    return coeffs.reshape(8, t, NUM_COMP_COLUMNS).permute(2, 0, 1).contiguous()
+
+
 def _stage_comp_commit_t(comp_t, dct):
     """(8, D) composition evaluations -> (h coefficients (8, 8, T), heap)."""
-    d = comp_t.shape[-1]
-    t = d // NUM_COMP_COLUMNS
-    coeffs = ft.fmul(nt.intt_t(comp_t), dct["inv_off_t"])  # (8, D)
-    h_t = coeffs.reshape(8, t, NUM_COMP_COLUMNS).permute(2, 0, 1).contiguous()
+    h_t = comp_columns(comp_t, dct["inv_off_t"])
     return h_t, _commit_classes(h_t, dct)
 
 
@@ -252,22 +258,66 @@ class _Stages:
         self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
 
 
-def prove(trace, pub_inputs: PublicInputs, options: ProofOptions = ProofOptions(),
-          device="cpu", stage_seconds=None) -> Proof:
-    """Prove an execution trace on ``device``.
+class _TModeStages:
+    """The T-mode stages behind :func:`prove` (per class; no LDE resident)."""
 
-    ``stage_seconds``: a dict to receive each stage's wall-clock seconds
-    (the device is synchronised per stage only when it is given)."""
+    def __init__(self, t_len, blowup, device):
+        self.dct = _class_constants_t(t_len, blowup, device)
+        self.d, self.g_trace = self.dct["d"], self.dct["g_trace"]
+
+    def trace_commit(self, cols_t):
+        return _stage_trace_commit_t(cols_t, self.dct)
+
+    def composition(self, coeffs_t, alphas, bv0, bb0, bv1, bb1, delta, bcols0, bcols1):
+        return _stage_composition_t(coeffs_t, self.dct, alphas, bv0, bb0, bv1, bb1, delta,
+                                    bcols0, bcols1)
+
+    def comp_commit(self, comp_t):
+        return _stage_comp_commit_t(comp_t, self.dct)
+
+    def deep(self, coeffs_t, h_t, gammas, deltas, epsilons, points, ood):
+        dev = coeffs_t.device
+        return _stage_deep_t(coeffs_t, h_t, tensor(gammas, dev), tensor(deltas, dev),
+                             tensor(epsilons, dev), *points, self.dct)
+
+    def query_rows(self, coeffs_t, h_t, positions):
+        """Evaluate the committed polynomials at the query points (equal
+        to the LDE rows there)."""
+        x_pts = [f128.fmul(f128.DOMAIN_OFFSET, pow(self.dct["w_d"], p, f128.P)) for p in positions]
+        return me.multi_eval_rows(coeffs_t, x_pts), me.multi_eval_rows(h_t, x_pts)
+
+
+MODES = ("tmode", "mono")
+
+
+def prove(trace, pub_inputs: PublicInputs, options: ProofOptions = ProofOptions(),
+          device="cuda", stage_seconds=None, mode="tmode") -> Proof:
+    """Prove an execution trace on ``device`` (the CUDA card unless the
+    caller passes ``device="cpu"``; without a card a CUDA call raises).
+
+    ``mode``: ``"tmode"`` (the class-decomposed prover) or ``"mono"`` (the
+    full-LDE prover of :mod:`zkvm_torch.prover.mono`); both give the same
+    bytes.  ``stage_seconds``: a dict to receive each stage's wall-clock
+    seconds (the device is synchronised per stage only when it is given)."""
     t_len = trace.length
     if t_len > MAX_TRACE_LENGTH:
         raise ValueError(f"trace length {t_len} > {MAX_TRACE_LENGTH} is not supported yet")
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r}: expected one of {MODES}")
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("prove: no CUDA card here; pass device='cpu' to prove on the CPU")
     blowup = options.blowup
     delta = pub_inputs.server_key.parameters.delta
     stage = _Stages(stage_seconds, device)
     with stage("constants"):
-        dct = _class_constants_t(t_len, blowup, device)
-    d = dct["d"]
+        if mode == "mono":
+            from .mono import MonoStages
+
+            stages = MonoStages(t_len, blowup, device)
+        else:
+            stages = _TModeStages(t_len, blowup, device)
+    d = stages.d
 
     assertions = get_assertions(pub_inputs, t_len)
     bcols0 = tuple(c for (c, s, _) in assertions if s == 0)
@@ -276,7 +326,7 @@ def prove(trace, pub_inputs: PublicInputs, options: ProofOptions = ProofOptions(
     # ---- 1. trace LDE + commitment -----------------------------------
     with stage("trace_commit"):
         cols_t = from_numpy(_trace_limbs_t(trace), device)
-        coeffs_t, trace_nodes = _stage_trace_commit_t(cols_t, dct)
+        coeffs_t, trace_nodes = stages.trace_commit(cols_t)
         trace_tree = DeviceMerkleTree(trace_nodes)
         del cols_t
         trace_root = trace_tree.root
@@ -292,14 +342,14 @@ def prove(trace, pub_inputs: PublicInputs, options: ProofOptions = ProofOptions(
     b0 = [b for (c, s, v), b in zip(assertions, betas) if s == 0]
     b1 = [b for (c, s, v), b in zip(assertions, betas) if s != 0]
     with stage("composition"):
-        comp_t = _stage_composition_t(
-            coeffs_t, dct, tensor(alphas, device), tensor(vals0, device), tensor(b0, device),
+        comp_t = stages.composition(
+            coeffs_t, tensor(alphas, device), tensor(vals0, device), tensor(b0, device),
             tensor(vals1, device), tensor(b1, device), delta, bcols0, bcols1,
         )
 
     # ---- 3. composition commitment -----------------------------------
     with stage("comp_commit"):
-        h_t, comp_nodes = _stage_comp_commit_t(comp_t, dct)
+        h_t, comp_nodes = stages.comp_commit(comp_t)
         comp_tree = DeviceMerkleTree(comp_nodes)
         del comp_t
         comp_root = comp_tree.root
@@ -307,7 +357,7 @@ def prove(trace, pub_inputs: PublicInputs, options: ProofOptions = ProofOptions(
 
     # ---- 4. OOD frame -------------------------------------------------
     z = coin.draw()
-    zg = f128.fmul(z, dct["g_trace"])
+    zg = f128.fmul(z, stages.g_trace)
     z_m = pow(z, NUM_COMP_COLUMNS, f128.P)
     with stage("ood"):
         ood_cur, ood_nxt = me.multi_eval_rows(coeffs_t, [z, zg])
@@ -323,10 +373,8 @@ def prove(trace, pub_inputs: PublicInputs, options: ProofOptions = ProofOptions(
 
     # ---- 5. DEEP ------------------------------------------------------
     with stage("deep"):
-        y_t = _stage_deep_t(
-            coeffs_t, h_t, tensor(gammas, device), tensor(deltas, device),
-            tensor(epsilons, device), z, zg, z_m, dct,
-        )
+        y_t = stages.deep(coeffs_t, h_t, gammas, deltas, epsilons, (z, zg, z_m),
+                          (ood_cur, ood_nxt, ood_comp))
 
     # ---- 6. FRI -------------------------------------------------------
     with stage("fri"):
@@ -340,9 +388,7 @@ def prove(trace, pub_inputs: PublicInputs, options: ProofOptions = ProofOptions(
 
     # ---- 7. queries ---------------------------------------------------
     with stage("queries"):
-        x_pts = [f128.fmul(f128.DOMAIN_OFFSET, pow(dct["w_d"], p, f128.P)) for p in positions]
-        trace_rows = me.multi_eval_rows(coeffs_t, x_pts)
-        comp_rows = me.multi_eval_rows(h_t, x_pts)
+        trace_rows, comp_rows = stages.query_rows(coeffs_t, h_t, positions)
         trace_paths = trace_tree.open_many(positions)
         comp_paths = comp_tree.open_many(positions)
         proof = _assemble_proof(

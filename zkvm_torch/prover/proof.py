@@ -1,8 +1,6 @@
-# Copy of zkvm/prover/proof.py, with its imports of zkvm.prover
-# pointed at the zkvm_torch counterparts.  The original cannot be imported
-# without JAX: zkvm/prover/__init__.py imports the JAX pipeline.
-# ROADMAP item A0 folds this copy back once the JAX package's shared host
-# layer imports without JAX.
+# Copy of zkvm/prover/proof.py, with its imports of zkvm pointed at the zkvm_torch
+# copies: the port needs nothing of the JAX package at run time.
+# tests/test_torch_prover.py pins it to the original.
 """Proof container + byte serializations (W9).
 
 Two wire forms:
@@ -23,7 +21,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import List, Tuple
 
-from zkvm.utils.serde import ByteReader, ByteWriter
+from zkvm_torch.utils.serde import ByteReader, ByteWriter
 
 
 @dataclass

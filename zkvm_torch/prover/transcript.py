@@ -1,8 +1,6 @@
-# Copy of zkvm/prover/transcript.py, with its imports of zkvm.prover
-# pointed at the zkvm_torch counterparts.  The original cannot be imported
-# without JAX: zkvm/prover/__init__.py imports the JAX pipeline.
-# ROADMAP item A0 folds this copy back once the JAX package's shared host
-# layer imports without JAX.
+# Copy of zkvm/prover/transcript.py, with its imports of zkvm pointed at the zkvm_torch
+# copies: the port needs nothing of the JAX package at run time.
+# tests/test_torch_prover.py pins it to the original.
 """Fiat-Shamir public coin (DefaultRandomCoin<Blake3_256> semantics).
 
 Matches the winterfell random-coin construction the reference relies on
@@ -27,8 +25,8 @@ from __future__ import annotations
 
 from typing import List
 
-from zkvm.field import f128
-from zkvm.hash.blake3 import hash_elements, merge, merge_with_int
+from zkvm_torch.field import f128
+from zkvm_torch.hash.blake3 import hash_elements, merge, merge_with_int
 
 
 class TranscriptError(Exception):

@@ -1,8 +1,6 @@
-# Copy of zkvm/prover/wire.py, with its imports of zkvm.prover
-# pointed at the zkvm_torch counterparts.  The original cannot be imported
-# without JAX: zkvm/prover/__init__.py imports the JAX pipeline.
-# ROADMAP item A0 folds this copy back once the JAX package's shared host
-# layer imports without JAX.
+# Copy of zkvm/prover/wire.py, with its imports of zkvm pointed at the zkvm_torch
+# copies: the port needs nothing of the JAX package at run time.
+# tests/test_torch_prover.py pins it to the original.
 """Winterfell 0.9 wire format: Context, coin seed, batch-Merkle, StarkProof.
 
 The reference's verification contract is
@@ -29,9 +27,9 @@ from __future__ import annotations
 from dataclasses import dataclass, field as dc_field
 from typing import Dict, List, Sequence
 
-from zkvm.field import f128
-from zkvm.hash.blake3 import hash_elements, merge
-from zkvm.utils.serde import ByteReader, ByteWriter, DeserializationError
+from zkvm_torch.field import f128
+from zkvm_torch.hash.blake3 import hash_elements, merge
+from zkvm_torch.utils.serde import ByteReader, ByteWriter, DeserializationError
 
 # winter-air/src/options.rs: FieldExtension::None = 1
 FIELD_EXTENSION_NONE = 1
@@ -571,7 +569,7 @@ def parse(data: bytes) -> WireProof:
 def replay_positions(wp: WireProof, pub_inputs) -> List[int]:
     """Re-derive the sorted-unique query positions from the transcript —
     exactly what winterfell's VerifierChannel does before unbatching."""
-    from zkvm.air.layout import NUM_ASSERTIONS, NUM_TRANSITION_CONSTRAINTS, TRACE_WIDTH
+    from zkvm_torch.air.layout import NUM_ASSERTIONS, NUM_TRANSITION_CONSTRAINTS, TRACE_WIDTH
     from zkvm_torch.prover.pipeline import NUM_COMP_COLUMNS
     from zkvm_torch.prover.transcript import RandomCoin
 

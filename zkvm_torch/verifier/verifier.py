@@ -1,9 +1,6 @@
-# Copy of zkvm/verifier/verifier.py, with its imports of zkvm.prover and
-# zkvm.air.periodic pointed at the zkvm_torch counterparts.  The original
-# cannot be imported without JAX: zkvm/prover/__init__.py imports the JAX
-# pipeline and zkvm/air/periodic.py imports jax.numpy.  ROADMAP item A0
-# folds this copy back once the JAX package's shared host layer imports
-# without JAX.
+# Copy of zkvm/verifier/verifier.py, with its imports of zkvm pointed at the zkvm_torch
+# copies: the port needs nothing of the JAX package at run time.
+# tests/test_torch_prover.py pins it to the original.
 """STARK verifier (host-side, milliseconds) — SURVEY.md W8.
 
 Re-derives the full Fiat-Shamir transcript from the proof and public inputs,
@@ -28,8 +25,8 @@ from __future__ import annotations
 
 from typing import List
 
-from zkvm.air.constraints_golden import evaluate_transition
-from zkvm.air.layout import (
+from zkvm_torch.air.constraints_golden import evaluate_transition
+from zkvm_torch.air.layout import (
     NUM_ASSERTIONS,
     NUM_EXEMPTIONS,
     NUM_TRANSITION_CONSTRAINTS,
@@ -38,10 +35,10 @@ from zkvm.air.layout import (
     get_assertions,
 )
 from zkvm_torch.air.periodic import periodic_at
-from zkvm.field import f128
-from zkvm.hash.blake3 import hash_elements
-from zkvm.hash.merkle import MerkleTree
-from zkvm.ntt import golden as gntt
+from zkvm_torch.field import f128
+from zkvm_torch.hash.blake3 import hash_elements
+from zkvm_torch.hash.merkle import MerkleTree
+from zkvm_torch.ntt import golden as gntt
 from zkvm_torch.prover.fri import FOLD, fold_group_values
 from zkvm_torch.prover.options import ProofOptions
 from zkvm_torch.prover.pipeline import NUM_COMP_COLUMNS
@@ -235,7 +232,7 @@ def verify_bytes(proof_bytes: bytes, pub_inputs: PublicInputs, min_security: int
     winterfell::verify consumes StarkProof bytes + public inputs).  Malformed
     or transcript-inconsistent bytes raise :class:`VerificationError`."""
     from zkvm_torch.prover.proof import Proof
-    from zkvm.utils.serde import DeserializationError
+    from zkvm_torch.utils.serde import DeserializationError
 
     try:
         proof = Proof.from_wire_bytes(proof_bytes, pub_inputs)

@@ -1,26 +1,27 @@
 """Top-level API: run, prove and verify a program on PyTorch / CUDA.
 
-Port of ``zkvm.vm``: ``prove(program, inputs, device=...)`` executes the
-program with the JAX package's golden processor (pure Python), builds the
-28-column trace and proves it with the T-mode pipeline on ``device``,
-using the reference parameter preset by default (32 queries, blowup 8,
-grinding 0, FRI fold 8, remainder degree <= 127).
+Port of ``zkvm.vm``: ``prove(program, inputs)`` executes the program with
+the golden processor (pure Python), builds the 28-column trace and proves
+it on the CUDA card (``device="cpu"`` proves on the CPU), with the T-mode
+pipeline or, for ``mode="mono"``, the full-LDE one; both give the same
+bytes.  It uses the reference parameter preset by default (32 queries,
+blowup 8, grinding 0, FRI fold 8, remainder degree <= 127).
 
 The host-side types a caller builds its inputs from (program, inputs, FHE
 key and parameters, public inputs and the AIR's assertions) come from the
-JAX package's JAX-free modules and are re-exported here, so a caller needs
-to import nothing but :mod:`zkvm_torch`.
+port's own copies of the JAX package's host modules and are re-exported
+here, so a caller needs to import nothing but :mod:`zkvm_torch`.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
-from zkvm.air.layout import PublicInputs, get_assertions
-from zkvm.fhe import ServerKey
-from zkvm.fhe.lwe import DEMO_PARAMETERS
-from zkvm.isa import Program, ProgramInputs
-from zkvm.processor import Processor
+from zkvm_torch.air.layout import PublicInputs, get_assertions
+from zkvm_torch.fhe import ServerKey
+from zkvm_torch.fhe.lwe import DEMO_PARAMETERS
+from zkvm_torch.isa import Program, ProgramInputs
+from zkvm_torch.processor import Processor
 from zkvm_torch.prover import Proof, ProofOptions
 from zkvm_torch.prover.pipeline import prove as stark_prove
 from zkvm_torch.verifier import verify as stark_verify
@@ -47,12 +48,15 @@ def prove(
     program: Program,
     inputs: ProgramInputs,
     options: Optional[ProofOptions] = None,
-    device="cpu",
+    device="cuda",
+    mode="tmode",
 ) -> Tuple[tuple, tuple, Proof]:
-    """Prove a program run; returns (program_hash, stack_outputs, proof)."""
+    """Prove a program run; returns (program_hash, stack_outputs, proof).
+
+    ``mode``: ``"tmode"`` or ``"mono"`` (see :func:`prover.pipeline.prove`)."""
     trace = run(program, inputs)
     pub = PublicInputs(program.hash, trace.outputs, inputs.server_key)
-    proof = stark_prove(trace, pub, options or ProofOptions(), device=device)
+    proof = stark_prove(trace, pub, options or ProofOptions(), device=device, mode=mode)
     return program.hash, trace.outputs, proof
 
 
