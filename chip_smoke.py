@@ -6,19 +6,24 @@
 Phases, each printing one JSON line:
 
   (a) device: the card (nvidia-smi name and power limit), torch and CUDA;
-  (b) build: nvcc builds the kernels of zkvm_torch/csrc for sm_90a;
-  (c) kernels: K1 (NTT stage network), K2 (BLAKE3 rows), K3 (composition)
-      and K4 (merged transition) against their plain PyTorch versions on
-      the card, at the main paths' shapes, on random limbs from a numpy
-      seed; exact equality is required; kernel and plain times by CUDA
-      events, and each case's bound (see bound_ms);
+  (b) build: nvcc builds the kernels of zkvm_torch/csrc for sm_90a; the
+      SASS instructions of the f128 multiply zk::mul32, counted from its
+      probe kernel by cuobjdump;
+  (c) kernels: K1 (NTT stage network, natural row order in and out), K2
+      (BLAKE3 rows), K3 (composition) and K4 (merged transition) against
+      their plain PyTorch versions on the card, at the main paths' shapes,
+      on random limbs from a numpy seed with the field's edge values mixed
+      in; exact equality is required; kernel and plain times by CUDA
+      events, and each case's bound (see bound_ms); and zk::mul32 alone
+      against the plain multiply on every pair of edge values;
   (d) conformance: the T = 128 program of conformance/vectors_e2e.json,
       proved in both modes, whose roots and proof bytes must match the
       vector byte for byte;
   (e) the bench's primary configuration: a READ/ADD chain of 20000 ops
       (T = 2^16, D = 2^19), proved in T-mode once to warm up and once
       timed, with per-stage seconds; K1, K2 and K3 must have launched in
-      the timed prove; the proof must verify and fail with one byte flipped;
+      the timed prove (K1's launches also by shape); the proof must verify
+      and fail with one byte flipped;
   (f) the same chain in mono (full-LDE) mode: warm-up, timed prove, verify
       and tamper check; K1, K2 and K4 must have launched in the timed
       prove; with the peak device memory and the time of the DEEP stage's
@@ -30,7 +35,10 @@ Any failure raises and exits non-zero; there is no CPU fallback.
 """
 
 import json
+import os
 import random
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -48,6 +56,7 @@ from zkvm_torch import kernels, vm  # noqa: E402
 from zkvm_torch.air import composition as cp  # noqa: E402
 from zkvm_torch.air import transition as tr  # noqa: E402
 from zkvm_torch.air.periodic import periodic_class_patterns, periodic_table  # noqa: E402
+from zkvm_torch.field import f128  # noqa: E402
 from zkvm_torch.field import f128t as ft  # noqa: E402
 from zkvm_torch.field.limbs import from_numpy  # noqa: E402
 from zkvm_torch.hash import blake3_t as b3t  # noqa: E402
@@ -68,6 +77,7 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # value (32).
 OPS_ADD, OPS_MUL = 8, 96
 LIMB_BYTES = 32  # one element: 8 limbs of 16 bits in 32-bit words
+PACKED_BYTES = 16  # one element as four 32-bit words (K1's constants)
 # f128 operations per row of the merged transition (csrc/transition.cuh),
 # and those K3 adds for the domain factor and its 12 + 10 boundary terms
 K4_MULS, K4_ADDS = 138, 118
@@ -81,11 +91,21 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def rand_limbs(rng, shape):
+EDGES = (0, 1, f128.P - 1, ft.EPS, 2**127)
+
+
+def rand_limbs(rng, shape, pair=0):
     """Random canonical elements as (..., 8, L) int32 limbs on the card: 16
-    random bits per limb, the top limb below 0xFFFF (so below p)."""
+    random bits per limb, the top limb below 0xFFFF (so below p).  Lanes
+    j < 25 of the first row hold the edge values EDGES[j % 5] (pair 0) or
+    EDGES[j // 5] (pair 1), so a product of a pair-0 and a pair-1 input
+    meets every pair of edge values."""
     limbs = rng.integers(0, 1 << 16, size=shape, dtype=np.uint32)
     limbs[..., 7, :] %= 0xFFFF
+    first = limbs.reshape(-1, 8, shape[-1])[0]
+    for j in range(min(25, shape[-1])):
+        v = EDGES[j % 5] if pair == 0 else EDGES[j // 5]
+        first[:, j] = [(v >> (16 * k)) & 0xFFFF for k in range(8)]
     return from_numpy(limbs, DEV)
 
 
@@ -96,10 +116,15 @@ def bound_ms(nbytes, ops):
 
 
 def cuda_ms(fn, reps):
-    """Mean milliseconds per call by CUDA events, after one warm-up call."""
+    """Mean milliseconds per call by CUDA events, after one warm-up call.
+
+    The card first spins for ~10 ms (torch.cuda._sleep) while the host
+    queues the calls, so a call shorter than its host-side launch cost is
+    timed on the card's clock alone, back to back."""
     fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -140,22 +165,38 @@ def phase_device():
     return smi
 
 
+def sass_counts(function):
+    """Opcode counts of one kernel's SASS in the built library (cuobjdump)."""
+    tool = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                                                      "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(kernels.library_path())], capture_output=True, text=True,
+                          check=True).stdout
+    body = sass.split(f"Function : {function}\n", 1)[1].split("Function : ", 1)[0]
+    ops = {}
+    for op in re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z0-9_.]+)", body):
+        ops[op] = ops.get(op, 0) + 1
+    return ops
+
+
 def phase_build():
     t0 = time.perf_counter()
     kernels.lib()
     regs = [line.strip() for line in kernels.build_log.splitlines()
             if "registers" in line or "spill" in line or "Compiling entry" in line]
+    ops = sass_counts("zk_mul32_probe")
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "nvcc_seconds": kernels.build_seconds,
-          "library": kernels.library_path().name, "ptxas": regs})
+          "library": kernels.library_path().name, "ptxas": regs,
+          "mul32_probe_sass": {"total": sum(ops.values()), "opcodes": ops}})
 
 
 def _k1_work(b, m, nl, variant):
-    """Bytes and operations of one stage-network call on (B, M, 8, NL)."""
+    """Bytes and operations of one stage-network call on (B, M, 8, NL); the
+    stage twiddles and the full premultiplier come packed, 16 bytes each."""
     elems = b * m * nl
-    nbytes = 2 * elems * LIMB_BYTES + (m.bit_length() - 1) * (m // 2) * LIMB_BYTES
+    nbytes = 2 * elems * LIMB_BYTES + (m.bit_length() - 1) * (m // 2) * PACKED_BYTES
     ops = (elems // 2) * (m.bit_length() - 1) * (OPS_MUL + 2 * OPS_ADD)  # butterflies
     if variant == "full":
-        nbytes += m * nl * LIMB_BYTES
+        nbytes += m * nl * PACKED_BYTES
         ops += elems * OPS_MUL
     elif variant == "r1":
         nbytes += (m + nl) * LIMB_BYTES
@@ -179,18 +220,30 @@ def phase_kernels():
     all3 = ("plain", "full", "r1")
     for m, b, nl, variants in [(8, 1, 1 << 16, all3), (256, 28, 256, all3), (512, 1, 1024, all3),
                                (512, 28, 1024, ("full",)), (32, 28 * 512, 32, ("plain", "full"))]:
-        tw = from_numpy(nt._stage_twiddles(m, False), DEV)
+        tw = nt._stage_twiddles_dev(m, False, DEV)
         y = rand_limbs(rng, (b, m, 8, nl))
         for variant in variants:
-            pre = rand_limbs(rng, (m, 8, nl)) if variant == "full" else None
-            r1 = (rand_limbs(rng, (8, m)), rand_limbs(rng, (8, nl))) if variant == "r1" else None
+            pre = nt.pack_t(rand_limbs(rng, (m, 8, nl), pair=1)) if variant == "full" else None
+            r1 = None
+            if variant == "r1":
+                r1 = (rand_limbs(rng, (8, m), pair=1), rand_limbs(rng, (8, nl), pair=1))
             k1.append(compare(
                 f"K1 M={m} B={b} NL={nl} {variant}",
                 lambda: nt.pease_stages(y, tw, pre=pre, r1=r1),
-                lambda: nt.pease_stages_plain(nt._apply_pre(y, pre, r1), tw),
+                lambda: nt.stages_plain(y, tw, pre=pre, r1=r1),
                 *_k1_work(b, m, nl, variant), plain_reps=1,
             ))
     results["ntt_stages"] = dict(k1[5], max_abs_err=max(r["max_abs_err"] for r in k1))  # M=256 r1
+    # zk::mul32 alone: every pair of edge values, then random pairs
+    a, b = rand_limbs(rng, (8, 1 << 16)), rand_limbs(rng, (8, 1 << 16), pair=1)
+    pa, pb = nt.pack_t(a), nt.pack_t(b)  # held until the kernel has run
+    out = torch.empty(1 << 16, 4, dtype=torch.int32, device=DEV)
+    kernels.check(kernels.lib().zk_mul32(kernels.ptr(pa), kernels.ptr(pb), kernels.ptr(out), 1 << 16,
+                                         kernels.stream_of(out)), "zk_mul32")
+    err = max_abs_err(nt.unpack_t(out), ft.fmul(a, b))
+    emit({"phase": "kernels", "case": "mul32 alone, 2^16 pairs", "max_abs_err": err})
+    if err != 0:
+        raise AssertionError(f"zk::mul32 differs from the plain multiply (max abs err {err})")
     # K2: trace rows (C = 28) and composition / FRI rows (C = 8), N = 2^16
     # per class in T-mode, N = 2^19 over the whole domain in mono
     k2 = []
@@ -286,6 +339,7 @@ def phase_bench(mode):
     torch.cuda.reset_peak_memory_stats()
     for mod in COUNTERS.values():
         mod.launches = 0
+    nt.launches_by_shape.clear()
     stages = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -293,6 +347,7 @@ def phase_bench(mode):
     torch.cuda.synchronize()
     steady = time.perf_counter() - t0
     launches = {name: mod.launches for name, mod in COUNTERS.items()}
+    k1_shapes = {f"M={m} B={b} NL={nl} {v}": n for (m, b, nl, v), n in sorted(nt.launches_by_shape.items())}
     peak = torch.cuda.max_memory_allocated()
 
     data = proof.to_wire_bytes()
@@ -314,7 +369,7 @@ def phase_bench(mode):
           "trace_length": trace.length, "lde_domain": trace.length * 8, "trace_gen_seconds": trace_seconds,
           "warmup_prove_seconds": warm, "prove_seconds": steady, "rows_per_sec": trace.length / steady,
           "stage_seconds": stages, "proof_bytes": len(data), "verified": True, "tampered_rejected": rejected,
-          "launches": launches, "peak_mem_gib": peak / 2**30, **extra})
+          "launches": launches, "k1_launches_by_shape": k1_shapes, "peak_mem_gib": peak / 2**30, **extra})
     if not rejected:
         raise AssertionError(f"{mode}: the verifier accepted a tampered proof")
     for name in PATH_KERNELS[mode]:

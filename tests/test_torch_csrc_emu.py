@@ -47,17 +47,46 @@ def rand_limbs(rng, shape):
 
 
 @pytest.mark.parametrize(
-    "m,nl,variant", [(8, 64, "plain"), (4, 8, "full"), (16, 4, "r1"), (512, 4, "full")]
+    "m,nl,variant,inverse,shape",
+    [
+        (8, 64, "plain", False, None), (4, 8, "full", True, None), (16, 4, "r1", True, (64, 2)),
+        (512, 4, "full", False, (2048, 4)), (2, 8, "r1", False, (4, 4)), (2, 4, "full", True, None),
+        (512, 1, "plain", True, (512, 8)), (512, 1, "r1", False, None), (32, 8, "full", False, (128, 4)),
+    ],
 )
-def test_ntt_stages_emulated(emu, m, nl, variant):
+def test_ntt_stages_emulated(emu, m, nl, variant, inverse, shape):
+    """K1 in natural row order, as the card runs it, against its plain
+    version, at the default launch shape or at ``shape`` = (tile,
+    butterflies per thread); (512, 1) runs a lane tile of one (LT = 1,
+    one-lane accesses), (2, 8) at a tile of 4 a thread with no butterfly
+    in its last step."""
     rng = np.random.default_rng(m + nl)
     y = from_numpy(rand_limbs(rng, (2, m, 8, nl)))
-    tw = from_numpy(tnt._stage_twiddles(m, variant == "r1"))
-    pre = from_numpy(rand_limbs(rng, (m, 8, nl))) if variant == "full" else None
+    tw = tnt._stage_twiddles_dev(m, inverse, torch.device("cpu"))
+    pre = tnt.pack_t(from_numpy(rand_limbs(rng, (m, 8, nl)))) if variant == "full" else None
     r1 = (from_numpy(rand_limbs(rng, (8, m))), from_numpy(rand_limbs(rng, (8, nl)))) if variant == "r1" else None
-    got = tnt.launch_stages(emu, 0, y, tw, pre=pre, r1=r1)
+    tile, per_thread = shape or (None, None)
+    got = tnt.launch_stages(emu, 0, y, tw, pre=pre, r1=r1, tile=tile, per_thread=per_thread)
     want = tnt.pease_stages(y, tw, pre=pre, r1=r1)  # CPU tensors: the plain version
     np.testing.assert_array_equal(to_numpy(got), to_numpy(want))
+
+
+def test_mul32_emulated(emu):
+    """zk::mul32, K1's multiply, alone (its probe kernel) against the
+    golden f128.fmul on every pair of edge values and on random pairs."""
+    edges = [0, 1, 2, f128.P - 1, f128.P - 2, 45 * 2**40 - 1, 45 * 2**40, 2**127, 2**64 - 1, 2**64,
+             2**96 + 2**32 - 1, f128.P - 2**64]
+    rng = np.random.default_rng(128)
+    rand = [int(a) << 64 | int(b) for a, b in zip(*rng.integers(0, 2**63, size=(2, 500), dtype=np.int64))]
+    rand = [(v << 1 | (v & 1)) % f128.P for v in rand]  # top bit set too
+    a = [x for x in edges for _ in edges] + rand
+    b = [y for _ in edges for y in edges] + rand[::-1]
+    words = lambda vals: np.array([[v & (2**64 - 1), v >> 64] for v in vals], dtype=np.uint64)
+    xa, xb = words(a), words(b)
+    out = np.zeros_like(xa)
+    assert emu.zk_mul32(xa.ctypes.data, xb.ctypes.data, out.ctypes.data, len(a), None) == 0
+    got = [int(hi) << 64 | int(lo) for lo, hi in out]
+    assert got == [f128.fmul(x, y) for x, y in zip(a, b)]
 
 
 @pytest.mark.parametrize("c,n", [(28, 300), (8, 64), (1, 5)])

@@ -91,7 +91,7 @@ def test_tables_match_reference():
     n2, n1 = tnt._split(n)
     w = f128.finv(f128.get_root_of_unity(n))
     initial, _ = tnt._layout_indices(n1)
-    got = from_t(to_numpy(tnt._mid_twiddles(n, True, True, "cpu")))
+    got = from_t(to_numpy(tnt.unpack_t(tnt._mid_twiddles(n, True, True, "cpu"))))
     inv_n = f128.finv(n)
     for r, i in enumerate(initial):
         assert [int(v) for v in got[r]] == [

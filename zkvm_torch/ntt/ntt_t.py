@@ -6,20 +6,23 @@ With N = N1*N2, n = n1 + N1*n2 and k = k2 + N2*k1,
     X[k2 + N2*k1] = NTT_N1 over n1 [ w_N^(n1*k2) * NTT_N2 over n2 [ x ] ]
 
 Both inner transforms run along axis -3 of a ``(..., M, 8, L)`` view as the
-constant-geometry (Pease) stage network of :func:`pease_stages` — CUDA
-kernel K1 (``csrc/ntt_stages.cu``) for a CUDA tensor, its plain PyTorch
+constant-geometry (Pease) stage network of :func:`pease_stages`, natural
+row order in and out — CUDA kernel K1 (``csrc/ntt_stages.cu``, which does
+the two layout permutations itself) for a CUDA tensor, its plain PyTorch
 version for a CPU tensor.  The n1*k2 mid twiddles are fused into the
 pass-2 kernel as a premultiplier (carrying the iNTT's 1/N at the top
 level); the coset shift of :func:`class_ntt_t` is fused into pass 1 as a
 rank-1 premultiplier.  When N2 exceeds :data:`MAX_AXIS` the first pass
 recurses through the flat transform.
 
-Device tables (layout indices, stage and mid twiddles) are built once per
-(size, direction, device) and cached.
+Device tables (layout indices, and the stage and mid twiddles packed for
+K1 by :func:`pack_t`) are built once per (size, direction, device) and
+cached.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
 
 import numpy as np
@@ -101,7 +104,8 @@ def _layout_dev(n: int, device):
 
 @functools.lru_cache(maxsize=None)
 def _stage_twiddles_dev(m: int, inverse: bool, device):
-    return from_numpy(_stage_twiddles(m, inverse), device)
+    """(S, M/2, 4): the stage twiddles packed for K1."""
+    return pack_t(from_numpy(_stage_twiddles(m, inverse), device).transpose(-1, -2))
 
 
 # ---------------------------------------------------------------------------
@@ -173,8 +177,9 @@ def ladders_t(bases: torch.Tensor, n: int) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _mid_twiddles_cached(n: int, n1: int, inverse: bool, scaled: bool, device):
-    """(N1, 8, N2): scale * w^(n1*k2), rows permuted by pass 2's initial
-    layout indices (the tensor premultiplies pass 2's permuted input)."""
+    """(N1, N2, 4) packed: scale * w^(n1*k2), rows permuted by pass 2's
+    initial layout indices (the tensor premultiplies pass 2's permuted
+    input)."""
     n2 = n // n1
     w = f128.get_root_of_unity(n)
     if inverse:
@@ -185,7 +190,7 @@ def _mid_twiddles_cached(n: int, n1: int, inverse: bool, scaled: bool, device):
     rows = ft.fmul(cols, ft.const_col(scale, device)).permute(2, 1, 0)
     if n1 > 1:
         rows = rows.index_select(0, _layout_dev(n1, device)[0])
-    return rows.contiguous()
+    return pack_t(rows)
 
 
 def _mid_twiddles(n: int, inverse: bool, scaled: bool, device) -> torch.Tensor:
@@ -194,10 +199,27 @@ def _mid_twiddles(n: int, inverse: bool, scaled: bool, device) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# kernel K1: the stage network along axis -3
+# kernel K1: the stage network along axis -3, natural order in and out
 # ---------------------------------------------------------------------------
 
 launches = 0  # launches of the CUDA kernel in this process
+launches_by_shape = collections.Counter()  # (M, B, NL, variant) -> launches
+
+
+def pack_t(x: torch.Tensor) -> torch.Tensor:
+    """(..., 8, L) limbs -> (..., L, 4) int32: each element as the four
+    little-endian 32-bit words of its value (K1's packed constants)."""
+    x = x.long().reshape(x.shape[:-2] + (4, 2, x.shape[-1]))
+    w = x[..., 0, :] | (x[..., 1, :] << 16)
+    w = torch.where(w >= 2**31, w - 2**32, w)
+    return w.to(torch.int32).transpose(-1, -2).contiguous()
+
+
+def unpack_t(w: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_t`: (..., L, 4) words -> (..., 8, L) limbs."""
+    w = w.long().transpose(-1, -2) & 0xFFFFFFFF
+    limbs = torch.stack([w & 0xFFFF, w >> 16], dim=-2)  # (..., 4, 2, L)
+    return limbs.reshape(w.shape[:-2] + (8, w.shape[-1])).to(torch.int32)
 
 
 def _apply_pre(y, pre, r1):
@@ -210,8 +232,8 @@ def _apply_pre(y, pre, r1):
 
 
 def pease_stages_plain(y: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch stage network; y (..., M, 8, L) pre-permuted, tw
-    (S, M/2, 8).  Counterpart of ntt_t._pease_stages_batched."""
+    """The bare stage network; y (..., M, 8, L) pre-permuted, tw
+    (S, M/2, 8) limbs.  Counterpart of ntt_t._pease_stages_batched."""
     m = y.shape[-3]
     h = m // 2
     for s in range(tw.shape[0]):
@@ -223,20 +245,38 @@ def pease_stages_plain(y: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def launch_stages(lib, stream, yb, tw, pre=None, r1=None) -> torch.Tensor:
+def stages_plain(yb, tw, pre=None, r1=None) -> torch.Tensor:
+    """K1's plain version, natural row order in and out: gather by the
+    initial layout indices, premultiply (``pre`` packed (M, NL, 4), or
+    ``r1`` = (rs (8, M), ls (8, NL)) limbs; both in the gathered row
+    order), run the stages (``tw`` packed (S, M/2, 4)), gather by the final
+    indices.  The JAX ``ntt_t._axis_ntt``'s contract."""
+    initial, final = _layout_dev(yb.shape[-3], yb.device)
+    y = _apply_pre(yb.index_select(-3, initial), None if pre is None else unpack_t(pre), r1)
+    return pease_stages_plain(y, unpack_t(tw).transpose(-1, -2)).index_select(-3, final)
+
+
+# K1's launch shape (chosen with ``python -m zkvm_torch.tune_k1``; PERF.md):
+# a block holds M x LT elements, at least K1_TILE and at least K1_LANES
+# lanes (LT x 4 bytes = one 32-byte sector of a limb row), and each thread
+# runs K1_PER_THREAD butterflies per stage
+K1_TILE, K1_LANES, K1_PER_THREAD = 2048, 8, 4
+
+
+def launch_stages(lib, stream, yb, tw, pre=None, r1=None, tile=None, per_thread=None) -> torch.Tensor:
     """Call the K1 entry point of ``lib`` on (B, M, 8, NL) limbs."""
     b, m, _, nl = yb.shape
     s = m.bit_length() - 1
     dev = yb.device
-    if m < 2 or m & (m - 1) or nl & (nl - 1) or b > 65535:
+    if m < 2 or m > 512 or m & (m - 1) or nl & (nl - 1) or b > 65535:
         raise ValueError(f"stage network: unsupported shape {tuple(yb.shape)}")
     kernels.expect(yb, (b, m, 8, nl), dev, "y")
-    kernels.expect(tw, (s, m // 2, 8), dev, "tw")
+    kernels.expect(tw, (s, m // 2, 4), dev, "tw")
     rs = ls = None
     variant = 0
     if pre is not None:
         variant = 1
-        kernels.expect(pre, (m, 8, nl), dev, "pre")
+        kernels.expect(pre, (m, nl, 4), dev, "pre")
     elif r1 is not None:
         variant = 2
         rs, ls = r1
@@ -245,21 +285,22 @@ def launch_stages(lib, stream, yb, tw, pre=None, r1=None) -> torch.Tensor:
     out = torch.empty_like(yb)
     rc = lib.zk_ntt_stages(
         kernels.ptr(yb), kernels.ptr(out), kernels.ptr(tw), kernels.ptr(pre),
-        kernels.ptr(rs), kernels.ptr(ls), b, m, nl, s, variant, stream,
+        kernels.ptr(rs), kernels.ptr(ls), b, m, nl, s, variant,
+        tile or max(K1_TILE, K1_LANES * m), per_thread or K1_PER_THREAD, stream,
     )
     kernels.check(rc, "zk_ntt_stages")
     return out
 
 
 def pease_stages(yb, tw, pre=None, r1=None) -> torch.Tensor:
-    """K1: premultiply (``pre`` full (M, 8, NL) or ``r1`` = (rs (8, M),
-    ls (8, NL))) and run every stage on (B, M, 8, NL) permuted limbs.
+    """K1 on (B, M, 8, NL) limbs in natural row order: the NTT along M,
+    premultiplied, as :func:`stages_plain` states it.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel (or raises)."""
     global launches
     if yb.device.type == "cpu":
-        return pease_stages_plain(_apply_pre(yb, pre, r1), tw)
+        return stages_plain(yb, tw, pre, r1)
     if yb.device.type != "cuda":
         raise ValueError(f"stage network: no kernel for device {yb.device}")
     contig = lambda t: None if t is None else t.contiguous()
@@ -269,6 +310,8 @@ def pease_stages(yb, tw, pre=None, r1=None) -> torch.Tensor:
         contig(pre), r1,
     )
     launches += 1
+    b, m, _, nl = yb.shape
+    launches_by_shape[(m, b, nl, "full" if pre is not None else "r1" if r1 is not None else "plain")] += 1
     return out
 
 
@@ -279,15 +322,14 @@ def pease_stages(yb, tw, pre=None, r1=None) -> torch.Tensor:
 def _axis_ntt(y, m, inverse, pre=None, r1=None):
     """NTT along axis -3 of (..., M, 8, L); natural order in/out.
 
-    ``pre``/``r1`` premultiply the INPUT (given in permuted row order)."""
+    ``pre`` (packed (M, L, 4)) or ``r1`` premultiply the INPUT, given in
+    permuted row order."""
     if m == 1:
-        return _apply_pre(y, pre, r1)
-    initial, final = _layout_dev(m, y.device)
-    y = y.index_select(-3, initial)
+        return _apply_pre(y, None if pre is None else unpack_t(pre), r1)
     batch = y.shape[:-3]
     yb = y.reshape((-1,) + tuple(y.shape[-3:]))
     out = pease_stages(yb, _stage_twiddles_dev(m, inverse, y.device), pre=pre, r1=r1)
-    return out.reshape(batch + tuple(out.shape[-3:])).index_select(-3, final)
+    return out.reshape(batch + tuple(out.shape[-3:]))
 
 
 def _ntt_t_core(x, inverse, top=True, scale_r1=None):
