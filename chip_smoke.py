@@ -14,8 +14,9 @@ Phases, each printing one JSON line:
       their plain PyTorch versions on the card, at the main paths' shapes,
       on random limbs from a numpy seed with the field's edge values mixed
       in; exact equality is required; kernel and plain times by CUDA
-      events, and each case's bound (see bound_ms); and zk::mul32 alone
-      against the plain multiply on every pair of edge values;
+      events (k1_bench.cuda_ms: the card's time, and the host's time to
+      queue one call), and each case's bound (see bound_ms); and zk::mul32
+      alone against the plain multiply on every pair of edge values;
   (d) conformance: the T = 128 program of conformance/vectors_e2e.json,
       proved in both modes, whose roots and proof bytes must match the
       vector byte for byte;
@@ -52,6 +53,7 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
+from k1_bench import K1_CASES, cuda_ms  # noqa: E402
 from zkvm_torch import kernels, vm  # noqa: E402
 from zkvm_torch.air import composition as cp  # noqa: E402
 from zkvm_torch.air import transition as tr  # noqa: E402
@@ -115,24 +117,6 @@ def bound_ms(nbytes, ops):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def cuda_ms(fn, reps):
-    """Mean milliseconds per call by CUDA events, after one warm-up call.
-
-    The card first spins for ~10 ms (torch.cuda._sleep) while the host
-    queues the calls, so a call shorter than its host-side launch cost is
-    timed on the card's clock alone, back to back."""
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(20_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def max_abs_err(a, b):
     return int((a.long() - b.long()).abs().max().item())
 
@@ -146,11 +130,11 @@ def compare(name, kernel_fn, plain_fn, nbytes, ops, reps=20, plain_reps=2):
     if err != 0 or got.shape != want.shape:
         raise AssertionError(f"{name}: kernel differs from its plain version (max abs err {err})")
     del got, want
-    ms = cuda_ms(kernel_fn, reps)
-    plain_ms = cuda_ms(plain_fn, plain_reps)
+    ms, host_ms = cuda_ms(kernel_fn, reps)
+    plain_ms = cuda_ms(plain_fn, plain_reps)[0]
     bound, bound_by = bound_ms(nbytes, ops)
-    emit({"phase": "kernels", "case": name, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-          "bound_ms": bound, "bound_by": bound_by})
+    emit({"phase": "kernels", "case": name, "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+          "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by})
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
 
 
@@ -217,9 +201,7 @@ def phase_kernels():
     # the 28 trace columns), 32 (both passes of that LDE's size-1024 pass 1,
     # over 28 x 512 rows)
     k1 = []
-    all3 = ("plain", "full", "r1")
-    for m, b, nl, variants in [(8, 1, 1 << 16, all3), (256, 28, 256, all3), (512, 1, 1024, all3),
-                               (512, 28, 1024, ("full",)), (32, 28 * 512, 32, ("plain", "full"))]:
+    for m, b, nl, variants in K1_CASES:
         tw = nt._stage_twiddles_dev(m, False, DEV)
         y = rand_limbs(rng, (b, m, 8, nl))
         for variant in variants:
@@ -337,9 +319,9 @@ def phase_bench(mode):
     warm = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
-    for mod in COUNTERS.values():
+    for mod in (b3t, cp, tr):
         mod.launches = 0
-    nt.launches_by_shape.clear()
+    nt.launches.clear()  # K1 counts its launches by shape
     stages = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -347,7 +329,8 @@ def phase_bench(mode):
     torch.cuda.synchronize()
     steady = time.perf_counter() - t0
     launches = {name: mod.launches for name, mod in COUNTERS.items()}
-    k1_shapes = {f"M={m} B={b} NL={nl} {v}": n for (m, b, nl, v), n in sorted(nt.launches_by_shape.items())}
+    k1_shapes = {f"M={m} B={b} NL={nl} {v}": n for (m, b, nl, v), n in sorted(launches["ntt_stages"].items())}
+    launches["ntt_stages"] = sum(k1_shapes.values())
     peak = torch.cuda.max_memory_allocated()
 
     data = proof.to_wire_bytes()
@@ -363,7 +346,7 @@ def phase_bench(mode):
     if mode == "mono":
         # the DEEP stage's one batch inverse, (3, 8, D), timed alone
         den = rand_limbs(np.random.default_rng(5), (3, 8, trace.length * 8))
-        inv_s = cuda_ms(lambda: ft.batch_inverse(den), 2) / 1e3
+        inv_s = cuda_ms(lambda: ft.batch_inverse(den), 2)[0] / 1e3
         extra = {"batch_inverse_seconds": inv_s, "batch_inverse_share": inv_s / steady}
     emit({"phase": "bench", "mode": mode, "config": "READ/ADD chain", "n_ops": vm.BENCH_N_OPS,
           "trace_length": trace.length, "lde_domain": trace.length * 8, "trace_gen_seconds": trace_seconds,

@@ -47,26 +47,24 @@ def rand_limbs(rng, shape):
 
 
 @pytest.mark.parametrize(
-    "m,nl,variant,inverse,shape",
+    "m,nl,variant,inverse",
     [
-        (8, 64, "plain", False, None), (4, 8, "full", True, None), (16, 4, "r1", True, (64, 2)),
-        (512, 4, "full", False, (2048, 4)), (2, 8, "r1", False, (4, 4)), (2, 4, "full", True, None),
-        (512, 1, "plain", True, (512, 8)), (512, 1, "r1", False, None), (32, 8, "full", False, (128, 4)),
+        (8, 64, "plain", False), (4, 8, "full", True), (16, 2, "r1", True),
+        (512, 4, "full", False), (2, 2, "r1", False), (2, 4, "full", True),
+        (512, 1, "plain", True), (512, 1, "r1", False), (32, 128, "full", False),
     ],
 )
-def test_ntt_stages_emulated(emu, m, nl, variant, inverse, shape):
+def test_ntt_stages_emulated(emu, m, nl, variant, inverse):
     """K1 in natural row order, as the card runs it, against its plain
-    version, at the default launch shape or at ``shape`` = (tile,
-    butterflies per thread); (512, 1) runs a lane tile of one (LT = 1,
-    one-lane accesses), (2, 8) at a tile of 4 a thread with no butterfly
-    in its last step."""
+    version.  NL = 1 and 2 run lane tiles of one and two (the one- and
+    two-lane accesses), M = 2 with NL = 2 a thread with idle butterflies,
+    M = 32 with NL = 128 two blocks along the lanes."""
     rng = np.random.default_rng(m + nl)
     y = from_numpy(rand_limbs(rng, (2, m, 8, nl)))
     tw = tnt._stage_twiddles_dev(m, inverse, torch.device("cpu"))
     pre = tnt.pack_t(from_numpy(rand_limbs(rng, (m, 8, nl)))) if variant == "full" else None
     r1 = (from_numpy(rand_limbs(rng, (8, m))), from_numpy(rand_limbs(rng, (8, nl)))) if variant == "r1" else None
-    tile, per_thread = shape or (None, None)
-    got = tnt.launch_stages(emu, 0, y, tw, pre=pre, r1=r1, tile=tile, per_thread=per_thread)
+    got = tnt.launch_stages(emu, 0, y, tw, pre=pre, r1=r1)
     want = tnt.pease_stages(y, tw, pre=pre, r1=r1)  # CPU tensors: the plain version
     np.testing.assert_array_equal(to_numpy(got), to_numpy(want))
 

@@ -20,11 +20,11 @@
 // of one limb row.  The design keeps one block's M x LT tile (16 bytes an
 // element) in shared memory, updated in place, so device memory is read
 // and written once per call whatever M is; the premultiply is applied
-// while loading.  The wrapper picks LT >= 8, so each run fills a 32-byte
-// sector, moved as 16-byte accesses of 4 lanes.  Each thread runs K
-// butterflies per stage, whose multiplies are independent chains.  The
-// kernel is a template on S = log2 M and K, and LT is a power of two, so
-// every index is a shift or a mask.  The stage twiddles and the full
+// while loading.  A tile holds max(2048, 8 M) elements, so LT >= 8 where
+// NL allows and each run fills a 32-byte sector, moved as 16-byte accesses
+// of 4 lanes.  Each thread runs 4 butterflies per stage, whose multiplies
+// are independent chains.  The kernel is a template on S = log2 M, and LT
+// is a power of two, so every index is a shift or a mask.  The stage twiddles and the full
 // premultiplier come packed (16 bytes an element, built once per size and
 // cached by the wrapper) and are read with one 16-byte load; rs and ls are
 // packed into shared memory once per block.
@@ -35,6 +35,19 @@ using zk::fe;
 namespace {
 
 constexpr int kMaxThreads = 512;
+// The launch shape: a tile of max(ZK_K1_TILE, ZK_K1_LANES x M) elements
+// and ZK_K1_PER_THREAD butterflies per thread and stage.  Other values are
+// for timing the shapes only (k1_bench.py --sweep builds them).
+#ifndef ZK_K1_TILE
+#define ZK_K1_TILE 2048
+#endif
+#ifndef ZK_K1_LANES
+#define ZK_K1_LANES 8
+#endif
+#ifndef ZK_K1_PER_THREAD
+#define ZK_K1_PER_THREAD 4
+#endif
+constexpr int kTile = ZK_K1_TILE, kLanes = ZK_K1_LANES, kPerThread = ZK_K1_PER_THREAD;
 
 // one element packed in 16 bytes: the words of zk::fe
 struct alignas(16) cell {
@@ -134,7 +147,7 @@ __device__ __forceinline__ void store_tile(uint32_t* __restrict__ out,
   }
 }
 
-template <int S, int K>
+template <int S>
 __global__ void __launch_bounds__(kMaxThreads)
     ntt_stages_kernel(const uint32_t* __restrict__ y, uint32_t* __restrict__ out,
                       const cell* __restrict__ tw, const cell* __restrict__ pre,
@@ -165,18 +178,18 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
   __syncthreads();
 
-  // Each thread runs butterflies tid + k * nt (k < K) of every stage: it
-  // reads all K pairs and multiplies (K independent carry chains that the
-  // scheduler interleaves), waits for the block, and writes the sums and
-  // differences in place.
+  // Each thread runs butterflies tid + k * nt (k < kPerThread) of every
+  // stage: it reads all its pairs and multiplies (independent carry chains
+  // that the scheduler interleaves), waits for the block, and writes the
+  // sums and differences in place.
   const int LT = 1 << lt_log;
   const int half = H << lt_log;  // butterflies per stage
 #pragma unroll 1
   for (int s = 0; s < S; ++s) {
     const cell* tws = tw + s * H;
-    fe a[K], bw[K];
+    fe a[kPerThread], bw[kPerThread];
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
+    for (int k = 0; k < kPerThread; ++k) {
       const int idx = tid + k * nt;
       if (idx < half) {
         a[k] = unpack(buf[idx]);
@@ -185,7 +198,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     }
     __syncthreads();
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
+    for (int k = 0; k < kPerThread; ++k) {
       const int idx = tid + k * nt;
       if (idx < half) {
         const int p = idx >> lt_log, l = idx & (LT - 1);
@@ -205,18 +218,19 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-template <int S, int K>
+template <int S>
 int launch(const uint32_t* y, uint32_t* out, const cell* tw, const cell* pre, const uint32_t* rs,
-           const uint32_t* ls, int B, int NL, int variant, int tile, void* stream) {
+           const uint32_t* ls, int B, int NL, int variant, void* stream) {
   constexpr int M = 1 << S;
+  constexpr int tile = kTile > kLanes * M ? kTile : kLanes * M;
   int lt_log = 0;  // LT = min(tile / M, NL), a power of two
   while ((M << (lt_log + 1)) <= tile && (2 << lt_log) <= NL) ++lt_log;
   const int pairs = (M / 2) << lt_log;
-  const int nt = (pairs + K - 1) / K;
+  const int nt = (pairs + kPerThread - 1) / kPerThread;
   if (nt > kMaxThreads) return -1;
   const int cells = (M << lt_log) + (variant == 2 ? M + (1 << lt_log) : 0);
   const size_t smem = (size_t)cells * sizeof(cell);
-  auto kernel = ntt_stages_kernel<S, K>;
+  auto kernel = ntt_stages_kernel<S>;
   ZK_SET_SMEM(kernel, (int)smem);
   dim3 grid(NL >> lt_log, B);
   ZK_LAUNCH(kernel, grid, dim3(nt), smem, stream, y, out, tw, pre, rs, ls, NL, lt_log, variant);
@@ -229,22 +243,15 @@ int launch(const uint32_t* y, uint32_t* out, const cell* tw, const cell* pre, co
 // elements with S = log2 M (1 <= S <= 9); pre: (M, NL) packed, variant 1;
 // rs: (8, M) and ls: (8, NL) limbs, variant 2.  M and NL are powers of two.
 // A packed element is the four little-endian 32-bit words of its value.
-// The launch shape: a block holds tile >= M elements (M x LT, a power of
-// two) and each thread runs per_thread (2, 4 or 8) butterflies per stage.
 ZK_EXPORT int zk_ntt_stages(const uint32_t* y, uint32_t* out, const uint32_t* tw,
                             const uint32_t* pre, const uint32_t* rs, const uint32_t* ls,
-                            int B, int M, int NL, int S, int variant, int tile, int per_thread,
-                            void* stream) {
-  if (S < 1 || S > 9 || M != (1 << S) || tile < M) return -1;
+                            int B, int M, int NL, int S, int variant, void* stream) {
+  if (S < 1 || S > 9 || M != (1 << S)) return -1;
   const cell* twc = reinterpret_cast<const cell*>(tw);
   const cell* prec = reinterpret_cast<const cell*>(pre);
-#define ZK_K1_LAUNCH(s, k) launch<s, k>(y, out, twc, prec, rs, ls, B, NL, variant, tile, stream)
-#define ZK_K1_CASE(s)                                  \
-  case s:                                              \
-    if (per_thread == 2) return ZK_K1_LAUNCH(s, 2);    \
-    if (per_thread == 4) return ZK_K1_LAUNCH(s, 4);    \
-    if (per_thread == 8) return ZK_K1_LAUNCH(s, 8);    \
-    return -1;
+#define ZK_K1_CASE(s) \
+  case s:             \
+    return launch<s>(y, out, twc, prec, rs, ls, B, NL, variant, stream);
   switch (S) {
     ZK_K1_CASE(1)
     ZK_K1_CASE(2)
@@ -257,7 +264,6 @@ ZK_EXPORT int zk_ntt_stages(const uint32_t* y, uint32_t* out, const uint32_t* tw
     ZK_K1_CASE(9)
   }
 #undef ZK_K1_CASE
-#undef ZK_K1_LAUNCH
   return -1;
 }
 

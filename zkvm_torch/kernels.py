@@ -36,8 +36,8 @@ _I = ctypes.c_int
 _L = ctypes.c_long
 # C signatures: every pointer and the stream are void*, sizes are int/long
 SIGNATURES = {
-    # y, out, tw, pre, rs, ls, B, M, NL, S, variant, tile, per_thread, stream
-    "zk_ntt_stages": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # y, out, tw, pre, rs, ls, B, M, NL, S, variant, stream
+    "zk_ntt_stages": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # a, b, out (packed elements), n, stream: zk::mul32 alone (a check)
     "zk_mul32": (_P, _P, _P, _I, _P),
     # x, out, C, N, stream

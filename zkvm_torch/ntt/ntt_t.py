@@ -202,8 +202,8 @@ def _mid_twiddles(n: int, inverse: bool, scaled: bool, device) -> torch.Tensor:
 # kernel K1: the stage network along axis -3, natural order in and out
 # ---------------------------------------------------------------------------
 
-launches = 0  # launches of the CUDA kernel in this process
-launches_by_shape = collections.Counter()  # (M, B, NL, variant) -> launches
+# launches of the CUDA kernel in this process, by (M, B, NL, variant)
+launches = collections.Counter()
 
 
 def pack_t(x: torch.Tensor) -> torch.Tensor:
@@ -256,14 +256,7 @@ def stages_plain(yb, tw, pre=None, r1=None) -> torch.Tensor:
     return pease_stages_plain(y, unpack_t(tw).transpose(-1, -2)).index_select(-3, final)
 
 
-# K1's launch shape (chosen with ``python -m zkvm_torch.tune_k1``; PERF.md):
-# a block holds M x LT elements, at least K1_TILE and at least K1_LANES
-# lanes (LT x 4 bytes = one 32-byte sector of a limb row), and each thread
-# runs K1_PER_THREAD butterflies per stage
-K1_TILE, K1_LANES, K1_PER_THREAD = 2048, 8, 4
-
-
-def launch_stages(lib, stream, yb, tw, pre=None, r1=None, tile=None, per_thread=None) -> torch.Tensor:
+def launch_stages(lib, stream, yb, tw, pre=None, r1=None) -> torch.Tensor:
     """Call the K1 entry point of ``lib`` on (B, M, 8, NL) limbs."""
     b, m, _, nl = yb.shape
     s = m.bit_length() - 1
@@ -285,8 +278,7 @@ def launch_stages(lib, stream, yb, tw, pre=None, r1=None, tile=None, per_thread=
     out = torch.empty_like(yb)
     rc = lib.zk_ntt_stages(
         kernels.ptr(yb), kernels.ptr(out), kernels.ptr(tw), kernels.ptr(pre),
-        kernels.ptr(rs), kernels.ptr(ls), b, m, nl, s, variant,
-        tile or max(K1_TILE, K1_LANES * m), per_thread or K1_PER_THREAD, stream,
+        kernels.ptr(rs), kernels.ptr(ls), b, m, nl, s, variant, stream,
     )
     kernels.check(rc, "zk_ntt_stages")
     return out
@@ -298,7 +290,6 @@ def pease_stages(yb, tw, pre=None, r1=None) -> torch.Tensor:
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel (or raises)."""
-    global launches
     if yb.device.type == "cpu":
         return stages_plain(yb, tw, pre, r1)
     if yb.device.type != "cuda":
@@ -309,9 +300,8 @@ def pease_stages(yb, tw, pre=None, r1=None) -> torch.Tensor:
         kernels.lib(), kernels.stream_of(yb), yb.contiguous(), tw.contiguous(),
         contig(pre), r1,
     )
-    launches += 1
     b, m, _, nl = yb.shape
-    launches_by_shape[(m, b, nl, "full" if pre is not None else "r1" if r1 is not None else "plain")] += 1
+    launches[(m, b, nl, "full" if pre is not None else "r1" if r1 is not None else "plain")] += 1
     return out
 
 
