@@ -6,17 +6,22 @@
 Phases, each printing one JSON line:
 
   (a) device: the card (nvidia-smi name and power limit), torch and CUDA;
-  (b) build: nvcc builds the kernels of zkvm_torch/csrc for sm_90a; the
-      SASS instructions of the f128 multiply zk::mul32, counted from its
-      probe kernel by cuobjdump;
+  (b) build: nvcc builds the kernels of zkvm_torch/csrc for sm_90a; each
+      kernel's registers and spills as ptxas reports them; the SASS
+      instructions of the f128 multiply zk::mul32, counted from its probe
+      kernel by cuobjdump;
   (c) kernels: K1 (NTT stage network, natural row order in and out), K2
       (BLAKE3 rows), K3 (composition) and K4 (merged transition) against
       their plain PyTorch versions on the card, at the main paths' shapes,
       on random limbs from a numpy seed with the field's edge values mixed
       in; exact equality is required; kernel and plain times by CUDA
-      events (k1_bench.cuda_ms: the card's time, and the host's time to
-      queue one call), and each case's bound (see bound_ms); and zk::mul32
-      alone against the plain multiply on every pair of edge values;
+      events (kernel_bench.cuda_ms: the card's time, and the host's time
+      to queue one call), and each case's bound (see bound_ms); K3 and K4
+      are timed at their C entry (the kernel alone, its arguments built
+      beforehand) and at their wrapper, and one wrapper call of each runs
+      under torch.cuda.set_sync_debug_mode("error"), so a wrapper that
+      waits for the stream fails the run; and zk::mul32 alone against the
+      plain multiply on every pair of edge values;
   (d) conformance: the T = 128 program of conformance/vectors_e2e.json,
       proved in both modes, whose roots and proof bytes must match the
       vector byte for byte;
@@ -38,7 +43,6 @@ Any failure raises and exits non-zero; there is no CPU fallback.
 import json
 import os
 import random
-import re
 import shutil
 import subprocess
 import sys
@@ -53,11 +57,11 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from k1_bench import K1_CASES, cuda_ms  # noqa: E402
+from kernel_bench import (K1_CASES, air_calls, air_cases, capture_entry, cuda_ms,  # noqa: E402
+                          ptxas_summary, sass_opcodes)
 from zkvm_torch import kernels, vm  # noqa: E402
 from zkvm_torch.air import composition as cp  # noqa: E402
 from zkvm_torch.air import transition as tr  # noqa: E402
-from zkvm_torch.air.periodic import periodic_class_patterns, periodic_table  # noqa: E402
 from zkvm_torch.field import f128  # noqa: E402
 from zkvm_torch.field import f128t as ft  # noqa: E402
 from zkvm_torch.field.limbs import from_numpy  # noqa: E402
@@ -80,10 +84,12 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 OPS_ADD, OPS_MUL = 8, 96
 LIMB_BYTES = 32  # one element: 8 limbs of 16 bits in 32-bit words
 PACKED_BYTES = 16  # one element as four 32-bit words (K1's constants)
-# f128 operations per row of the merged transition (csrc/transition.cuh),
-# and those K3 adds for the domain factor and its 12 + 10 boundary terms
-K4_MULS, K4_ADDS = 138, 118
-K3_MULS, K3_ADDS = K4_MULS + 1 + 22 + 2, K4_ADDS + 2 * 22 + 2
+# f128 operations per row of the merged transition (csrc/transition.cuh,
+# counted in its host emulation: 106 multiplies, 106 adds or subtracts),
+# and those K3 adds: the domain factor and the two group factors, the
+# groups' constants; one multiply and one add per distinct boundary column
+K4_MULS, K4_ADDS = 106, 106
+K3_MULS, K3_ADDS = K4_MULS + 3, K4_ADDS + 4
 # BLAKE3: 7 rounds x 8 G functions x 14 ops (6 adds, 4 xors, 4 rotates) and
 # 16 output xors per 64-byte block; 2 ops to pack two limbs into a word
 BLAKE3_BLOCK_OPS = 7 * 8 * 14 + 16
@@ -96,18 +102,28 @@ def emit(obj):
 EDGES = (0, 1, f128.P - 1, ft.EPS, 2**127)
 
 
-def rand_limbs(rng, shape, pair=0):
+EDGE_LIMBS = np.array([[(v >> (16 * k)) & 0xFFFF for k in range(8)] for v in EDGES], dtype=np.uint32)
+
+
+def rand_limbs(rng, shape, pair=0, spread=False):
     """Random canonical elements as (..., 8, L) int32 limbs on the card: 16
     random bits per limb, the top limb below 0xFFFF (so below p).  Lanes
     j < 25 of the first row hold the edge values EDGES[j % 5] (pair 0) or
     EDGES[j // 5] (pair 1), so a product of a pair-0 and a pair-1 input
-    meets every pair of edge values."""
+    meets every pair of edge values.  With ``spread``, every row instead
+    holds edge values at every s-th lane, s = min(61, L // 5): lane s k of
+    row r holds EDGES[(k + r) % 5], so every trace column and every
+    vector of alphas or boundary values meets each edge value."""
     limbs = rng.integers(0, 1 << 16, size=shape, dtype=np.uint32)
     limbs[..., 7, :] %= 0xFFFF
-    first = limbs.reshape(-1, 8, shape[-1])[0]
-    for j in range(min(25, shape[-1])):
-        v = EDGES[j % 5] if pair == 0 else EDGES[j // 5]
-        first[:, j] = [(v >> (16 * k)) & 0xFFFF for k in range(8)]
+    rows = limbs.reshape(-1, 8, shape[-1])
+    if spread:
+        lanes = np.arange(0, shape[-1], min(61, max(1, shape[-1] // 5)))
+        for r, row in enumerate(rows):
+            row[:, lanes] = EDGE_LIMBS[(np.arange(len(lanes)) + r) % 5].T
+    else:
+        for j in range(min(25, shape[-1])):
+            rows[0][:, j] = EDGE_LIMBS[j % 5 if pair == 0 else j // 5]
     return from_numpy(limbs, DEV)
 
 
@@ -121,9 +137,11 @@ def max_abs_err(a, b):
     return int((a.long() - b.long()).abs().max().item())
 
 
-def compare(name, kernel_fn, plain_fn, nbytes, ops, reps=20, plain_reps=2):
+def compare(name, kernel_fn, plain_fn, nbytes, ops, reps=20, plain_reps=2, entry_fn=None):
     """Kernel vs plain on the card: exact equality, both times and the
-    bound of the work (``nbytes`` moved, ``ops`` 32-bit operations)."""
+    bound of the work (``nbytes`` moved, ``ops`` 32-bit operations).  With
+    ``entry_fn`` (the C entry alone), ``ms`` is its time and the wrapper's
+    is ``wrapper_ms``."""
     got, want = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
     err = max_abs_err(got, want)
@@ -131,9 +149,13 @@ def compare(name, kernel_fn, plain_fn, nbytes, ops, reps=20, plain_reps=2):
         raise AssertionError(f"{name}: kernel differs from its plain version (max abs err {err})")
     del got, want
     ms, host_ms = cuda_ms(kernel_fn, reps)
+    extra = {}
+    if entry_fn is not None:
+        extra = {"wrapper_ms": ms, "wrapper_host_ms": host_ms}
+        ms, host_ms = cuda_ms(entry_fn, reps)
     plain_ms = cuda_ms(plain_fn, plain_reps)[0]
     bound, bound_by = bound_ms(nbytes, ops)
-    emit({"phase": "kernels", "case": name, "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+    emit({"phase": "kernels", "case": name, "max_abs_err": err, "ms": ms, "host_ms": host_ms, **extra,
           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by})
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
 
@@ -155,21 +177,16 @@ def sass_counts(function):
                                                       "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(kernels.library_path())], capture_output=True, text=True,
                           check=True).stdout
-    body = sass.split(f"Function : {function}\n", 1)[1].split("Function : ", 1)[0]
-    ops = {}
-    for op in re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z0-9_.]+)", body):
-        ops[op] = ops.get(op, 0) + 1
-    return ops
+    return sass_opcodes(sass, function)
 
 
 def phase_build():
     t0 = time.perf_counter()
     kernels.lib()
-    regs = [line.strip() for line in kernels.build_log.splitlines()
-            if "registers" in line or "spill" in line or "Compiling entry" in line]
+    log = kernels.build_log or (kernels.BUILD / "nvcc.log").read_text()
     ops = sass_counts("zk_mul32_probe")
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "nvcc_seconds": kernels.build_seconds,
-          "library": kernels.library_path().name, "ptxas": regs,
+          "library": kernels.library_path().name, "ptxas": ptxas_summary(log),
           "mul32_probe_sass": {"total": sum(ops.values()), "opcodes": ops}})
 
 
@@ -188,8 +205,14 @@ def _k1_work(b, m, nl, variant):
     return nbytes, ops
 
 
-def _transition_args(rng, n, mask, ark, n_alphas=20):
-    return [rand_limbs(rng, (28, 8, n)), mask, ark, rand_limbs(rng, (8, n_alphas)).T.contiguous()]
+def _air_work(kind, args, host):
+    """Bytes and operations of one K3 or K4 call: the trace columns (and
+    K3's ee, i0, i1) read once, the output written once."""
+    n = args[0].shape[-1]
+    if kind == "composition":
+        k = len(set(host[1])) + len(set(host[2]))
+        return n * (28 + 4) * LIMB_BYTES, n * ((K3_MULS + k) * OPS_MUL + (K3_ADDS + k) * OPS_ADD)
+    return n * 29 * LIMB_BYTES, n * (K4_MULS * OPS_MUL + K4_ADDS * OPS_ADD)
 
 
 def phase_kernels():
@@ -235,45 +258,32 @@ def phase_kernels():
         k2.append(compare(f"K2 C={c} N={n}", lambda: b3t.hash_rows_t(x), lambda: b3t.hash_rows_plain(x),
                           *work, plain_reps=1))
     results["blake3_rows"] = dict(k2[0], max_abs_err=max(r["max_abs_err"] for r in k2))
-    # K3: one class at T = 2^16 with the real boundary columns
-    t = 1 << 16
-    key = vm.ServerKey(vm.DEMO_PARAMETERS, random.Random(3))
-    assertions = vm.get_assertions(vm.PublicInputs((1, 2), tuple(range(16)), key), t)
-    bcols0 = tuple(c for (c, s, _) in assertions if s == 0)
-    bcols1 = tuple(c for (c, s, _) in assertions if s != 0)
-    mask, ark = periodic_class_patterns(t, 8)
-    mask_cls = from_numpy(np.ascontiguousarray(mask[3].T), DEV)
-    ark_cls = from_numpy(np.ascontiguousarray(np.swapaxes(ark[3], -1, -2)), DEV)
-    args = [
-        rand_limbs(rng, (28, 8, t)), mask_cls, ark_cls,
-        rand_limbs(rng, (8, t)), rand_limbs(rng, (8, t)), rand_limbs(rng, (8, t)),
-        rand_limbs(rng, (8, 20)).T.contiguous(),
-        rand_limbs(rng, (8, len(bcols0))).T.contiguous(), rand_limbs(rng, (8, len(bcols0))).T.contiguous(),
-        rand_limbs(rng, (8, len(bcols1))).T.contiguous(), rand_limbs(rng, (8, len(bcols1))).T.contiguous(),
-    ]
-    delta = key.parameters.delta
-    results["composition"] = compare(
-        "K3 T=65536",
-        lambda: cp.composition_t(*args, delta, bcols0, bcols1),
-        lambda: cp.composition_plain(*args, delta, bcols0, bcols1),
-        t * (28 + 4) * LIMB_BYTES, t * (K3_MULS * OPS_MUL + K3_ADDS * OPS_ADD), plain_reps=1,
-    )
-    del args
-    # K4: the mono shape (the full domain D = 2^19, next row +8, tables of
-    # period 128) and one class (T = 2^16, next row +1, 16-step patterns)
-    tab = from_numpy(periodic_table(t, 8), DEV)
+    # K3 (one class at T = 2^16, the real boundary columns) and K4 (the
+    # mono shape and one class): kernel_bench.air_cases
     k4 = {}
-    for name, n, step, mk, ak in [("mono", 8 * t, 8, tab[0], tab[1:].contiguous()),
-                                  ("class", t, 1, mask_cls, ark_cls)]:
-        a = _transition_args(rng, n, mk, ak)
-        k4[name] = compare(
-            f"K4 {name} N={n} step={step}",
-            lambda: tr.merged_transition(*a, delta, step),
-            lambda: tr.merged_transition_plain(*a, delta, step),
-            n * 29 * LIMB_BYTES, n * (K4_MULS * OPS_MUL + K4_ADDS * OPS_ADD), plain_reps=1,
+    for name, kind, args, host in air_cases(lambda shape: rand_limbs(rng, shape, spread=True), DEV):
+        wrapper, plain, launch = air_calls(kind)
+        cname, cargs, keep = capture_entry(kernels, launch, *args, *host)
+        lib = kernels.lib()
+        res = compare(
+            name, lambda: wrapper(*args, *host), lambda: plain(*args, *host), *_air_work(kind, args, host),
+            plain_reps=1, entry_fn=lambda: kernels.check(getattr(lib, cname)(*cargs), cname),
         )
-        del a
-    results["transition"] = dict(k4["mono"], max_abs_err=max(r["max_abs_err"] for r in k4.values()))
+        # a warmed-up wrapper call must not wait for the stream
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            wrapper(*args, *host)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        emit({"phase": "kernels", "case": name, "wrapper_sync_free": True})
+        if kind == "composition":
+            results["composition"] = res
+        else:
+            k4[name] = res
+        del args, cargs, keep
+    results["transition"] = dict(k4[next(iter(k4))], max_abs_err=max(r["max_abs_err"] for r in k4.values()))
     torch.cuda.empty_cache()
     return results
 

@@ -15,6 +15,7 @@ from zkvm.air import constraints_pallas as jcp
 from zkvm.air import periodic as jper
 from zkvm.air.layout import PublicInputs, get_assertions
 from zkvm.fhe import LweParameters, ServerKey
+from zkvm.field import f128
 from zkvm_torch.air import composition as tcp
 from zkvm_torch.air import periodic as tper
 from zkvm_torch.field.limbs import from_numpy, to_limbs, to_numpy
@@ -24,15 +25,28 @@ torch.set_num_threads(1)
 T = 128
 
 
-def rand_limbs(rng, shape):
-    """(..., 8, L) limbs of random canonical elements."""
+EDGES = (0, 1, f128.P - 1, 45 * 2**40 - 1, 2**127)
+
+
+def rand_limbs(rng, shape, edges=False):
+    """(..., 8, L) limbs of random canonical elements.  With ``edges``,
+    lane j = s k (s = min(7, L // 5)) of row r holds EDGES[(k + r) % 5]:
+    every row meets every edge value, beside random ones."""
     n = int(np.prod(shape)) // 8
     vals = [int(a) << 64 | int(b) for a, b in zip(*rng.integers(0, 2**63, size=(2, n), dtype=np.int64))]
+    if edges:
+        lanes = shape[-1]
+        step = min(7, max(1, lanes // 5))
+        for r in range(n // lanes):
+            for k, j in enumerate(range(0, lanes, step)):
+                vals[r * lanes + j] = EDGES[(k + r) % 5]
     return np.swapaxes(to_limbs(vals).reshape(shape[:-2] + (shape[-1], 8)), -1, -2)
 
 
 def composition_inputs(seed, t=T):
-    """Random class inputs with the real boundary columns of get_assertions."""
+    """Random class inputs with the real boundary columns of get_assertions,
+    the field's edge values mixed into the trace, the alphas, the periodic
+    patterns and the boundary values and coefficients (see rand_limbs)."""
     rng = np.random.default_rng(seed)
     key = ServerKey(LweParameters(8, 128, 4, 2.412390240121573e-5), random.Random(seed))
     pub = PublicInputs((11, 22), tuple(range(16)), key)
@@ -41,18 +55,19 @@ def composition_inputs(seed, t=T):
     bcols1 = tuple(c for (c, s, _) in assertions if s != 0)
     # cur: bits, hash flag and mask near {0, 1} matter less than exactness;
     # random canonical values exercise every product
+    rl = lambda shape: rand_limbs(rng, shape, edges=True)
     arrays = dict(
-        cur=rand_limbs(rng, (28, 8, t)),
-        mask=rand_limbs(rng, (8, 16)),
-        ark=rand_limbs(rng, (8, 8, 16)),
-        ee=rand_limbs(rng, (8, t)),
-        i0=rand_limbs(rng, (8, t)),
-        i1=rand_limbs(rng, (8, t)),
-        alphas=np.swapaxes(rand_limbs(rng, (8, 20)), 0, 1).copy(),
-        bv0=np.swapaxes(rand_limbs(rng, (8, len(bcols0))), 0, 1).copy(),
-        bb0=np.swapaxes(rand_limbs(rng, (8, len(bcols0))), 0, 1).copy(),
-        bv1=np.swapaxes(rand_limbs(rng, (8, len(bcols1))), 0, 1).copy(),
-        bb1=np.swapaxes(rand_limbs(rng, (8, len(bcols1))), 0, 1).copy(),
+        cur=rl((28, 8, t)),
+        mask=rl((8, 16)),
+        ark=rl((8, 8, 16)),
+        ee=rl((8, t)),
+        i0=rl((8, t)),
+        i1=rl((8, t)),
+        alphas=np.swapaxes(rl((8, 20)), 0, 1).copy(),
+        bv0=np.swapaxes(rl((8, len(bcols0))), 0, 1).copy(),
+        bb0=np.swapaxes(rl((8, len(bcols0))), 0, 1).copy(),
+        bv1=np.swapaxes(rl((8, len(bcols1))), 0, 1).copy(),
+        bb1=np.swapaxes(rl((8, len(bcols1))), 0, 1).copy(),
     )
     return arrays, key.parameters.delta, bcols0, bcols1
 

@@ -94,27 +94,29 @@ def test_blake3_rows_emulated(emu, c, n):
     np.testing.assert_array_equal(to_numpy(got), to_numpy(tb3t.hash_rows_t(x)))
 
 
-def test_composition_emulated(emu):
+@pytest.mark.parametrize("t", [160, 48, 256])
+def test_composition_emulated(emu, t):
+    """K3 with the field's edge values in every input, at T = 160 (a full
+    block of 128 rows and a partial one), 48 (one partial block) and 256
+    (two full blocks); the last row's next row is row 0."""
     from test_torch_composition import _ORDER, composition_inputs
     from zkvm_torch.air import composition as tcp
 
-    arrays, delta, bcols0, bcols1 = composition_inputs(6, t=160)
+    arrays, delta, bcols0, bcols1 = composition_inputs(6, t=t)
     args = [from_numpy(arrays[k]) for k in _ORDER]
     got = tcp.launch_composition(emu, 0, *args, delta, bcols0, bcols1)
     want = tcp.composition_t(*args, delta, bcols0, bcols1)
     np.testing.assert_array_equal(to_numpy(got), to_numpy(want))
 
 
-@pytest.mark.parametrize("domain", ["full", "class"])
-def test_transition_emulated(emu, domain):
-    """K4 over the full domain (next row +blowup, period-16*blowup tables)
-    and over one class (next row +1, 16-step patterns); the last ``step``
-    rows read rows 0 .. step-1 (wrap-around)."""
+def _transition_inputs(domain, t, blowup, seed):
+    """K4's inputs over the full domain (next row +blowup, period-16*blowup
+    tables) or one class (next row +1, 16-step patterns), the field's edge
+    values mixed into the trace and the alphas."""
+    from test_torch_composition import rand_limbs as edge_limbs
     from zkvm_torch.air import periodic as tper
-    from zkvm_torch.air import transition as ttr
 
-    t, blowup = 32, 4
-    rng = np.random.default_rng(41 if domain == "full" else 42)
+    rng = np.random.default_rng(seed)
     if domain == "full":
         n, step = t * blowup, blowup
         tab = from_numpy(tper.periodic_table(t, blowup))
@@ -124,9 +126,77 @@ def test_transition_emulated(emu, domain):
         mask_p, ark_p = tper.periodic_class_patterns(t, blowup)
         mask = from_numpy(np.ascontiguousarray(np.swapaxes(mask_p[1], -1, -2)))
         ark = from_numpy(np.ascontiguousarray(np.swapaxes(ark_p[1], -1, -2)))
-    lde = from_numpy(rand_limbs(rng, (28, 8, n)))
-    alphas = from_numpy(np.ascontiguousarray(np.swapaxes(rand_limbs(rng, (8, 20)), 0, 1)))
+    lde = from_numpy(edge_limbs(rng, (28, 8, n), edges=True))
+    alphas = from_numpy(np.ascontiguousarray(np.swapaxes(edge_limbs(rng, (8, 20), edges=True), 0, 1)))
+    return lde, mask, ark, alphas, step
+
+
+@pytest.mark.parametrize("domain,t", [("full", 32), ("class", 32), ("full", 48), ("class", 144)])
+def test_transition_emulated(emu, domain, t):
+    """K4 over the full domain (next row +blowup, period-16*blowup tables)
+    and over one class (next row +1, 16-step patterns), with the field's
+    edge values in the trace and the alphas; the last ``step`` rows read
+    rows 0 .. step-1 (wrap-around).  N = 128 and 32 fill whole blocks or
+    one partial block; N = 192 and 144 end in a partial block, so the
+    wrap-around crosses from the last, partial block to the first."""
+    from zkvm_torch.air import transition as ttr
+
+    lde, mask, ark, alphas, step = _transition_inputs(domain, t, 4, 41 + t + (domain == "class"))
+    n = lde.shape[-1]
     got = to_numpy(ttr.launch_transition(emu, 0, lde, mask, ark, alphas, 12345, step))
     want = to_numpy(ttr.merged_transition(lde, mask, ark, alphas, 12345, step))
     np.testing.assert_array_equal(got[:, n - step:], want[:, n - step:])  # the wrap-around rows
     np.testing.assert_array_equal(got, want)
+
+
+def test_air_launches_build_no_constants(emu, monkeypatch):
+    """A second call of K3's and K4's launch functions builds no tensor
+    from host data: on a card each such copy waits for the stream.  The
+    matrices are built once per device; delta and the boundary columns go
+    to the C entry by value."""
+    from test_torch_composition import _ORDER, composition_inputs
+    from zkvm_torch.air import composition as tcp
+    from zkvm_torch.air import transition as ttr
+
+    built = []
+
+    def counting(name, fn):
+        return lambda *a, **k: built.append(name) or fn(*a, **k)
+
+    for mod, name in [(tcp, "from_numpy"), (torch, "tensor"), (torch, "from_numpy"), (torch, "as_tensor")]:
+        monkeypatch.setattr(mod, name, counting(name, getattr(mod, name)))
+    arrays, delta, bcols0, bcols1 = composition_inputs(7, t=32)
+    args = [from_numpy(arrays[k]) for k in _ORDER]
+    lde, mask, ark, alphas, step = _transition_inputs("full", 16, 2, 8)
+    tcp.mds_dev.cache_clear()
+    calls = [lambda: tcp.launch_composition(emu, 0, *args, delta, bcols0, bcols1),
+             lambda: ttr.launch_transition(emu, 0, lde, mask, ark, alphas, delta, step)]
+    first = []
+    for call in calls:
+        call()
+        first.append(list(built))
+        built.clear()
+        call()
+        assert built == [], f"the second call built {built}"
+    assert first[0], "the first K3 call builds the matrices once (so the counting works)"
+    assert first[1] == [], "K4 shares K3's cached matrices"
+
+
+def test_air_wrappers_refuse_what_the_kernels_cannot_hold():
+    """More boundary columns than K3's arguments hold, or a periodic table
+    longer than K4 stages into shared memory, raise before any launch."""
+    from test_torch_composition import _ORDER, composition_inputs
+    from zkvm_torch.air import composition as tcp
+    from zkvm_torch.air import transition as ttr
+
+    arrays, delta, bcols0, bcols1 = composition_inputs(8, t=32)
+    many = tuple(range(tcp.MAX_BOUNDARY + 1))
+    arrays["bv0"] = np.zeros((len(many), 8), np.uint32)
+    arrays["bb0"] = np.zeros((len(many), 8), np.uint32)
+    with pytest.raises(ValueError, match="boundary columns"):
+        tcp.launch_composition(None, 0, *(from_numpy(arrays[k]) for k in _ORDER), delta, many, bcols1)
+    p = 2 * ttr.MAX_PERIOD
+    lde = torch.zeros((28, 8, p), dtype=torch.int32)
+    with pytest.raises(ValueError, match="table length"):
+        ttr.launch_transition(None, 0, lde, lde[0], torch.zeros((8, 8, p), dtype=torch.int32),
+                              torch.zeros((20, 8), dtype=torch.int32), 1, 1)

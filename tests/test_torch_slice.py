@@ -5,7 +5,7 @@ the kernels), held against the JAX reference.
 * T = 256 (one FRI layer): the proof is accepted by the JAX package's
   verifier and by the port's copy, and a tampered copy is rejected;
 * no module of the port, and nothing in ``chip_smoke.py`` or
-  ``k1_bench.py``, imports ``zkvm`` or ``jax``; a process that can import
+  ``kernel_bench.py``, imports ``zkvm`` or ``jax``; a process that can import
   neither proves T = 128 in both modes to the same bytes;
 * a trace, key and public inputs of the JAX package, carried across by
   ``zkvm_torch.convert``, prove to the same bytes as the port's own;
@@ -96,7 +96,7 @@ def _imported_modules(path):
 def test_port_imports_neither_zkvm_nor_jax():
     build = REPO / "zkvm_torch" / "build"  # kernel builds, unpacked trees: not the package
     files = sorted(p for p in (REPO / "zkvm_torch").rglob("*.py") if build not in p.parents)
-    files += [REPO / "chip_smoke.py", REPO / "k1_bench.py"]
+    files += [REPO / "chip_smoke.py", REPO / "kernel_bench.py"]
     assert len(files) > 30
     for path in files:
         bad = _imported_modules(path) & {"zkvm", "jax", "jaxlib"}

@@ -13,13 +13,17 @@ reads them at n % 16 and the plain version tiles them.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
+import numpy as np
 import torch
 
 from zkvm_torch.air.constraints_golden import LWE_SIZE
 from zkvm_torch.air.layout import Columns
 from zkvm_torch.hash import rescue
 from zkvm_torch import kernels
-from zkvm_torch.field import f128t as ft
+from zkvm_torch.field import f128, f128t as ft
 from zkvm_torch.field.limbs import from_numpy, to_limbs
 
 # (4, 4, 8) limbs-last MDS and inverse-MDS matrices (rescue_jax.mds_limbs)
@@ -162,6 +166,34 @@ def composition_body_t(cur, nxt, mask, ark, ee, i0, i1, mds, inv_mds, alphas,
 # ---------------------------------------------------------------------------
 
 launches = 0  # launches of the CUDA kernel in this process
+MAX_BOUNDARY = 16  # boundary columns per group that the kernel's arguments hold
+
+
+@functools.lru_cache(maxsize=None)
+def mds_dev(device) -> torch.Tensor:
+    """(32, 8) limbs on ``device``: the MDS then the inverse-MDS matrix,
+    row-major, built once per device (K3 and K4 read it)."""
+    return from_numpy(np.concatenate([MDS_LIMBS.reshape(16, 8), INV_MDS_LIMBS.reshape(16, 8)]), device)
+
+
+def mds_pair(device):
+    """The cached MDS and inverse-MDS matrices as two (4, 4, 8) views."""
+    m = mds_dev(device)
+    return m[:16].view(4, 4, 8), m[16:].view(4, 4, 8)
+
+
+def delta_words(delta: int):
+    """delta mod p as the two 64-bit words the C entries take by value."""
+    d = delta % f128.P
+    return d & (2**64 - 1), d >> 64
+
+
+def _columns(cols, group: str):
+    """A boundary group's column indices as a host int array for the C
+    entry, which copies them into the kernel's arguments."""
+    if len(cols) > MAX_BOUNDARY:
+        raise ValueError(f"composition: {len(cols)} boundary columns in {group}, at most {MAX_BOUNDARY}")
+    return (ctypes.c_int * len(cols))(*cols)
 
 
 def composition_plain(cur_t, mask_pat, ark_pat, ee_t, i0_t, i1_t, alphas,
@@ -172,15 +204,17 @@ def composition_plain(cur_t, mask_pat, ark_pat, ee_t, i0_t, i1_t, alphas,
     dev = cur_t.device
     return composition_body_t(
         cur_t, torch.roll(cur_t, -1, dims=-1), mask_pat.repeat(1, t // 16),
-        ark_pat.repeat(1, 1, t // 16), ee_t, i0_t, i1_t, from_numpy(MDS_LIMBS, dev),
-        from_numpy(INV_MDS_LIMBS, dev), alphas, bv0, bb0, bv1, bb1, delta, bcols0, bcols1,
+        ark_pat.repeat(1, 1, t // 16), ee_t, i0_t, i1_t, *mds_pair(dev),
+        alphas, bv0, bb0, bv1, bb1, delta, bcols0, bcols1,
     )
 
 
 def launch_composition(lib, stream, cur_t, mask_pat, ark_pat, ee_t, i0_t, i1_t, alphas,
                        bv0, bb0, bv1, bb1, delta, bcols0, bcols1) -> torch.Tensor:
     """Call the K3 entry point of ``lib``; all limb tensors contiguous int32
-    on one device."""
+    on one device.  It copies nothing to the device (the matrices are
+    cached per device, delta and the columns go by value), so it never
+    waits for the stream."""
     dev = cur_t.device
     t = cur_t.shape[-1]
     k0, k1 = len(bcols0), len(bcols1)
@@ -191,15 +225,12 @@ def launch_composition(lib, stream, cur_t, mask_pat, ark_pat, ee_t, i0_t, i1_t, 
         ("bv1", bv1, (k1, 8)), ("bb1", bb1, (k1, 8)),
     ]:
         kernels.expect(tns, shape, dev, name)
-    mds, imds, dl = (from_numpy(a, dev) for a in (MDS_LIMBS, INV_MDS_LIMBS, to_limbs(delta)))
-    bc0 = torch.tensor(bcols0, dtype=torch.int32, device=dev)
-    bc1 = torch.tensor(bcols1, dtype=torch.int32, device=dev)
+    bc0, bc1 = _columns(bcols0, "group 0"), _columns(bcols1, "group 1")
     out = torch.empty((8, t), dtype=torch.int32, device=dev)
     p = kernels.ptr
     rc = lib.zk_composition(
-        p(cur_t), p(mask_pat), p(ark_pat), p(ee_t), p(i0_t), p(i1_t), p(mds), p(imds),
-        p(alphas), p(dl), p(bv0), p(bb0), p(bc0), k0, p(bv1), p(bb1), p(bc1), k1,
-        p(out), t, stream,
+        p(cur_t), p(mask_pat), p(ark_pat), p(ee_t), p(i0_t), p(i1_t), p(mds_dev(dev)), p(alphas),
+        *delta_words(delta), p(bv0), p(bb0), bc0, k0, p(bv1), p(bb1), bc1, k1, p(out), t, stream,
     )
     kernels.check(rc, "zk_composition")
     return out

@@ -18,10 +18,10 @@ from __future__ import annotations
 import torch
 
 from zkvm_torch import kernels
-from zkvm_torch.field.limbs import from_numpy, to_limbs
-from .composition import INV_MDS_LIMBS, MDS_LIMBS, merged_transition_t
+from .composition import delta_words, mds_dev, mds_pair, merged_transition_t
 
 launches = 0  # launches of the CUDA kernel in this process
+MAX_PERIOD = 1024  # the longest periodic table the kernel stages into shared memory
 
 
 def merged_transition_plain(lde_t, mask_tab, ark_tab, alphas, delta, step) -> torch.Tensor:
@@ -32,29 +32,28 @@ def merged_transition_plain(lde_t, mask_tab, ark_tab, alphas, delta, step) -> to
     dev = lde_t.device
     return merged_transition_t(
         lde_t, torch.roll(lde_t, -step, dims=-1), mask_tab.repeat(1, reps),
-        ark_tab.repeat(1, 1, reps), from_numpy(MDS_LIMBS, dev), from_numpy(INV_MDS_LIMBS, dev),
-        alphas, delta,
+        ark_tab.repeat(1, 1, reps), *mds_pair(dev), alphas, delta,
     )
 
 
 def launch_transition(lib, stream, lde_t, mask_tab, ark_tab, alphas, delta, step) -> torch.Tensor:
     """Call the K4 entry point of ``lib``; all limb tensors contiguous int32
-    on one device."""
+    on one device.  It copies nothing to the device, so it never waits for
+    the stream."""
     dev = lde_t.device
     n, p = lde_t.shape[-1], mask_tab.shape[-1]
-    if p < 1 or n % p or not 0 < step < n:
+    if not 0 < p <= MAX_PERIOD or n % p or not 0 < step < n:
         raise ValueError(f"transition: N={n}, table length {p}, step {step} unsupported")
     for name, tns, shape in [
         ("lde", lde_t, (28, 8, n)), ("mask", mask_tab, (8, p)), ("ark", ark_tab, (8, 8, p)),
         ("alphas", alphas, (20, 8)),
     ]:
         kernels.expect(tns, shape, dev, name)
-    mds, imds, dl = (from_numpy(a, dev) for a in (MDS_LIMBS, INV_MDS_LIMBS, to_limbs(delta)))
     out = torch.empty((8, n), dtype=torch.int32, device=dev)
     p_ = kernels.ptr
     rc = lib.zk_transition(
-        p_(lde_t), p_(mask_tab), p_(ark_tab), p_(mds), p_(imds), p_(alphas), p_(dl), p_(out),
-        n, p, step, stream,
+        p_(lde_t), p_(mask_tab), p_(ark_tab), p_(mds_dev(dev)), p_(alphas), *delta_words(delta),
+        p_(out), n, p, step, stream,
     )
     kernels.check(rc, "zk_transition")
     return out

@@ -1,11 +1,16 @@
 // f128 field arithmetic for the zkvm_torch kernels.
 //
 // p = 2^128 - eps with eps = 2^128 mod p = 45*2^40 - 1 (< 2^46).  A field
-// element lives in registers as two 64-bit words; in memory it is the
-// reference's 8 little-endian 16-bit limbs, one per uint32 (the
-// transposed (..., 8, N) layout: limb i at offset i*stride).  Every
-// function takes and returns canonical values (< p), so results are the
-// same bits as zkvm_torch/field/f128t.py and the JAX reference.
+// element (zk::fe) holds its value as two 64-bit halves, but all
+// arithmetic runs on its four 32-bit words: mul32 is a 4 x 4 schoolbook of
+// 32-bit limbs with two folds by eps, add32 / sub32 are 32-bit carry
+// chains (PTX on the card, the same steps in C on the host, where the
+// kernels are emulated).  In device memory an element is the reference's
+// 8 little-endian 16-bit limbs, one per uint32 (the transposed (..., 8, N)
+// layout: limb i at offset i*stride), or, for constants read many times,
+// a packed cell of its four words (16 bytes, one load).  Every function
+// takes and returns canonical values (< p), so results are the same bits
+// as zkvm_torch/field/f128t.py and the JAX reference.
 #pragma once
 
 #include "zk_common.cuh"
@@ -18,103 +23,17 @@ struct fe {
 
 constexpr uint64_t EPS = 45ull * (1ull << 40) - 1;
 
-ZK_HD uint64_t mulhi(uint64_t a, uint64_t b) {
-#if defined(__CUDA_ARCH__)
-  return __umul64hi(a, b);
-#else
-  return (uint64_t)(((unsigned __int128)a * b) >> 64);
-#endif
-}
+// one element packed in 16 bytes (its four 32-bit words), for constants
+// that a kernel reads many times: one 16-byte load
+struct alignas(16) cell {
+  uint64_t lo, hi;
+};
 
-// value < 2^128 -> canonical (subtract p once if value >= p; x - p equals
-// x + eps - 2^128, so add eps and keep the sum where it overflows)
-ZK_HD fe canon(uint64_t lo, uint64_t hi) {
-  uint64_t tlo = lo + EPS;
-  uint64_t c = tlo < lo;
-  uint64_t thi = hi + c;
-  bool ge = c & (thi == 0);
-  return ge ? fe{tlo, thi} : fe{lo, hi};
-}
+ZK_HD fe unpack(cell c) { return fe{c.lo, c.hi}; }
+ZK_HD cell pack(fe v) { return cell{v.lo, v.hi}; }
 
-ZK_HD fe add(fe a, fe b) {
-  uint64_t lo = a.lo + b.lo;
-  uint64_t c = lo < a.lo;
-  uint64_t hi = a.hi + b.hi;
-  uint64_t c1 = hi < a.hi;
-  hi += c;
-  c1 |= hi < c;  // carry out of bit 128
-  uint64_t tlo = lo + EPS;
-  uint64_t d = tlo < lo;
-  uint64_t thi = hi + d;
-  uint64_t c2 = d & (thi == 0);
-  return (c1 | c2) ? fe{tlo, thi} : fe{lo, hi};
-}
-
-ZK_HD fe sub(fe a, fe b) {
-  uint64_t lo = a.lo - b.lo;
-  uint64_t bw = a.lo < b.lo;
-  uint64_t hi = a.hi - b.hi - bw;
-  bool neg = (a.hi < b.hi) | ((a.hi == b.hi) & bw);
-  if (neg) {  // + p == - eps (mod 2^128)
-    uint64_t b3 = lo < EPS;
-    lo -= EPS;
-    hi -= b3;
-  }
-  return fe{lo, hi};
-}
-
-ZK_HD fe mul(fe a, fe b) {
-  // 256-bit product r3 r2 r1 r0
-  uint64_t r0 = a.lo * b.lo;
-  uint64_t r1 = mulhi(a.lo, b.lo);
-  uint64_t p01l = a.lo * b.hi, p01h = mulhi(a.lo, b.hi);
-  uint64_t p10l = a.hi * b.lo, p10h = mulhi(a.hi, b.lo);
-  uint64_t p11l = a.hi * b.hi, p11h = mulhi(a.hi, b.hi);
-  uint64_t k = 0;
-  r1 += p01l;
-  k += r1 < p01l;
-  r1 += p10l;
-  k += r1 < p10l;
-  uint64_t r2 = p01h + k;
-  uint64_t k2 = r2 < k;
-  r2 += p10h;
-  k2 += r2 < p10h;
-  r2 += p11l;
-  k2 += r2 < p11l;
-  uint64_t r3 = p11h + k2;
-  // fold 1: (r3 r2) * 2^128 == (r3 r2) * eps; result w2:w1:w0 < 2^175
-  uint64_t m0l = r2 * EPS, m0h = mulhi(r2, EPS);
-  uint64_t m1l = r3 * EPS, m1h = mulhi(r3, EPS);
-  uint64_t w0 = r0 + m0l;
-  uint64_t c = w0 < m0l;
-  uint64_t w1 = r1 + c;
-  uint64_t cc = w1 < c;
-  w1 += m0h;
-  cc += w1 < m0h;
-  w1 += m1l;
-  cc += w1 < m1l;
-  uint64_t w2 = m1h + cc;  // < 2^47
-  // fold 2: w2 * 2^128 == w2 * eps (< 2^93); leaves a carry bit
-  uint64_t ql = w2 * EPS, qh = mulhi(w2, EPS);
-  uint64_t v0 = w0 + ql;
-  c = v0 < ql;
-  uint64_t v1 = w1 + qh;
-  uint64_t top = v1 < qh;
-  v1 += c;
-  top += v1 < c;
-  // folds 3 and 4: the carry bit is one more eps
-  for (int i = 0; i < 2; ++i) {
-    uint64_t e = EPS & (0 - top);
-    v0 += e;
-    c = v0 < e;
-    v1 += c;
-    top = v1 < c;
-  }
-  return canon(v0, v1);
-}
-
-// The same product from 32-bit limbs, for a card that has no 64 x 64-bit
-// multiplier: a 4 x 4 schoolbook of 32 x 32 -> 64-bit products, then the
+// The product from 32-bit limbs (the card has no 64 x 64-bit multiplier):
+// a 4 x 4 schoolbook of 32 x 32 -> 64-bit products, then the
 // folds by eps = 0x2D00 * 2^32 - 1 as a multiply by the 14-bit 0x2D00, a
 // shift by one word and a subtraction.  mul32_c is the algorithm in C (the
 // host's mul32, so the emulated kernels check it); on the card mul32 runs
@@ -178,11 +97,12 @@ ZK_HD fe mul32_c(fe a, fe b) {
   const uint32_t v2 = (uint32_t)s;
   s = (s >> 32) + t3 + (uint32_t)(u >> 32);
   const uint32_t v3 = (uint32_t)s;
-  // fold 3: a carry out of bit 128 (then v < 2^93) is one more eps
-  const uint64_t e = EPS & (0 - (uint64_t)(s >> 32));
-  const uint64_t lo = ((uint64_t)v1 << 32 | v0) + e;
-  const uint64_t hi = ((uint64_t)v3 << 32 | v2) + (lo < e);
-  return canon(lo, hi);
+  // fold 3 and the canonical value: v + eps where bit 128 was set (then
+  // v < 2^93, and v + 2^128 == v + eps) or where v + eps carries (v >= p)
+  const uint64_t lo = (uint64_t)v1 << 32 | v0, hi = (uint64_t)v3 << 32 | v2;
+  const uint64_t tlo = lo + EPS, thi = hi + (tlo < lo);
+  const bool carry = (tlo < lo) && thi == 0;
+  return ((s >> 32) != 0 || carry) ? fe{tlo, thi} : fe{lo, hi};
 }
 
 #if defined(__CUDA_ARCH__)
@@ -286,9 +206,9 @@ ZK_HD fe mul32(fe a, fe b) {
   return ZK_JOIN(o);
 }
 
-// add and sub as 32-bit carry chains (the same results as add / sub):
-// a + b, then the sum + eps (= sum - p mod 2^128) where that is the value
-// below p; a - b, then - eps (= + p) where it borrowed
+// add and sub as 32-bit carry chains: a + b, then the sum + eps (= sum - p
+// mod 2^128) where that is the value below p; a - b, then - eps (= + p)
+// where it borrowed
 ZK_HD fe add32(fe a, fe b) {
   uint32_t o[4];
   asm("{\n\t"
@@ -338,8 +258,39 @@ ZK_HD fe sub32(fe a, fe b) {
 #undef ZK_JOIN
 #else
 ZK_HD fe mul32(fe a, fe b) { return mul32_c(a, b); }
-ZK_HD fe add32(fe a, fe b) { return add(a, b); }
-ZK_HD fe sub32(fe a, fe b) { return sub(a, b); }
+
+// add32 / sub32 on the host: the PTX chains' steps on 32-bit words
+ZK_HD void words(fe v, uint32_t w[4]) {
+  w[0] = (uint32_t)v.lo, w[1] = (uint32_t)(v.lo >> 32), w[2] = (uint32_t)v.hi,
+  w[3] = (uint32_t)(v.hi >> 32);
+}
+ZK_HD fe join(const uint32_t w[4]) {
+  return fe{(uint64_t)w[1] << 32 | w[0], (uint64_t)w[3] << 32 | w[2]};
+}
+constexpr uint32_t EPS_WORDS[4] = {0xFFFFFFFFu, 0x2CFFu, 0, 0};
+
+ZK_HD fe add32(fe a, fe b) {
+  uint32_t x[4], y[4], s[4], r[4];
+  words(a, x), words(b, y);
+  uint64_t t = 0;
+  for (int i = 0; i < 4; ++i) s[i] = (uint32_t)(t = (uint64_t)x[i] + y[i] + (t >> 32));
+  uint32_t c = (uint32_t)(t >> 32);
+  t = 0;
+  for (int i = 0; i < 4; ++i) r[i] = (uint32_t)(t = (uint64_t)s[i] + EPS_WORDS[i] + (t >> 32));
+  c += (uint32_t)(t >> 32);
+  return c ? join(r) : join(s);
+}
+
+ZK_HD fe sub32(fe a, fe b) {
+  uint32_t x[4], y[4], d[4];
+  words(a, x), words(b, y);
+  int64_t t = 0;
+  for (int i = 0; i < 4; ++i) d[i] = (uint32_t)(t = (int64_t)x[i] - y[i] + (t >> 32));
+  const uint32_t m = (uint32_t)(t >> 32);  // 0, or all ones where it borrowed
+  t = 0;
+  for (int i = 0; i < 4; ++i) d[i] = (uint32_t)(t = (int64_t)d[i] - (EPS_WORDS[i] & m) + (t >> 32));
+  return join(d);
+}
 #endif
 
 // limb i of the element at p[i * stride] (16-bit values in uint32 words)

@@ -2,8 +2,9 @@
 //
 // Only for testing the kernels' logic on a machine without a card: each
 // block runs its threads as std::threads sharing one dynamic shared-memory
-// buffer, and __syncthreads() is a std::barrier.  Blocks run one after
-// another.  Never compiled by nvcc.
+// buffer, and __syncthreads() is a std::barrier.  A __shared__ variable is
+// a static one, which all threads see; blocks run one after another, so
+// each block has it to itself.  Never compiled by nvcc.
 #pragma once
 
 #include <barrier>
@@ -22,6 +23,7 @@ struct dim3 {
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __restrict__
+#define __shared__ static
 
 namespace zk_emu {
 inline thread_local dim3 tl_thread_idx;

@@ -30,14 +30,17 @@
 // packed into shared memory once per block.
 #include "f128.cuh"
 
+using zk::cell;
 using zk::fe;
+using zk::pack;
+using zk::unpack;
 
 namespace {
 
 constexpr int kMaxThreads = 512;
 // The launch shape: a tile of max(ZK_K1_TILE, ZK_K1_LANES x M) elements
 // and ZK_K1_PER_THREAD butterflies per thread and stage.  Other values are
-// for timing the shapes only (k1_bench.py --sweep builds them).
+// for timing the shapes only (kernel_bench.py --sweep builds them).
 #ifndef ZK_K1_TILE
 #define ZK_K1_TILE 2048
 #endif
@@ -49,19 +52,11 @@ constexpr int kMaxThreads = 512;
 #endif
 constexpr int kTile = ZK_K1_TILE, kLanes = ZK_K1_LANES, kPerThread = ZK_K1_PER_THREAD;
 
-// one element packed in 16 bytes: the words of zk::fe
-struct alignas(16) cell {
-  uint64_t lo, hi;
-};
-
 // V consecutive limbs of one limb row, moved as one 4V-byte access
 template <int V>
 struct alignas(4 * V) run {
   uint32_t w[V];
 };
-
-ZK_HD fe unpack(cell c) { return fe{c.lo, c.hi}; }
-ZK_HD cell pack(fe v) { return cell{v.lo, v.hi}; }
 
 // the low S bits of m reversed
 template <int S>

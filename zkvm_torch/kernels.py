@@ -34,7 +34,10 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_long
-# C signatures: every pointer and the stream are void*, sizes are int/long
+_U64 = ctypes.c_uint64
+_IP = ctypes.POINTER(ctypes.c_int)  # a host array of ints
+# C signatures: every device pointer and the stream are void*, sizes are
+# int/long; delta goes as two uint64 words, boundary columns as host ints
 SIGNATURES = {
     # y, out, tw, pre, rs, ls, B, M, NL, S, variant, stream
     "zk_ntt_stages": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -42,11 +45,11 @@ SIGNATURES = {
     "zk_mul32": (_P, _P, _P, _I, _P),
     # x, out, C, N, stream
     "zk_blake3_rows": (_P, _P, _I, _L, _P),
-    # cur, mask, ark, ee, i0, i1, mds, imds, alphas, delta,
-    # bv0, bb0, bc0, k0, bv1, bb1, bc1, k1, out, T, stream
-    "zk_composition": (_P,) * 13 + (_I, _P, _P, _P, _I, _P, _L, _P),
-    # lde, mask, ark, mds, imds, alphas, delta, out, N, P, step, stream
-    "zk_transition": (_P,) * 8 + (_L, _L, _L, _P),
+    # cur, mask, ark, ee, i0, i1, mds, alphas, delta_lo, delta_hi,
+    # bv0, bb0, bc0 (host), k0, bv1, bb1, bc1 (host), k1, out, T, stream
+    "zk_composition": (_P,) * 8 + (_U64, _U64, _P, _P, _IP, _I, _P, _P, _IP, _I, _P, _L, _P),
+    # lde, mask, ark, mds, alphas, delta_lo, delta_hi, out, N, P, step, stream
+    "zk_transition": (_P,) * 5 + (_U64, _U64, _P, _L, _L, _L, _P),
 }
 
 build_seconds = 0.0  # wall time of the last nvcc build in this process
