@@ -35,15 +35,20 @@ def test_hash_rows_t_matches_reference(c):
     assert got[:, 5].astype("<u4").tobytes() == hash_elements(row)
 
 
-def test_merkle_heap_matches_reference():
+@pytest.mark.parametrize("n", [64, 1, 2])
+def test_merkle_heap_matches_reference(n):
+    """The CPU merkle_flat (the kernel's plain version, merkle_flat_plain)
+    against the JAX heap; N = 1 is [0, leaf]."""
     rng = np.random.default_rng(3)
-    leaves = rng.integers(0, 2**32, size=(64, 8), dtype=np.uint64).astype(np.uint32)
+    leaves = rng.integers(0, 2**32, size=(n, 8), dtype=np.uint64).astype(np.uint32)
     want = np.asarray(b3j.merkle_flat(jnp.asarray(leaves)))
     got = tmerkle.merkle_flat(from_numpy(leaves))
     np.testing.assert_array_equal(to_numpy(got), want)
-    np.testing.assert_array_equal(
-        to_numpy(tmerkle.merge_t(from_numpy(leaves[0::2]), from_numpy(leaves[1::2]))), want[32:64]
-    )
+    np.testing.assert_array_equal(to_numpy(tmerkle.merkle_flat_plain(from_numpy(leaves))), want)
+    if n > 1:
+        np.testing.assert_array_equal(
+            to_numpy(tmerkle.merge_t(from_numpy(leaves[0::2]), from_numpy(leaves[1::2]))), want[n // 2:n]
+        )
 
 
 def test_open_many_paths_verify():

@@ -8,9 +8,11 @@ plain PyTorch version exactly.  The kernels themselves, as nvcc builds them
 for sm_90a, are checked on the card by chip_smoke.py.
 """
 
+import ctypes
 import shutil
 import subprocess
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -18,23 +20,50 @@ import torch
 from zkvm.field import f128
 from zkvm_torch import kernels
 from zkvm_torch.field.limbs import from_numpy, to_limbs, to_numpy
+from zkvm.hash import blake3_jax as b3j
+from zkvm.hash import blake3_t as jb3t
 from zkvm_torch.hash import blake3_t as tb3t
+from zkvm_torch.hash import merkle as tmerkle
 from zkvm_torch.ntt import ntt_t as tnt
 
 torch.set_num_threads(1)
 
 
-@pytest.fixture(scope="module")
-def emu(tmp_path_factory):
+def _build_emu(out_dir, sources, defines=()):
+    """The host emulation of ``sources`` (with ``-D`` defines) as one
+    shared library."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build the host emulation of the CUDA sources")
-    so = tmp_path_factory.mktemp("emu") / "libzkvm_emu.so"
+    tag = "_".join(d.split("=")[-1] for d in defines) or "default"
+    so = out_dir / f"libzkvm_emu_{tag}.so"
     cmd = [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-x", "c++", "-o", str(so)]
-    cmd += [str(kernels.CSRC / s) for s in kernels.SOURCES]
+    cmd += [f"-D{d}" for d in defines] + [str(kernels.CSRC / s) for s in sources]
     res = subprocess.run(cmd, capture_output=True, text=True)
     assert res.returncode == 0, res.stderr[-4000:]
-    return kernels.bind(so)
+    return so
+
+
+@pytest.fixture(scope="module")
+def emu(tmp_path_factory):
+    return kernels.bind(_build_emu(tmp_path_factory.mktemp("emu"), kernels.SOURCES))
+
+
+@pytest.fixture(scope="module")
+def emu_shape(tmp_path_factory):
+    """One source's host emulation at other launch shapes (its -D defines),
+    built once a shape."""
+    out, built = tmp_path_factory.mktemp("emu_shapes"), {}
+
+    def get(source, entry, defines):
+        if (source, defines) not in built:
+            lib = ctypes.CDLL(str(_build_emu(out, [source], defines)))
+            getattr(lib, entry).argtypes = list(kernels.SIGNATURES[entry])
+            getattr(lib, entry).restype = ctypes.c_int
+            built[(source, defines)] = lib
+        return built[(source, defines)]
+
+    return get
 
 
 def rand_limbs(rng, shape):
@@ -87,11 +116,61 @@ def test_mul32_emulated(emu):
     assert got == [f128.fmul(x, y) for x, y in zip(a, b)]
 
 
-@pytest.mark.parametrize("c,n", [(28, 300), (8, 64), (1, 5)])
+@pytest.mark.parametrize("c,n", [(28, 300), (8, 64), (1, 5), (8, 256), (28, 1), (1, 600)])
 def test_blake3_rows_emulated(emu, c, n):
+    """K2 at its shipped launch shape (256 threads a block): one full block
+    (N = 256), one partial block (64, 5, 1), several blocks ending in a
+    partial one (300, 600)."""
     x = from_numpy(rand_limbs(np.random.default_rng(c), (c, 8, n)))
     got = tb3t.launch_rows(emu, 0, x)
     np.testing.assert_array_equal(to_numpy(got), to_numpy(tb3t.hash_rows_t(x)))
+
+
+@pytest.mark.parametrize("threads", [32, 64, 128])
+@pytest.mark.parametrize("c,n", [(28, 37), (8, 300), (1, 7)])
+def test_blake3_rows_shapes_emulated(emu_shape, threads, c, n):
+    """K2 built at other block sizes (-DZK_K2_THREADS): N = 37, 300, 7 end
+    in a partial block, and N = 300 spans several blocks at every size.
+    Exact against the plain version and the JAX hash_rows_t."""
+    lib = emu_shape("blake3_rows.cu", "zk_blake3_rows", (f"ZK_K2_THREADS={threads}",))
+    xs = rand_limbs(np.random.default_rng(c + n), (c, 8, n))
+    x = from_numpy(xs)
+    got = to_numpy(tb3t.launch_rows(lib, 0, x))
+    np.testing.assert_array_equal(got, to_numpy(tb3t.hash_rows_plain(x)))
+    np.testing.assert_array_equal(got, np.asarray(jb3t.hash_rows_t(jnp.asarray(xs))))
+
+
+@pytest.mark.parametrize("k,n", [(3, 1), (3, 2), (3, 4), (3, 8), (3, 16), (3, 64), (None, 8), (None, 2048)])
+def test_merkle_heap_emulated(emu, emu_shape, k, n):
+    """The Merkle kernel at 2^k leaves a block (k = 3, or the shipped k
+    where None): N = 1 ([0, leaf]), 2, 2^(k-1) and 2^k take launch (i)
+    alone, 2^(k+1) and 2^(k+3) both launches.  Exact against the plain
+    version and the JAX merkle_flat."""
+    lib = emu if k is None else emu_shape("merkle.cu", "zk_merkle_heap", (f"ZK_MERKLE_K={k}",))
+    words = np.random.default_rng(n).integers(0, 2**32, size=(n, 8), dtype=np.uint64).astype(np.uint32)
+    leaves = from_numpy(words)
+    got = to_numpy(tmerkle.launch_heap(lib, 0, leaves.T.contiguous()))
+    np.testing.assert_array_equal(got, to_numpy(tmerkle.merkle_flat_plain(leaves)))
+    np.testing.assert_array_equal(got, np.asarray(b3j.merkle_flat(jnp.asarray(words))))
+
+
+def test_hash_launches_build_no_constants(emu, monkeypatch):
+    """K2's and the Merkle kernel's launch functions build no tensor from
+    host data (on a card each such copy waits for the stream): the IV and
+    flags are constants of the CUDA source.  Leaf counts that are not a
+    power of two raise before any launch, as does a device with no kernel."""
+    built = []
+    for mod, name in [(torch, "tensor"), (torch, "from_numpy"), (torch, "as_tensor")]:
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _n=name, _f=fn, **k: built.append(_n) or _f(*a, **k))
+    x = torch.zeros((8, 8, 32), dtype=torch.int32)
+    tb3t.launch_rows(emu, 0, x)
+    tmerkle.launch_heap(emu, 0, x[0])
+    assert built == [], f"the launches built {built}"
+    with pytest.raises(ValueError, match="power of two"):
+        tmerkle.launch_heap(None, 0, x[0, :, :24].contiguous())
+    with pytest.raises(ValueError, match="no kernel"):
+        tmerkle.merkle_flat(torch.empty((4, 8), dtype=torch.int32, device="meta"))
 
 
 @pytest.mark.parametrize("t", [160, 48, 256])

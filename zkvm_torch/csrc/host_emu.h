@@ -4,11 +4,13 @@
 // block runs its threads as std::threads sharing one dynamic shared-memory
 // buffer, and __syncthreads() is a std::barrier.  A __shared__ variable is
 // a static one, which all threads see; blocks run one after another, so
-// each block has it to itself.  Never compiled by nvcc.
+// each block has it to itself.  The byte permute and the funnel shift are
+// their plain shift forms.  Never compiled by nvcc.
 #pragma once
 
 #include <barrier>
 #include <cstddef>
+#include <cstdint>
 #include <thread>
 #include <vector>
 
@@ -63,3 +65,17 @@ void launch(dim3 grid, dim3 block, size_t smem_bytes, K kernel, A... args) {
 #define blockDim (zk_emu::g_block_dim)
 #define gridDim (zk_emu::g_grid_dim)
 #define __syncthreads() (zk_emu::block_barrier->arrive_and_wait())
+
+// byte i of the result is byte s[4i+2 .. 4i] of the 8 bytes y:x
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const uint64_t v = (uint64_t)y << 32 | x;
+  unsigned r = 0;
+  for (int i = 0; i < 4; ++i) r |= (unsigned)((v >> (8 * ((s >> (4 * i)) & 7))) & 0xFF) << (8 * i);
+  return r;
+}
+
+// the low word of hi:lo shifted right by (shift mod 32)
+inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned shift) {
+  const unsigned n = shift & 31;
+  return n ? (lo >> n) | (hi << (32 - n)) : lo;
+}

@@ -2,8 +2,10 @@
 
 Port of ``blake3_jax.merge`` / ``merkle_flat`` and
 ``zkvm.hash.merkle.DeviceMerkleTree``.  The reference builds the tree in
-XLA, outside any Pallas kernel, so this is plain PyTorch: one vectorised
-BLAKE3 compress per level (a hand-written Merkle kernel is later work).
+XLA, outside any Pallas kernel; here :func:`merkle_flat` is the CUDA
+kernel ``csrc/merkle.cu`` for a CUDA tensor (one or two launches a tree,
+sharing K2's compress) and the plain PyTorch version, one vectorised
+BLAKE3 compress per level, for a CPU tensor.
 
 Heap layout (winter-crypto style): nodes[1] = root, children of i at 2i and
 2i+1, leaf j at nodes[N + j], nodes[0] unused; digests are 8 little-endian
@@ -17,6 +19,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from zkvm_torch import kernels
 from zkvm_torch.hash.blake3 import CHUNK_END, CHUNK_START, IV, ROOT, merge
 from zkvm_torch.field.limbs import to_numpy
 from .blake3_t import compress, M32
@@ -40,8 +43,9 @@ def merge_t(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     return _merge_t(l, r).transpose(0, 1).to(torch.int32).reshape(shape)
 
 
-def merkle_flat(leaves: torch.Tensor) -> torch.Tensor:
-    """(N, 8) leaf digests -> (2N, 8) heap (``blake3_jax.merkle_flat``)."""
+def merkle_flat_plain(leaves: torch.Tensor) -> torch.Tensor:
+    """Plain version of the Merkle kernel: (N, 8) leaf digests -> (2N, 8)
+    int32 heap (``blake3_jax.merkle_flat``)."""
     cur = leaves.transpose(0, 1).long() & M32  # (8, N)
     levels = [cur]
     while cur.shape[-1] > 1:
@@ -50,6 +54,37 @@ def merkle_flat(leaves: torch.Tensor) -> torch.Tensor:
     zero = cur.new_zeros(8, 1)
     heap = torch.cat([zero] + levels[::-1], dim=1)
     return heap.transpose(0, 1).to(torch.int32).contiguous()
+
+
+launches = 0  # calls of the CUDA kernel's entry in this process (one a tree)
+
+
+def launch_heap(lib, stream, leaves_8n: torch.Tensor) -> torch.Tensor:
+    """Call the Merkle entry point of ``lib`` on (8, N) leaf digest words
+    (N a power of two); returns the (2N, 8) heap."""
+    n = leaves_8n.shape[-1]
+    kernels.expect(leaves_8n, (8, n), leaves_8n.device, "leaves")
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"Merkle heap: {n} leaves, expected a power of two")
+    heap = torch.empty((2 * n, 8), dtype=torch.int32, device=leaves_8n.device)
+    kernels.check(lib.zk_merkle_heap(kernels.ptr(leaves_8n), kernels.ptr(heap), n, stream), "zk_merkle_heap")
+    return heap
+
+
+def merkle_flat(leaves: torch.Tensor) -> torch.Tensor:
+    """(N, 8) leaf digests (int32 bits) -> (2N, 8) heap
+    (``blake3_jax.merkle_flat``).  A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel (or raises).  The provers pass the
+    transposed view of (8, N) digests, which the kernel reads as it is."""
+    global launches
+    if leaves.device.type == "cpu":
+        return merkle_flat_plain(leaves)
+    if leaves.device.type != "cuda":
+        raise ValueError(f"Merkle heap: no kernel for device {leaves.device}")
+    leaves_8n = leaves.transpose(0, 1).contiguous()
+    heap = launch_heap(kernels.lib(), kernels.stream_of(leaves_8n), leaves_8n)
+    launches += 1
+    return heap
 
 
 class DeviceMerkleTree:

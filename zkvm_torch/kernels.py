@@ -26,8 +26,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
-SOURCES = ("ntt_stages.cu", "blake3_rows.cu", "composition.cu", "transition.cu")
-HEADERS = ("zk_common.cuh", "f128.cuh", "transition.cuh", "host_emu.h")
+SOURCES = ("ntt_stages.cu", "blake3_rows.cu", "merkle.cu", "composition.cu", "transition.cu")
+HEADERS = ("zk_common.cuh", "f128.cuh", "transition.cuh", "blake3.cuh", "host_emu.h")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,6 +45,8 @@ SIGNATURES = {
     "zk_mul32": (_P, _P, _P, _I, _P),
     # x, out, C, N, stream
     "zk_blake3_rows": (_P, _P, _I, _L, _P),
+    # leaves, heap, N, stream
+    "zk_merkle_heap": (_P, _P, _L, _P),
     # cur, mask, ark, ee, i0, i1, mds, alphas, delta_lo, delta_hi,
     # bv0, bb0, bc0 (host), k0, bv1, bb1, bc1 (host), k1, out, T, stream
     "zk_composition": (_P,) * 8 + (_U64, _U64, _P, _P, _IP, _I, _P, _P, _IP, _I, _P, _L, _P),
