@@ -36,7 +36,19 @@ Phases, each printing one JSON line:
       and tamper check; K1, K2, K4 and the Merkle heap must have launched
       in the timed prove; with the peak device memory and the time of the
       DEEP stage's batch inverse; the proofs of (e) and (f) must be equal
-      byte for byte.
+      byte for byte;
+  (g) lr_large: the linear regression over encrypted inputs at T = 2^20
+      (zkvm_torch.examples.prove_lr_large), traced by the native generator,
+      proved in T-mode once cold and once steady (each stage's seconds and
+      peak device memory), decrypted against the clear prediction,
+      verified, and a one-byte tamper rejected; K1, K2, K3 and the Merkle
+      heap must have launched in the steady prove (printed by shape), the
+      Merkle heap in at most ceil(23 / 10) launches a tree of 2^23 leaves.
+      Before it, two checks: at T = 2^18 the proof with the chunked stage
+      forms (the default there) equals the one without them; at T = 2^17
+      and 2^20, multi_eval_rows of two random columns at two random points
+      equals a host Horner evaluation.  Phase (c) also runs K1, K2, K3 and
+      the Merkle heap at this path's shapes (kernel_bench's *_LARGE_*).
 
 Then a {"kernels": [...]} line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -61,18 +73,22 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from kernel_bench import (K1_CASES, K2_CASES, MERKLE_CASES, air_calls, air_cases,  # noqa: E402
-                          capture_entry, cuda_ms, ptxas_summary, sass_opcodes)
+from kernel_bench import (K1_CASES, K1_LARGE_CASES, K2_CASES, K2_LARGE_CASES, K3_LARGE_T,  # noqa: E402
+                          MERKLE_CASES, MERKLE_LARGE_CASES, air_calls, air_cases, capture_entry, cuda_ms,
+                          ptxas_summary, sass_opcodes)
 from zkvm_torch import kernels, vm  # noqa: E402
 from zkvm_torch.air import composition as cp  # noqa: E402
 from zkvm_torch.air import transition as tr  # noqa: E402
 from zkvm_torch.field import f128  # noqa: E402
 from zkvm_torch.field import f128t as ft  # noqa: E402
-from zkvm_torch.field.limbs import from_numpy  # noqa: E402
+from zkvm_torch.examples.prove_lr_large import LrRun  # noqa: E402
+from zkvm_torch.field.limbs import from_numpy, from_t, to_numpy  # noqa: E402
 from zkvm_torch.hash import blake3_t as b3t  # noqa: E402
 from zkvm_torch.hash import merkle as mk  # noqa: E402
 from zkvm_torch.ntt import ntt_t as nt  # noqa: E402
-from zkvm_torch.prover import prove  # noqa: E402
+from zkvm_torch.prover import limits, prove  # noqa: E402
+from zkvm_torch.prover import multi_eval as me  # noqa: E402
+from zkvm_torch.runtime import native_available  # noqa: E402
 from zkvm_torch.verifier import VerificationError  # noqa: E402
 
 DEV = torch.device("cuda", 0)
@@ -249,6 +265,15 @@ def _air_work(kind, args, host):
     return n * 29 * LIMB_BYTES, n * (K4_MULS * OPS_MUL + K4_ADDS * OPS_ADD)
 
 
+def k1_plain(y, tw, pre, r1, elems=1 << 22):
+    """K1's plain version over slices of y along B of about ``elems``
+    elements (its int64 transients are ~50 bytes an input byte), joined:
+    the same values at the 2^20-row path's shapes within the card's
+    memory."""
+    step = max(1, elems // (y.shape[1] * y.shape[3]))
+    return torch.cat([nt.stages_plain(y[i:i + step], tw, pre=pre, r1=r1) for i in range(0, y.shape[0], step)])
+
+
 def phase_kernels():
     rng = np.random.default_rng(20261016)
     results = {}
@@ -256,9 +281,9 @@ def phase_kernels():
     # passes of every T = 2^16 transform, 28 columns), 512 (pass 2 of the
     # size-2^19 transforms: the composition iNTT, and the mono coset LDE of
     # the 28 trace columns), 32 (both passes of that LDE's size-1024 pass 1,
-    # over 28 x 512 rows)
+    # over 28 x 512 rows); then the 2^20-row path's (K1_LARGE_CASES)
     k1 = []
-    for m, b, nl, variants in K1_CASES:
+    for m, b, nl, variants in K1_CASES + K1_LARGE_CASES:
         tw = nt._stage_twiddles_dev(m, False, DEV)
         y = rand_limbs(rng, (b, m, 8, nl))
         for variant in variants:
@@ -269,7 +294,7 @@ def phase_kernels():
             k1.append(compare(
                 f"K1 M={m} B={b} NL={nl} {variant}",
                 lambda: nt.pease_stages(y, tw, pre=pre, r1=r1),
-                lambda: nt.stages_plain(y, tw, pre=pre, r1=r1),
+                lambda: k1_plain(y, tw, pre, r1),
                 *_k1_work(b, m, nl, variant), plain_reps=1,
             ))
     results["ntt_stages"] = dict(k1[5], max_abs_err=max(r["max_abs_err"] for r in k1))  # M=256 r1
@@ -289,7 +314,7 @@ def phase_kernels():
     # one launch call), beside the wrapper's
     lib = kernels.lib()
     k2 = []
-    for c, n in K2_CASES:
+    for c, n in K2_CASES + K2_LARGE_CASES:
         x = rand_limbs(rng, (c, 8, n))
         work = ((c + 1) * LIMB_BYTES * n, (-(-c // 4) * BLAKE3_BLOCK_OPS + BLAKE3_PACK_OPS * c) * n)
         cname, cargs, keep = capture_entry(kernels, b3t.launch_rows, x)
@@ -301,7 +326,7 @@ def phase_kernels():
     # the Merkle heap over random digests, given as the provers give them:
     # the (N, 8) transposed view of (8, N) words
     heaps = []
-    for n in MERKLE_CASES:
+    for n in MERKLE_CASES + MERKLE_LARGE_CASES:
         leaves = torch.from_numpy(rng.integers(0, 1 << 32, size=(8, n), dtype=np.uint64).astype(np.uint32)
                                   .view(np.int32)).to(DEV)
         cname, cargs, keep = capture_entry(kernels, mk.launch_heap, leaves)
@@ -313,9 +338,11 @@ def phase_kernels():
         del leaves, cargs, keep
     results["merkle"] = dict(heaps[0], max_abs_err=max(r["max_abs_err"] for r in heaps))
     # K3 (one class at T = 2^16, the real boundary columns) and K4 (the
-    # mono shape and one class): kernel_bench.air_cases
+    # mono shape and one class): kernel_bench.air_cases; then K3 at the
+    # 2^20-row path's T (its first case)
     k4 = {}
-    for name, kind, args, host in air_cases(lambda shape: rand_limbs(rng, shape, spread=True), DEV):
+    limbs = lambda shape: rand_limbs(rng, shape, spread=True)
+    for name, kind, args, host in [*air_cases(limbs, DEV), next(air_cases(limbs, DEV, K3_LARGE_T))]:
         wrapper, plain, launch = air_calls(kind)
         cname, cargs, keep = capture_entry(kernels, launch, *args, *host)
         lib = kernels.lib()
@@ -325,7 +352,7 @@ def phase_kernels():
         )
         sync_free(name, lambda: wrapper(*args, *host))
         if kind == "composition":
-            results["composition"] = res
+            results.setdefault("composition", res)
         else:
             k4[name] = res
         del args, cargs, keep
@@ -356,7 +383,31 @@ def phase_conformance():
 
 COUNTERS = {"ntt_stages": nt, "blake3_rows": b3t, "merkle": mk, "composition": cp, "transition": tr}
 PATH_KERNELS = {"tmode": ("ntt_stages", "blake3_rows", "merkle", "composition"),
-                "mono": ("ntt_stages", "blake3_rows", "merkle", "transition")}
+                "mono": ("ntt_stages", "blake3_rows", "merkle", "transition"),
+                "lr_large": ("ntt_stages", "blake3_rows", "merkle", "composition")}
+
+
+def reset_counts():
+    """Every launch count to 0 (K1, K2, K3 and the Merkle heap also count by
+    shape)."""
+    for mod in (b3t, mk, cp, tr):
+        mod.launches = 0
+    for counter in (nt.launches, b3t.launches_by_shape, cp.launches_by_shape, mk.launches_by_size,
+                    mk.trees_by_size):
+        counter.clear()
+
+
+def read_counts():
+    """(launches per kernel, launches by shape per kernel)."""
+    launches = {name: mod.launches for name, mod in COUNTERS.items()}
+    by_shape = {
+        "ntt_stages": {f"M={m} B={b} NL={nl} {v}": n for (m, b, nl, v), n in sorted(nt.launches.items())},
+        "blake3_rows": {f"C={c} N={n}": k for (c, n), k in sorted(b3t.launches_by_shape.items())},
+        "composition": {f"T={t}": k for t, k in sorted(cp.launches_by_shape.items())},
+        "merkle": {f"N={n} trees={mk.trees_by_size[n]}": k for n, k in sorted(mk.launches_by_size.items())},
+    }
+    launches["ntt_stages"] = sum(by_shape["ntt_stages"].values())
+    return launches, by_shape
 
 
 def phase_bench(mode):
@@ -376,18 +427,15 @@ def phase_bench(mode):
     warm = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
-    for mod in (b3t, mk, cp, tr):
-        mod.launches = 0
-    nt.launches.clear()  # K1 counts its launches by shape
+    reset_counts()
     stages = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     proof = prove(trace, pub, device=DEV, stage_seconds=stages, mode=mode)
     torch.cuda.synchronize()
     steady = time.perf_counter() - t0
-    launches = {name: mod.launches for name, mod in COUNTERS.items()}
-    k1_shapes = {f"M={m} B={b} NL={nl} {v}": n for (m, b, nl, v), n in sorted(launches["ntt_stages"].items())}
-    launches["ntt_stages"] = sum(k1_shapes.values())
+    launches, by_shape = read_counts()
+    k1_shapes = by_shape["ntt_stages"]
     peak = torch.cuda.max_memory_allocated()
 
     data = proof.to_wire_bytes()
@@ -418,6 +466,96 @@ def phase_bench(mode):
     return launches, data
 
 
+def gib(nbytes):
+    return None if nbytes is None else nbytes / 2**30
+
+
+def horner(coeffs, x):
+    """sum_t coeffs[t] x^t mod p on the host, by Horner's rule."""
+    acc = 0
+    for c in reversed(coeffs):
+        acc = (acc * x + c) % f128.P
+    return acc
+
+
+def check_multi_eval(rng, t):
+    """multi_eval_rows of two random columns of length t at two random
+    points against the host Horner evaluation (exact)."""
+    cols = rand_limbs(rng, (2, 8, t))
+    points = [int(rng.integers(0, 2**62)) << 64 | int(rng.integers(0, 2**62)) for _ in range(2)]
+    got = me.multi_eval_rows(cols, points)
+    host = [[int(v) for v in col] for col in from_t(to_numpy(cols))]
+    want = [[horner(col, x) for col in host] for x in points]
+    emit({"phase": "lr_large", "check": "multi_eval equals host Horner", "t": t, "equal": got == want})
+    if got != want:
+        raise AssertionError(f"multi_eval_rows at T = {t} differs from the host Horner evaluation")
+
+
+def phase_lr_large(card):
+    """(g): the linear regression over encrypted inputs at T = 2^20, after
+    the chunked-forms and multi-eval checks.  Returns the launch counts of
+    the steady prove."""
+    if not native_available():
+        raise AssertionError("lr_large: the native trace generator did not build (g++)")
+    # (i) at T = 2^18 the chunked forms are the default; without them the
+    # proof must be the same bytes
+    small = LrRun(18)
+    small.prepare()
+    chunked = small.prove(DEV)
+    saved = limits.CHUNK_T
+    limits.CHUNK_T = 2 * small.trace.length
+    try:
+        unchunked = small.prove(DEV)
+    finally:
+        limits.CHUNK_T = saved
+    same = chunked[0].to_wire_bytes() == unchunked[0].to_wire_bytes()
+    emit({"phase": "lr_large", "check": "chunked proof equals unchunked", "t": small.trace.length,
+          "equal": same, "chunked_seconds": chunked[1], "unchunked_seconds": unchunked[1],
+          "chunked_peak_gib": gib(chunked[4]), "unchunked_peak_gib": gib(unchunked[4]),
+          "chunked_stage_peak_gib": {k: gib(v) for k, v in chunked[3].items()},
+          "unchunked_stage_peak_gib": {k: gib(v) for k, v in unchunked[3].items()}, "card": card})
+    if not same:
+        raise AssertionError("the chunked and unchunked T = 2^18 proofs differ")
+    del small, chunked, unchunked
+    # (ii) the multi-point evaluation is exact at scale
+    rng = np.random.default_rng(17)
+    for t in (1 << 17, 1 << 20):
+        check_multi_eval(rng, t)
+    torch.cuda.empty_cache()
+
+    run = LrRun(20)
+    run.prepare()
+    emit({"phase": "lr_large", "n_terms": run.n_terms, "ops": len(run.program.code),
+          "trace_length": run.trace.length, "lde_domain": 8 * run.trace.length, "native_trace": True,
+          **{f"{k}_seconds": v for k, v in run.seconds.items()}, "card": card})
+    proves = {}
+    for name in ("cold", "steady"):
+        if name == "steady":
+            reset_counts()
+        proof, seconds, stages, peaks, peak = run.prove(DEV)
+        proves[name] = seconds
+        emit({"phase": "lr_large", "prove": name, "seconds": seconds, "rows_per_sec": run.trace.length / seconds,
+              "stage_seconds": stages, "stage_peak_gib": {k: gib(v) for k, v in peaks.items()},
+              "peak_gib": gib(peak), "card": card})
+    launches, by_shape = read_counts()
+    clear, verify_seconds, rejected = run.check(proof)
+    # the trace and the composition trees have 2^23 leaves each: the
+    # launches the Merkle entry reported for them, a tree
+    trees = mk.trees_by_size[1 << 23]
+    per_tree, rest = divmod(mk.launches_by_size[1 << 23], max(trees, 1))
+    emit({"phase": "lr_large", "decrypted": clear, "expected": run.expected, "verified": True,
+          "verify_seconds": verify_seconds, "tampered_rejected": rejected,
+          "proof_bytes": len(proof.to_wire_bytes()), "launches": launches, "launches_by_shape": by_shape,
+          "merkle_launches_per_tree_2^23": per_tree, "card": card})
+    if trees != 2 or rest or not 0 < per_tree <= -(-23 // 10):
+        raise AssertionError(f"the Merkle heap of 2^23 leaves: {trees} trees in the prove, "
+                             f"{mk.launches_by_size[1 << 23]} launches")
+    for name in PATH_KERNELS["lr_large"]:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the lr_large path")
+    return launches
+
+
 SOURCES = {
     "ntt_stages": ("zkvm_torch/csrc/ntt_stages.cu", "zkvm/ntt/ntt_t.py:320"),
     "blake3_rows": ("zkvm_torch/csrc/blake3_rows.cu", "zkvm/hash/blake3_t.py:115"),
@@ -428,7 +566,7 @@ SOURCES = {
 
 
 def main():
-    phase_device()
+    card = phase_device()
     phase_build()
     results = phase_kernels()
     phase_conformance()
@@ -439,6 +577,9 @@ def main():
     emit({"phase": "bench", "tmode_equals_mono": same, "proof_bytes": len(runs["tmode"][1])})
     if not same:
         raise AssertionError("the T-mode and mono proofs of the same trace differ")
+    del runs
+    torch.cuda.empty_cache()
+    by_path["lr_large"] = phase_lr_large(card)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the hand-written kernels K1-K4 and the Merkle heap on one CUDA card.
 
-    python3 kernel_bench.py [--tree DIR] [--label NAME] [--only K1 K2 K3 K4 Merkle]
+    python3 kernel_bench.py [--tree DIR] [--label NAME] [--only K1 K2 K3 K4 Merkle] [--large]
     python3 kernel_bench.py --sweep [K1 K2 K3 K4 Merkle] [--tree DIR] [--label NAME]
     python3 kernel_bench.py --sass [--tree DIR]
 
@@ -26,6 +26,11 @@ from the call the prover makes down to the C entry point:
              call passed to it, recorded beforehand (see capture_entry).
   A tree without the Merkle kernel (the parent of its port) times its
   ``merkle_flat``, plain torch on the card, at the wrapper level alone.
+  ``--large`` takes the cases of the 2^20-row path instead
+  (K1_LARGE_CASES, K2_LARGE_CASES, K3 at K3_LARGE_T, MERKLE_LARGE_CASES;
+  K4 is not on it); where a tree other than this checkout refuses the
+  Merkle heap at 2^23 leaves (the parent of the three-level heap), each
+  refused call prints its error; any other error is raised.
 
 For each it prints one JSON line: ``ms``, the card's milliseconds per
 call with the calls queued behind a spin (see :func:`cuda_ms`);
@@ -55,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import itertools
 import json
 import os
 import random
@@ -75,6 +81,16 @@ ROOT = Path(__file__).resolve().parent
 ALL3 = ("plain", "full", "r1")
 K1_CASES = [(8, 1, 1 << 16, ALL3), (256, 28, 256, ALL3), (512, 1, 1024, ALL3),
             (512, 28, 1024, ("full",)), (32, 28 * 512, 32, ("plain", "full"))]
+# K1 at the axes of the 2^20-row path (zkvm_torch.examples.prove_lr_large):
+# the class NTTs at T = 2^20 recurse (pass 1's 2048 = 32 x 64, then pass
+# 2's 512 over 2048 lanes), over blocks of 7 trace columns (7 x 512 rows),
+# the 8 composition columns, all 28 columns (the trace iNTT) and the one
+# DEEP column; the size-2^23 composition iNTT (128 x 128 over 512 rows,
+# then 512 over 2^14 lanes) and the first FRI fold
+K1_LARGE_CASES = [(32, 7 * 512, 64, ("plain",)), (64, 7 * 512, 32, ("full",)), (512, 7, 2048, ("full",)),
+                  (32, 8 * 512, 64, ("plain",)), (64, 8 * 512, 32, ("full",)), (512, 8, 2048, ("full",)),
+                  (32, 28 * 512, 64, ("plain",)), (64, 28 * 512, 32, ("full",)), (512, 28, 2048, ("full",)),
+                  (128, 512, 128, ("plain", "full")), (512, 1, 1 << 14, ("full",)), (8, 1, 1 << 20, ("plain",))]
 K1_SWEEP_CASES = [(256, 28, 256, "r1"), (256, 8, 256, "full"), (512, 28, 1024, "full"),
                   (32, 28 * 512, 32, "full"), (8, 1, 1 << 16, "plain"), (512, 1, 1024, "full")]
 # The other launch shapes of each kernel, as -D defines; the first of each
@@ -92,6 +108,12 @@ K3_SHAPE, K4_SHAPE = (256, 2, 2), (256, 3, 2)  # the shipped defaults
 # composition trees (2^19 leaves) and the FRI layers (2^16, 2^13, 2^10)
 K2_CASES = [(28, 1 << 16), (8, 1 << 16), (28, 1 << 19), (8, 1 << 19)]
 MERKLE_CASES = [1 << 19, 1 << 16, 1 << 13, 1 << 10]
+# K2, K3 (T) and the Merkle heap on the 2^20-row path: trace rows and
+# composition / FRI rows of 2^20 lanes; the trace and composition trees of
+# 2^23 leaves (three launches), the first FRI layer's of 2^20
+K2_LARGE_CASES = [(28, 1 << 20), (8, 1 << 20)]
+K3_LARGE_T = 1 << 20
+MERKLE_LARGE_CASES = [1 << 23, 1 << 20]
 # K2: threads a block, blocks an SM for __launch_bounds__; the first is the
 # shipped default
 K2_SHAPES = [(256, 2), (128, 1), (64, 1), (256, 1), (128, 4)]
@@ -290,7 +312,7 @@ def capture_entry(kernels, launch, *args):
     return name, cargs, keep
 
 
-def bench_tree(tree, label, only, reps=20):
+def bench_tree(tree, label, only, reps=20, large=False):
     sys.path.insert(0, str(tree))
     from zkvm_torch import kernels
     from zkvm_torch.ntt import ntt_t as nt
@@ -299,7 +321,11 @@ def bench_tree(tree, label, only, reps=20):
     lib, stream = kernels.lib(), kernels.stream_of(torch.empty(1, device=dev))
     _emit({"tree": label, "build_seconds": kernels.build_seconds, "ptxas": ptxas_summary(kernels.build_log)})
     rng = np.random.default_rng(20261017)
-    for m, b, nl, variants in K1_CASES if "K1" in only else []:
+    k1_cases, hashes = (K1_LARGE_CASES, hash_cases(rng, dev, K2_LARGE_CASES, MERKLE_LARGE_CASES)) if large \
+        else (K1_CASES, hash_cases(rng, dev))
+    airs = itertools.islice(air_cases(lambda shape: _limbs(rng, shape, dev), dev, K3_LARGE_T), 1) if large \
+        else air_cases(lambda shape: _limbs(rng, shape, dev), dev)
+    for m, b, nl, variants in k1_cases if "K1" in only else []:
         for variant in variants:
             y, tw, pre, r1 = _k1_inputs(nt, rng, m, b, nl, variant, dev)
             rs, ls = r1 if r1 is not None else (None, None)
@@ -319,7 +345,7 @@ def bench_tree(tree, label, only, reps=20):
                        "ms": ms, "host_ms": host_ms, "rate_ms": rate})
             del y, out, pre, r1, rs, ls, args
             torch.cuda.empty_cache()
-    for name, kind, args in hash_cases(rng, dev):
+    for name, kind, args in hashes:
         if kind not in only:
             continue
         wrapper, _, launch = hash_calls(kind)
@@ -328,12 +354,21 @@ def bench_tree(tree, label, only, reps=20):
             cname, cargs, keep = capture_entry(kernels, launch, *args)
             calls["launch"] = lambda: launch(lib, stream, *args)
             calls["entry"] = lambda: kernels.check(getattr(lib, cname)(*cargs), cname)
+        # an older tree (the parent of the three-level heap) refuses more
+        # than 2^22 leaves: that refusal is printed, any other error raised
+        refusable = tree != ROOT and kind == "Merkle" and args[0].shape[-1] > 1 << 22
         for level, fn in calls.items():
-            ms, host_ms = cuda_ms(fn, reps)
+            try:
+                ms, host_ms = cuda_ms(fn, reps)
+            except RuntimeError as err:
+                if not refusable:
+                    raise
+                _emit({"tree": label, "case": name, "level": level, "error": str(err)})
+                continue
             _emit({"tree": label, "case": name, "level": level, "ms": ms, "host_ms": host_ms})
         del args, calls
         torch.cuda.empty_cache()
-    for name, kind, args, host in air_cases(lambda shape: _limbs(rng, shape, dev), dev):
+    for name, kind, args, host in airs:
         if name.split()[0] not in only:
             continue
         wrapper, _, launch = air_calls(kind)
@@ -412,7 +447,9 @@ def sweep(tree, label, kernels_to_sweep, reps=20):
                               lambda lib, y=y, tw=tw, pre=pre, r1=r1: nt.launch_stages(lib, stream, y, tw, pre, r1)))
         elif kernel in ("K2", "Merkle"):
             _, plain, launch = hash_calls(kernel)
-            cases = [(name, plain(*args), lambda lib, a=args: launch(lib, stream, *a))
+            # this tree's Merkle launch returns the heap and the launches it made
+            first = lambda out: out[0] if isinstance(out, tuple) else out
+            cases = [(name, plain(*args), lambda lib, a=args: first(launch(lib, stream, *a)))
                      for name, kind, args in hash_cases(rng, dev) if kind == kernel]
         else:
             cases = []
@@ -479,6 +516,7 @@ def main(argv):
     ap.add_argument("--only", nargs="+", default=["K1", "K2", "K3", "K4", "Merkle"],
                     choices=["K1", "K2", "K3", "K4", "Merkle"],
                     help="kernels to time")
+    ap.add_argument("--large", action="store_true", help="the cases of the 2^20-row path")
     ap.add_argument("--sweep", nargs="*", choices=list(SWEEPS), help="time these kernels at each shape of SWEEPS")
     ap.add_argument("--sass", action="store_true", help="SASS counts of the tree's f128 multiplies")
     args = ap.parse_args(argv)
@@ -490,7 +528,7 @@ def main(argv):
     elif args.sass:
         sass(args.tree.resolve())
     else:
-        bench_tree(args.tree.resolve(), args.label, args.only)
+        bench_tree(args.tree.resolve(), args.label, args.only, large=args.large)
 
 
 if __name__ == "__main__":

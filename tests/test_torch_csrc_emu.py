@@ -149,9 +149,41 @@ def test_merkle_heap_emulated(emu, emu_shape, k, n):
     lib = emu if k is None else emu_shape("merkle.cu", "zk_merkle_heap", (f"ZK_MERKLE_K={k}",))
     words = np.random.default_rng(n).integers(0, 2**32, size=(n, 8), dtype=np.uint64).astype(np.uint32)
     leaves = from_numpy(words)
-    got = to_numpy(tmerkle.launch_heap(lib, 0, leaves.T.contiguous()))
+    heap, made = tmerkle.launch_heap(lib, 0, leaves.T.contiguous())
+    assert made == (1 if n <= 2 ** (k or 10) else 2)
+    got = to_numpy(heap)
     np.testing.assert_array_equal(got, to_numpy(tmerkle.merkle_flat_plain(leaves)))
     np.testing.assert_array_equal(got, np.asarray(b3j.merkle_flat(jnp.asarray(words))))
+
+
+@pytest.mark.parametrize("top,n,launches", [(3, 128, 3), (3, 256, 3), (3, 1024, 4), (1, 64, 2), (5, 512, 3)])
+def test_merkle_heap_levels_emulated(emu_shape, top, n, launches):
+    """The Merkle kernel at 2^3 nodes a block with the top launch's
+    capacity at 2^top roots (-DZK_MERKLE_TOP): past it, the subtree launch
+    runs again over the roots, so N = 128 and 256 take three launches and
+    1024 four (ceil(log2 N / 3)).  Exact against the plain version and the
+    JAX merkle_flat."""
+    lib = emu_shape("merkle.cu", "zk_merkle_heap", ("ZK_MERKLE_K=3", f"ZK_MERKLE_TOP={top}"))
+    words = np.random.default_rng(n + top).integers(0, 2**32, size=(n, 8), dtype=np.uint64).astype(np.uint32)
+    leaves = from_numpy(words)
+    heap, made = tmerkle.launch_heap(lib, 0, leaves.T.contiguous())
+    assert made == launches <= -(-(n.bit_length() - 1) // 3)
+    got = to_numpy(heap)
+    np.testing.assert_array_equal(got, to_numpy(tmerkle.merkle_flat_plain(leaves)))
+    np.testing.assert_array_equal(got, np.asarray(b3j.merkle_flat(jnp.asarray(words))))
+
+
+def test_merkle_launches_of_the_shipped_kernel(emu):
+    """The shipped kernel (2^10 nodes a block) reports the launches it
+    made: one up to 2^10 leaves, two from 2^11 (the 2^23-leaf trees of the
+    2^20-row path, three launches, are counted on the card by chip_smoke.py);
+    the entry refuses a leaf count that is not a power of two and reports
+    no launch."""
+    made = [tmerkle.launch_heap(emu, 0, torch.zeros((8, 1 << k), dtype=torch.int32))[1] for k in (0, 1, 10, 11, 12)]
+    assert made == [1, 1, 1, 2, 2]
+    count = ctypes.c_int(7)
+    assert emu.zk_merkle_heap(None, None, 24, ctypes.byref(count), None) == 1
+    assert count.value == 0
 
 
 def test_hash_launches_build_no_constants(emu, monkeypatch):

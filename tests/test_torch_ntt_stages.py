@@ -89,6 +89,10 @@ def test_recursion_branch(monkeypatch):
     assert ints(got) == [
         gntt.ntt([v * pow(base, i, f128.P) % f128.P for i, v in enumerate(r)]) for r in vals
     ]
+    # the recursion path takes the coset scale cached by the provers too
+    scale = tnt.class_scale(from_numpy(tlimbs(base)), 32)
+    np.testing.assert_array_equal(to_numpy(tnt.class_ntt_t(from_numpy(x), from_numpy(tlimbs(base)), scale)),
+                                  to_numpy(got))
 
 
 def test_stage_network_is_an_ntt():

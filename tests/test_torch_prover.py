@@ -41,6 +41,29 @@ def test_multi_eval_matches_reference():
     assert tme.multi_eval_rows(from_numpy(coeffs), pts) == want
 
 
+def test_multi_eval_pairs_match_reference(monkeypatch):
+    """Past the chunk threshold (patched to T = 32 here) the points go in
+    pairs, as the reference's do past 2^18: the same rows as one call."""
+    from zkvm.prover import eval_mxu as em
+    from zkvm_torch.prover import limits
+    from zkvm_torch.prover import multi_eval as tme
+
+    coeffs = _t(_vals(1, (4, 32)))
+    pts = [int(v) for v in _vals(2, (3,))]  # a pair and a single point
+    want = em.multi_eval_rows(jnp.asarray(coeffs), pts)
+    monkeypatch.setattr(limits, "CHUNK_T", 32)
+    calls = []
+    contract = tme._contract
+    monkeypatch.setattr(tme, "_contract", lambda c, l: calls.append(l.shape[0]) or contract(c, l))
+    assert tme.multi_eval_rows(from_numpy(coeffs), pts) == want
+    assert calls == [2, 1]
+    # the ladders of T > 256 lanes, from factors built once for all points
+    lad = tnt.ladders_t(from_numpy(to_limbs(pts)), 1024)
+    l1, l2 = tnt.ladders_split(from_numpy(to_limbs(pts)), 1024)
+    joined = torch.cat([tnt.ladders_join(l1[i:i + 2], l2[i:i + 2]) for i in (0, 2)])
+    np.testing.assert_array_equal(to_numpy(joined), to_numpy(lad))
+
+
 def test_deep_quotient_matches_reference():
     from zkvm.prover import pipeline as jpl
     from zkvm_torch.prover import pipeline as tpl
@@ -94,39 +117,60 @@ def _code_lines(path, strip_header):
 
 
 # The copies of the JAX package's host modules in zkvm_torch/ (the port
-# imports nothing of zkvm), as (original, copy) under zkvm/ and zkvm_torch/.
+# imports nothing of zkvm), as (original, copy) under zkvm/ and zkvm_torch/;
+# the example's originals lie outside zkvm/.
 _COPIES = [(f"prover/{m}.py",) * 2 for m in ("options", "proof", "transcript", "wire")] + [
     (m, m) for m in (
         "verifier/verifier.py", "field/f128.py", "hash/blake3.py", "hash/rescue.py",
         "air/layout.py", "air/constraints_golden.py", "ntt/golden.py", "utils/serde.py",
         "fhe/__init__.py", "fhe/lwe.py", "isa/__init__.py", "isa/opcodes.py", "isa/program.py",
         "processor/__init__.py", "processor/golden.py",
+        "runtime/__init__.py", "runtime/native.py", "runtime/csrc/trace_gen.cpp",
     )
-]
+] + [(f"../examples/linear_regression/{m}", f"examples/linear_regression/{m}")
+     for m in ("protocol.py", "main.py", "lr.txt")]
 
 # The named deviations, per copy: (lines of the original, lines of the copy).
 _DEVIATIONS = {
-    # the native fast path is deleted (it produced the same digest)
-    "isa/program.py": [(
-        [
-            '    """Rescue-Prime program hash; native fast path for large programs."""',
-            "    if len(code) >= 256:",
-            "        try:",
-            "            from zkvm.runtime.native import program_hash",
-            "",
-            "            digest = program_hash(code)",
-            "            if digest is not None:",
-            "                return digest",
-            "        except Exception:",
-            "            pass",
-        ],
-        ['    """Rescue-Prime program hash, by the Python sponge for every length."""'],
-    )],
     # the limb conversions come from zkvm_torch.field.limbs, not jax_f128
     "processor/golden.py": [
         ([f"            from zkvm.field.jax_f128 import {f}"],
          [f"            from zkvm_torch.field.limbs import {f}"])
         for f in ("to_limbs", "from_limbs")
+    ],
+    "runtime/native.py": [
+        # to_limbs from zkvm_torch.field.limbs, not jax_f128
+        (["from zkvm.field.jax_f128 import to_limbs"], ["from zkvm_torch.field.limbs import to_limbs"]),
+        # the library is built under zkvm_torch/build/ (git-ignored)
+        (['_BUILD_DIR = os.path.join(os.path.dirname(__file__), "_build")'],
+         ['_BUILD_DIR = os.path.join(os.path.dirname(__file__), "..", "build")']),
+        # g++ links to a temporary name that is renamed into place, so
+        # processes that build at once never load a half-written library
+        (['    try:',
+          '        subprocess.run(',
+          '            ["g++", "-O3", "-shared", "-fPIC", _CSRC, "-o", _SO],'],
+         ['    tmp = f"{_SO}.{os.getpid()}.tmp"',
+          '    try:',
+          '        subprocess.run(',
+          '            ["g++", "-O3", "-shared", "-fPIC", _CSRC, "-o", tmp],']),
+        (['        return True'], ['        os.replace(tmp, _SO)', '        return True']),
+    ],
+    # run as a module of the port, on the device the caller names
+    "examples/linear_regression/main.py": [
+        (["Run from the repo root:  python examples/linear_regression/main.py"],
+         ["Run from the repo root:  python -m zkvm_torch.examples.linear_regression.main [cpu]"]),
+        (['sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", ".."))'],
+         ['sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "..", ".."))']),
+        (["from examples.linear_regression.protocol import InputData, OutputData", "from zkvm import vm"],
+         ["from zkvm_torch.examples.linear_regression.protocol import InputData, OutputData",
+          "from zkvm_torch import vm"]),
+        (["def server_prove(input_bytes: bytes) -> bytes:"],
+         ['def server_prove(input_bytes: bytes, device="cuda") -> bytes:']),
+        (["    hash_, output, proof = vm.prove(program, inputs)"],
+         ["    hash_, output, proof = vm.prove(program, inputs, device=device)"]),
+        (["def main():"], ['def main(device="cuda"):']),
+        (["    output_bytes = server_prove(input_bytes)"], ["    output_bytes = server_prove(input_bytes, device)"]),
+        (["    main()"], ["    main(*sys.argv[1:])"]),
     ],
 }
 
@@ -140,10 +184,10 @@ def _apply(lines, old, new):
 @pytest.mark.parametrize("orig,copy", _COPIES, ids=[c for _, c in _COPIES])
 def test_copied_host_modules_equal_originals(orig, copy):
     """Each copy is its original with only import lines rewritten from
-    zkvm.* to zkvm_torch.* (below a comment header), apart from the named
-    deviations."""
+    zkvm.* to zkvm_torch.* (below a comment header; the C++ source and
+    lr.txt have none), apart from the named deviations."""
     a = _code_lines(REPO / "zkvm" / orig, False)
-    b = _code_lines(REPO / "zkvm_torch" / copy, True)
+    b = _code_lines(REPO / "zkvm_torch" / copy, copy.endswith(".py"))
     for old, new in _DEVIATIONS.get(copy, []):
         a = _apply(a, old, new)
     assert len(a) == len(b), copy
@@ -169,7 +213,7 @@ def test_limb_conversions_equal_jax_f128():
     from zkvm.processor import Processor as JaxProcessor
     from zkvm_torch import vm
     from zkvm_torch.field import limbs
-    from zkvm_torch.processor import ExecutionTrace
+    from zkvm_torch.processor import ExecutionTrace, Processor
 
     vals = [int(v) for v in _vals(7, (40,))] + [0, 1, f128.P - 1, f128.P, 2**128 - 1]
     np.testing.assert_array_equal(limbs.to_limbs(vals), jf.to_limbs(vals))
@@ -181,7 +225,7 @@ def test_limb_conversions_equal_jax_f128():
 
     source = "\n".join(["read"] + ["read", "add"] * 19)
     key = vm.ServerKey(vm.DEMO_PARAMETERS, random.Random(1))
-    port = vm.run(vm.Program.compile(source), vm.ProgramInputs((1,) * 22, (), key))
+    port = Processor.run(vm.Program.compile(source), vm.ProgramInputs((1,) * 22, (), key)).trace(seed=vm.DEFAULT_SEED)
     jax_inputs = zkvm.isa.ProgramInputs((1,) * 22, (), key)
     jax_trace = JaxProcessor.run(zkvm.isa.Program.compile(source), jax_inputs).trace(seed=vm.DEFAULT_SEED)
     np.testing.assert_array_equal(port.as_limbs(), jax_trace.as_limbs())
@@ -191,8 +235,8 @@ def test_limb_conversions_equal_jax_f128():
 
 
 def test_program_hash_equals_reference_past_256_ops():
-    """The program copy's deviation: without the native fast path, a
-    program of 256 ops or more hashes to the reference's digest."""
+    """A program of 256 ops or more (hashed by the port's native fast
+    path) hashes to the reference's digest."""
     import zkvm.isa
     from zkvm_torch.isa import Program
 

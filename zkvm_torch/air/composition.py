@@ -13,6 +13,7 @@ reads them at n % 16 and the plain version tiles them.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -166,6 +167,7 @@ def composition_body_t(cur, nxt, mask, ark, ee, i0, i1, mds, inv_mds, alphas,
 # ---------------------------------------------------------------------------
 
 launches = 0  # launches of the CUDA kernel in this process
+launches_by_shape = collections.Counter()  # the same, by T
 MAX_BOUNDARY = 16  # boundary columns per group that the kernel's arguments hold
 
 
@@ -257,4 +259,5 @@ def composition_t(cur_t, mask_pat, ark_pat, ee_t, i0_t, i1_t, alphas,
         delta, bcols0, bcols1,
     )
     launches += 1
+    launches_by_shape[cur_t.shape[-1]] += 1
     return out

@@ -6,24 +6,37 @@
 //
 // What bounds it on an H100: the N - 1 compresses (32-bit integer ALU
 // work, as K2), then the 96 bytes a leaf of memory (32 read, 64 written).
-// Two launches at most: (i) a block takes 2^ZK_MERKLE_K consecutive
-// leaves, loaded coalesced into shared memory, and builds its subtree's
-// levels there, one compress a thread a parent, one barrier a level,
-// writing each node to the heap as one 32-byte row; (ii) one block builds
-// the top log2(N / 2^k) levels from the subtree roots.  When N <= 2^k, (i)
-// alone builds the whole tree.  The compress is K2's (blake3.cuh).  Nothing
-// is copied from the host: the IV and flags are constants.
+// Launches, at most ceil(log2 N / k) of them (k = ZK_MERKLE_K): (i) a block
+// takes 2^k consecutive leaves, loaded coalesced into shared memory, and
+// builds its subtree's levels there, one compress a thread a parent, one
+// barrier a level, writing each node to the heap as one 32-byte row; then
+// (ii), while more than one root is left, the same over the R roots of
+// the last launch, read back from the heap: a block takes 2^k of them, or
+// all R when R <= 2^ZK_MERKLE_TOP (the top launch, one block).  Shared
+// memory holds 48 bytes a node, so no launch needs more than a block has
+// (a single top launch over the 8192 roots of 2^23 leaves would need
+// 393,216 bytes).  When N <= 2^k, (i) alone builds the whole tree.  The
+// compress is K2's (blake3.cuh).  Nothing is copied from the host: the IV
+// and flags are constants.
 #include "blake3.cuh"
 
 #ifndef ZK_MERKLE_K
-#define ZK_MERKLE_K 10  // log2 of the leaves a block of launch (i)
+#define ZK_MERKLE_K 10  // log2 of the nodes a block of launch (i) or (ii) takes
+#endif
+#ifndef ZK_MERKLE_TOP
+#define ZK_MERKLE_TOP ZK_MERKLE_K  // log2 of the most roots the top launch takes
 #endif
 
 namespace {
 
 constexpr int kLeaves = 1 << ZK_MERKLE_K;
+constexpr long kTop = 1L << ZK_MERKLE_TOP;
 constexpr int kThreads = kLeaves / 2 < 32 ? 32 : kLeaves / 2 > 1024 ? 1024 : kLeaves / 2;
 constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may use (sm_90)
+static_assert(48L * kLeaves <= kMaxSmem && 48L * kTop <= kMaxSmem, "a block's nodes must fit shared memory");
+
+// the nodes a block of launch (ii) takes over a level of R > 1 nodes
+long level_block(long R) { return R <= kTop ? R : R < kLeaves ? R : kLeaves; }
 
 // heap row r <- the 8 words v
 __device__ __forceinline__ void store_row(uint32_t* __restrict__ heap, long r, const uint32_t (&v)[8]) {
@@ -95,34 +108,44 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// (ii): the R subtree roots at heap rows R .. 2R - 1 -> rows 0 .. R - 1
-__global__ void __launch_bounds__(kThreads) merkle_top_kernel(uint32_t* __restrict__ heap, int R) {
+// (ii): block b takes nodes b L .. b L + L - 1 of the level of R nodes at
+// heap rows R .. 2R - 1 and builds the log2 L levels above them; with L = R
+// (one block) it builds the top of the tree
+__global__ void __launch_bounds__(kThreads) merkle_levels_kernel(uint32_t* __restrict__ heap, long R, int L) {
   ZK_DYN_SMEM(uint32_t, s);
-  for (int i = threadIdx.x; i < 8 * R; i += blockDim.x) s[(i % 8) * R + i / 8] = heap[8L * R + i];
+  const long first = (long)blockIdx.x * L;
+  const uint32_t* nodes = heap + 8 * (R + first);
+  for (int i = threadIdx.x; i < 8 * L; i += blockDim.x) s[(i % 8) * L + i / 8] = nodes[i];
   __syncthreads();
-  build_levels(s, R, R, 0, heap);
-  if (threadIdx.x == 0) {
+  build_levels(s, L, R, first, heap);
+  if (R == L && threadIdx.x == 0) {
     const uint32_t zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
     store_row(heap, 0, zero);
   }
 }
 
-// leaves: (8, N) digest words -> heap: (2N, 8); N a power of two
-ZK_EXPORT int zk_merkle_heap(const uint32_t* leaves, uint32_t* heap, long N, void* stream) {
+// leaves: (8, N) digest words -> heap: (2N, 8); N a power of two.
+// *launches is set to the kernel launches this call made.
+ZK_EXPORT int zk_merkle_heap(const uint32_t* leaves, uint32_t* heap, long N, int* launches, void* stream) {
+  *launches = 0;
   if (N < 1 || (N & (N - 1))) return 1;  // cudaErrorInvalidValue
   const long L = N < kLeaves ? N : kLeaves;
-  const long R = N / L;
-  // 8 words of 1.5 nodes a leaf (launch i) or a root (launch ii)
-  const long smem_i = 48 * L, smem_ii = 48 * R;
-  if (smem_ii > kMaxSmem) return 1;
+  // 8 words of 1.5 nodes a node of the block
+  const long smem_i = 48 * L;
   if (smem_i > 48 * 1024) ZK_SET_SMEM(merkle_subtrees_kernel, (int)smem_i);
   const int threads_i = L / 2 < 1 ? 1 : L / 2 > kThreads ? kThreads : (int)(L / 2);
-  ZK_LAUNCH(merkle_subtrees_kernel, dim3((unsigned)R), dim3(threads_i), (size_t)smem_i, stream, leaves, heap,
-            N, (int)L);
-  const int rc = ZK_LAST_ERROR();
-  if (rc != 0 || R == 1) return rc;
-  if (smem_ii > 48 * 1024) ZK_SET_SMEM(merkle_top_kernel, (int)smem_ii);
-  const int threads_ii = R / 2 > kThreads ? kThreads : (int)(R / 2);
-  ZK_LAUNCH(merkle_top_kernel, dim3(1), dim3(threads_ii), (size_t)smem_ii, stream, heap, (int)R);
-  return ZK_LAST_ERROR();
+  ZK_LAUNCH(merkle_subtrees_kernel, dim3((unsigned)(N / L)), dim3(threads_i), (size_t)smem_i, stream, leaves,
+            heap, N, (int)L);
+  ++*launches;
+  int rc = ZK_LAST_ERROR();
+  for (long R = N / L; rc == 0 && R > 1; R /= level_block(R)) {
+    const long Lr = level_block(R), smem = 48 * Lr;
+    if (smem > 48 * 1024) ZK_SET_SMEM(merkle_levels_kernel, (int)smem);
+    const int threads = Lr / 2 > kThreads ? kThreads : (int)(Lr / 2);
+    ZK_LAUNCH(merkle_levels_kernel, dim3((unsigned)(R / Lr)), dim3(threads), (size_t)smem, stream, heap, R,
+              (int)Lr);
+    ++*launches;
+    rc = ZK_LAST_ERROR();
+  }
+  return rc;
 }

@@ -13,6 +13,8 @@ as ``blake3_jax._compress`` does; adds and rotations mask with 0xFFFFFFFF.
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from zkvm_torch.hash.blake3 import CHUNK_END, CHUNK_START, IV, MSG_PERMUTATION, ROOT
@@ -87,6 +89,7 @@ def hash_rows_plain(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 launches = 0  # launches of the CUDA kernel in this process
+launches_by_shape = collections.Counter()  # the same, by (C, N)
 
 
 def launch_rows(lib, stream, x: torch.Tensor) -> torch.Tensor:
@@ -112,4 +115,5 @@ def hash_rows_t(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"row hash: no kernel for device {x.device}")
     out = launch_rows(kernels.lib(), kernels.stream_of(x), x.contiguous())
     launches += 1
+    launches_by_shape[(x.shape[0], x.shape[-1])] += 1
     return out

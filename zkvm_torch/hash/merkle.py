@@ -3,8 +3,8 @@
 Port of ``blake3_jax.merge`` / ``merkle_flat`` and
 ``zkvm.hash.merkle.DeviceMerkleTree``.  The reference builds the tree in
 XLA, outside any Pallas kernel; here :func:`merkle_flat` is the CUDA
-kernel ``csrc/merkle.cu`` for a CUDA tensor (one or two launches a tree,
-sharing K2's compress) and the plain PyTorch version, one vectorised
+kernel ``csrc/merkle.cu`` for a CUDA tensor (ceil(log2 N / 10) launches a
+tree of N leaves, sharing K2's compress) and the plain PyTorch version, one vectorised
 BLAKE3 compress per level, for a CPU tensor.
 
 Heap layout (winter-crypto style): nodes[1] = root, children of i at 2i and
@@ -14,6 +14,8 @@ Heap layout (winter-crypto style): nodes[1] = root, children of i at 2i and
 
 from __future__ import annotations
 
+import collections
+import ctypes
 from typing import List, Sequence
 
 import numpy as np
@@ -57,18 +59,24 @@ def merkle_flat_plain(leaves: torch.Tensor) -> torch.Tensor:
 
 
 launches = 0  # calls of the CUDA kernel's entry in this process (one a tree)
+# by the tree's leaf count: the kernel launches the entry reported, and the trees
+launches_by_size = collections.Counter()
+trees_by_size = collections.Counter()
 
 
-def launch_heap(lib, stream, leaves_8n: torch.Tensor) -> torch.Tensor:
+def launch_heap(lib, stream, leaves_8n: torch.Tensor):
     """Call the Merkle entry point of ``lib`` on (8, N) leaf digest words
-    (N a power of two); returns the (2N, 8) heap."""
+    (N a power of two); returns the (2N, 8) heap and the kernel launches
+    the entry made."""
     n = leaves_8n.shape[-1]
     kernels.expect(leaves_8n, (8, n), leaves_8n.device, "leaves")
     if n < 1 or n & (n - 1):
         raise ValueError(f"Merkle heap: {n} leaves, expected a power of two")
     heap = torch.empty((2 * n, 8), dtype=torch.int32, device=leaves_8n.device)
-    kernels.check(lib.zk_merkle_heap(kernels.ptr(leaves_8n), kernels.ptr(heap), n, stream), "zk_merkle_heap")
-    return heap
+    made = ctypes.c_int(0)
+    rc = lib.zk_merkle_heap(kernels.ptr(leaves_8n), kernels.ptr(heap), n, ctypes.byref(made), stream)
+    kernels.check(rc, "zk_merkle_heap")
+    return heap, made.value
 
 
 def merkle_flat(leaves: torch.Tensor) -> torch.Tensor:
@@ -82,8 +90,11 @@ def merkle_flat(leaves: torch.Tensor) -> torch.Tensor:
     if leaves.device.type != "cuda":
         raise ValueError(f"Merkle heap: no kernel for device {leaves.device}")
     leaves_8n = leaves.transpose(0, 1).contiguous()
-    heap = launch_heap(kernels.lib(), kernels.stream_of(leaves_8n), leaves_8n)
+    heap, made = launch_heap(kernels.lib(), kernels.stream_of(leaves_8n), leaves_8n)
     launches += 1
+    n = leaves_8n.shape[-1]
+    launches_by_size[n] += made
+    trees_by_size[n] += 1
     return heap
 
 

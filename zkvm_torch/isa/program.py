@@ -71,7 +71,16 @@ def _compute_padding(length: int) -> int:
 
 
 def _hash_code(code) -> tuple:
-    """Rescue-Prime program hash, by the Python sponge for every length."""
+    """Rescue-Prime program hash; native fast path for large programs."""
+    if len(code) >= 256:
+        try:
+            from zkvm_torch.runtime.native import program_hash
+
+            digest = program_hash(code)
+            if digest is not None:
+                return digest
+        except Exception:
+            pass
     sponge = Rescue128()
     for op in code:
         sponge.update(op.code, op.value)

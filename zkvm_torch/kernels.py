@@ -45,8 +45,8 @@ SIGNATURES = {
     "zk_mul32": (_P, _P, _P, _I, _P),
     # x, out, C, N, stream
     "zk_blake3_rows": (_P, _P, _I, _L, _P),
-    # leaves, heap, N, stream
-    "zk_merkle_heap": (_P, _P, _L, _P),
+    # leaves, heap, N, launches (a host int, set to the kernel launches made), stream
+    "zk_merkle_heap": (_P, _P, _L, _IP, _P),
     # cur, mask, ark, ee, i0, i1, mds, alphas, delta_lo, delta_hi,
     # bv0, bb0, bc0 (host), k0, bv1, bb1, bc1 (host), k1, out, T, stream
     "zk_composition": (_P,) * 8 + (_U64, _U64, _P, _P, _IP, _I, _P, _P, _IP, _I, _P, _L, _P),

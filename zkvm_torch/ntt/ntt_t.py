@@ -150,6 +150,25 @@ def ladder_t_host(base: int, n: int, scale: int = 1, device="cpu") -> torch.Tens
     )
 
 
+def ladders_split(bases: torch.Tensor, n: int):
+    """The two factors of the ladders of n > 256 lanes, bases^i =
+    l1[i mod S] * l2[i div S]: (l1 (Q, 8, S), l2 (Q, 8, n / S))."""
+    s = 1 << ((n.bit_length() - 1 + 1) // 2)
+    l1 = _ladders_impl(bases, s)  # (Q, 8, S)
+    base_s = bases
+    for _ in range(s.bit_length() - 1):
+        base_s = ft.fsquare(base_s[:, :, None])[:, :, 0]
+    return l1, _ladders_impl(base_s, n // s)
+
+
+def ladders_join(l1: torch.Tensor, l2: torch.Tensor) -> torch.Tensor:
+    """(Q, 8, S) x (Q, 8, N2) factors -> the (Q, 8, S N2) ladders: one
+    outer-product multiply."""
+    q, _, s = l1.shape
+    prod = ft.fmul(l2.transpose(-1, -2)[:, :, :, None], l1[:, None])  # (Q, N2, 8, S)
+    return prod.transpose(-3, -2).reshape(q, 8, s * l2.shape[-1])
+
+
 def _ladders_impl(bases: torch.Tensor, n: int) -> torch.Tensor:
     q = bases.shape[0]
     if n <= 256:
@@ -159,14 +178,7 @@ def _ladders_impl(bases: torch.Tensor, n: int) -> torch.Tensor:
             cur = torch.cat([cur, ft.fmul(cur, step)], dim=-1)
             step = ft.fsquare(step)
         return cur
-    s = 1 << ((n.bit_length() - 1 + 1) // 2)
-    l1 = _ladders_impl(bases, s)  # (Q, 8, S)
-    base_s = bases
-    for _ in range(s.bit_length() - 1):
-        base_s = ft.fsquare(base_s[:, :, None])[:, :, 0]
-    l2 = _ladders_impl(base_s, n // s)  # (Q, 8, N2)
-    prod = ft.fmul(l2.transpose(-1, -2)[:, :, :, None], l1[:, None])  # (Q, N2, 8, S)
-    return prod.transpose(-3, -2).reshape(q, 8, n)
+    return ladders_join(*ladders_split(bases, n))
 
 
 def ladders_t(bases: torch.Tensor, n: int) -> torch.Tensor:
@@ -371,14 +383,13 @@ def _pow2k(base: torch.Tensor, k: int) -> torch.Tensor:
     return base
 
 
-def scale_by_ladder_t(x: torch.Tensor, base: torch.Tensor, n: int) -> torch.Tensor:
+def scale_by_ladder_t(x: torch.Tensor, base: torch.Tensor, n: int, scale=None) -> torch.Tensor:
     """x[..., 8, n] * base^i along the lane axis, via the index split
-    n = n1 + N1*n2 (two broadcast multiplies, O(sqrt N) ladder memory)."""
+    n = n1 + N1*n2 (two broadcast multiplies, O(sqrt N) ladder memory).
+    ``scale``: the two ladders, :func:`class_scale` of the same base."""
     n2, n1 = _split(n)
     batch = tuple(x.shape[:-2])
-    one = _one(x.device)
-    lad1 = ladder_t(base, one, n1)  # (8, N1)
-    lad2 = ladder_t(_pow2k(base, n1.bit_length() - 1), one, n2)  # (8, N2)
+    lad2, lad1 = class_scale(base, n) if scale is None else scale  # (8, N2), (8, N1)
     y = x.reshape(batch + (8, n2, n1)).transpose(-3, -2)  # (..., N2, 8, N1)
     y = ft.fmul(ft.fmul(y, lad1), lad2.transpose(0, 1)[:, :, None])
     return y.transpose(-3, -2).reshape(batch + (8, n))
@@ -386,11 +397,9 @@ def scale_by_ladder_t(x: torch.Tensor, base: torch.Tensor, n: int) -> torch.Tens
 
 def class_scale(base: torch.Tensor, t: int):
     """The rank-1 premultiplier of a size-t coset NTT at ``base``:
-    ((base^N1)^n2 over N2 rows, base^n1 over N1 lanes), or None when the
-    transform recurses (the scale is then applied unfused)."""
+    ((base^N1)^n2 over N2 rows, base^n1 over N1 lanes).  When the transform
+    recurses, :func:`class_ntt_t` applies it unfused."""
     n2, n1 = _split(t)
-    if n2 > MAX_AXIS:
-        return None
     one = _one(base.device)
     lad_lane = ladder_t(base, one, n1)  # (8, N1)
     lad_m = ladder_t(_pow2k(base, n1.bit_length() - 1), one, n2)  # (8, N2)
@@ -404,10 +413,10 @@ def class_ntt_t(coeffs_t: torch.Tensor, base: torch.Tensor, scale=None) -> torch
     t = coeffs_t.shape[-1]
     if t == 1:
         return coeffs_t
-    if _split(t)[0] > MAX_AXIS:  # recursion path: apply the scale unfused
-        return _ntt_t_core(scale_by_ladder_t(coeffs_t, base, t), False)
     if scale is None:
         scale = class_scale(base, t)
+    if _split(t)[0] > MAX_AXIS:  # recursion path: apply the scale unfused
+        return _ntt_t_core(scale_by_ladder_t(coeffs_t, base, t, scale), False)
     return _ntt_t_core(coeffs_t, False, scale_r1=scale)
 
 

@@ -20,6 +20,7 @@ import torch
 from zkvm_torch.field import f128
 from zkvm_torch.field.limbs import from_numpy, to_limbs
 from zkvm_torch.ntt import ntt_t as nt
+from . import limits
 
 MAX_T = 1 << 40  # 225 * T stays below 2^53 (exact float64 sums)
 
@@ -53,7 +54,19 @@ def multi_eval_rows(coeffs_t: torch.Tensor, points: Sequence[int]) -> List[List[
     if t > MAX_T:
         raise ValueError(f"multi_eval_rows: T={t} exceeds exact float64 range")
     bases = from_numpy(to_limbs(list(points)), coeffs_t.device)
-    vals = _contract(coeffs_t, nt.ladders_t(bases, t))
+    if t >= limits.CHUNK_T and len(points) > 2:
+        # points in pairs from CHUNK_T on (the reference's, eval_mxu.py:97):
+        # the ladders of Q points build (Q, 8, T) through one broadcast limb
+        # multiply whose int64 transients are ~50 bytes an output byte
+        # (~51 GB at Q = 32, T = 2^20); a pair is the OOD frame's shape.
+        # The two O(sqrt T) ladder factors are built once for every point
+        # (the reference rebuilds them a pair; here each build is thousands
+        # of kernel launches).  Values unchanged.
+        l1, l2 = nt.ladders_split(bases, t)
+        vals = np.concatenate([_contract(coeffs_t, nt.ladders_join(l1[i : i + 2], l2[i : i + 2]))
+                               for i in range(0, len(points), 2)], axis=-1)
+    else:
+        vals = _contract(coeffs_t, nt.ladders_t(bases, t))
     c = coeffs_t.shape[0]
     rows: List[List[int]] = []
     for qi in range(len(points)):

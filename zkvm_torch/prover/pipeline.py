@@ -19,7 +19,9 @@ the full (28, 8, D) LDE.  Stages, in proof order:
 7. queries: multi-point evaluation at the query points, Merkle openings.
 
 Transcript and proof bytes are identical to the reference's (exact field
-arithmetic).  Only the T <= 2^17 forms of the stages are ported.
+arithmetic).  T-mode runs up to T = 2^20, mono up to 2^17
+(:mod:`.limits`); from ``limits.CHUNK_T`` on, the stages take the
+reference's chunked forms, which change no value.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from zkvm_torch.field.limbs import from_limbs, from_numpy, tensor, to_limbs, tte
 from zkvm_torch.hash import blake3_t as b3t
 from zkvm_torch.hash.merkle import DeviceMerkleTree, merkle_flat
 from zkvm_torch.ntt import ntt_t as nt
+from . import limits
 from . import multi_eval as me
 from . import wire
 from .fri import FOLD, fri_prove_t, gather_groups
@@ -55,7 +58,6 @@ from .proof import FriLayerOpening, Proof, QueryOpening
 from .transcript import RandomCoin
 
 NUM_COMP_COLUMNS = 8  # ce blowup for max constraint degree 7
-MAX_TRACE_LENGTH = 1 << 17  # the chunked T >= 2^18 stage forms are not ported
 
 
 @functools.lru_cache(maxsize=None)
@@ -112,24 +114,39 @@ def _interleave(per_class):
     return torch.stack(per_class, dim=-1).reshape(8, -1)
 
 
-def _commit_classes(coeffs_t, dct):
+def _class_ntt_blocked(coeffs_t, dct, r):
+    """Class r's coset NTT of the trace columns; from ``limits.CHUNK_T`` on,
+    in ``limits.COLUMN_BLOCKS`` blocks of columns (the reference's
+    ``lax.map`` over 4 blocks, pipeline.py:303, :339).  Columns transform
+    independently, so the values are the same.  From T = 2^19 the coset
+    scale is not fused into K1 (``ntt_t.class_ntt_t`` recurses), and one
+    limb multiply over all 28 columns allocates ~28 GiB at once at T =
+    2^20; a block needs a quarter of that."""
+    n_cols, t = coeffs_t.shape[0], coeffs_t.shape[-1]
+    blocks = limits.COLUMN_BLOCKS
+    if t < limits.CHUNK_T or n_cols % blocks:
+        return _class_ntt(coeffs_t, dct, r)
+    return torch.cat([_class_ntt(blk, dct, r) for blk in coeffs_t.split(n_cols // blocks)])
+
+
+def _commit_classes(coeffs_t, dct, class_ntt=_class_ntt):
     """Row hashes of every class's coset evaluations -> Merkle heap over
     the domain-ordered leaves."""
-    digs = [b3t.hash_rows_t(_class_ntt(coeffs_t, dct, r)) for r in range(len(dct["class_scales"]))]
+    digs = [b3t.hash_rows_t(class_ntt(coeffs_t, dct, r)) for r in range(len(dct["class_scales"]))]
     return merkle_flat(_interleave(digs).transpose(0, 1))
 
 
 def _stage_trace_commit_t(cols_t, dct):
     """(28, 8, T) transposed trace -> (coefficients, Merkle heap)."""
     coeffs_t = nt.intt_t(cols_t)
-    return coeffs_t, _commit_classes(coeffs_t, dct)
+    return coeffs_t, _commit_classes(coeffs_t, dct, _class_ntt_blocked)
 
 
 def _stage_composition_t(coeffs_t, dct, alphas, bv0, bb0, bv1, bb1, delta, bcols0, bcols1):
     """Constraint composition per class; returns (8, D) evaluations."""
     q = []
     for r in range(len(dct["class_scales"])):
-        lde = _class_ntt(coeffs_t, dct, r)
+        lde = _class_ntt_blocked(coeffs_t, dct, r)
         q.append(
             cp.composition_t(
                 lde, dct["mask_cls_t"][r], dct["ark_cls_t"][r], dct["ee_cls_t"][r],
@@ -169,14 +186,28 @@ def _deep_quotient_t(a_t, zlad, zinvlad):
     return ft.fmul(ft.fsub(s, u), zinvlad)
 
 
+def _weighted_sum(cols_t, w_t):
+    """sum_c w[c] * cols[c] of (C, 8, T) columns and (C, 8) weights.  From
+    ``limits.CHUNK_T`` on, a scan over the columns (the reference's,
+    pipeline.py:433-452): the one-shot product over all C columns holds
+    ~50 bytes of int64 transients an input byte (``f128t._product_cols``).
+    Field addition is exact and commutative, so the value is the same."""
+    if cols_t.shape[-1] < limits.CHUNK_T:
+        return ft.fsum(ft.fmul(cols_t, w_t[:, :, None]), axis=0)
+    acc = torch.zeros_like(cols_t[0])
+    for c in range(cols_t.shape[0]):
+        acc = ft.fadd(acc, ft.fmul(cols_t[c], w_t[c][:, None]))
+    return acc
+
+
 def _stage_deep_t(coeffs_t, h_t, gammas_t, deltas_t, epsilons_t, z, zg, zm, dct):
     """DEEP witness Y over the domain, (8, D): three synthetic-division
     quotients combined in coefficient space, one coset NTT per class."""
     t = coeffs_t.shape[-1]
     dev = coeffs_t.device
-    a = ft.fsum(ft.fmul(coeffs_t, gammas_t[:, :, None]), axis=0)
-    b = ft.fsum(ft.fmul(coeffs_t, deltas_t[:, :, None]), axis=0)
-    h = ft.fsum(ft.fmul(h_t, epsilons_t[:, :, None]), axis=0)
+    a = _weighted_sum(coeffs_t, gammas_t)
+    b = _weighted_sum(coeffs_t, deltas_t)
+    h = _weighted_sum(h_t, epsilons_t)
     one = ttensor(1, dev)
     y = None
     for poly, pt in ((a, z), (b, zg), (h, zm)):
@@ -240,22 +271,31 @@ def _trace_limbs_t(trace) -> np.ndarray:
 
 class _Stages:
     """Per-stage wall clock, when asked for: the device is synchronised at
-    the end of each stage, so a stage's time includes its kernels."""
+    the end of each stage, so a stage's time includes its kernels.  On a
+    card, ``peaks`` receives each stage's peak allocated device bytes (the
+    allocator's peak is reset at each stage's start)."""
 
-    def __init__(self, seconds, device):
+    def __init__(self, seconds, device, peaks=None):
         self.seconds = seconds
-        self.sync = torch.device(device).type == "cuda"
+        self.device = torch.device(device)
+        self.sync = self.device.type == "cuda"
+        self.peaks = peaks if self.sync else None
 
     @contextlib.contextmanager
     def __call__(self, name):
-        if self.seconds is None:
+        if self.seconds is None and self.peaks is None:
             yield
             return
+        if self.peaks is not None:
+            torch.cuda.reset_peak_memory_stats(self.device)
         t0 = time.perf_counter()
         yield
         if self.sync:
             torch.cuda.synchronize()
-        self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+        if self.seconds is not None:
+            self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+        if self.peaks is not None:
+            self.peaks[name] = max(self.peaks.get(name, 0), torch.cuda.max_memory_allocated(self.device))
 
 
 class _TModeStages:
@@ -291,25 +331,30 @@ MODES = ("tmode", "mono")
 
 
 def prove(trace, pub_inputs: PublicInputs, options: ProofOptions = ProofOptions(),
-          device="cuda", stage_seconds=None, mode="tmode") -> Proof:
+          device="cuda", stage_seconds=None, mode="tmode", stage_peaks=None) -> Proof:
     """Prove an execution trace on ``device`` (the CUDA card unless the
     caller passes ``device="cpu"``; without a card a CUDA call raises).
 
     ``mode``: ``"tmode"`` (the class-decomposed prover) or ``"mono"`` (the
     full-LDE prover of :mod:`zkvm_torch.prover.mono`); both give the same
     bytes.  ``stage_seconds``: a dict to receive each stage's wall-clock
-    seconds (the device is synchronised per stage only when it is given)."""
+    seconds, ``stage_peaks`` (on a card) each stage's peak allocated device
+    bytes; the device is synchronised per stage only when one is given.
+    T-mode takes T <= 2^20, mono T <= 2^17 (:mod:`.limits`)."""
     t_len = trace.length
-    if t_len > MAX_TRACE_LENGTH:
-        raise ValueError(f"trace length {t_len} > {MAX_TRACE_LENGTH} is not supported yet")
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: expected one of {MODES}")
+    if mode == "mono" and t_len > limits.MONO_MAX_TRACE_LENGTH:
+        raise ValueError(f"mono: trace length {t_len} > {limits.MONO_MAX_TRACE_LENGTH}; mono at "
+                         "T >= 2^18 is ROADMAP A8, prove with mode='tmode'")
+    if t_len > limits.TMODE_MAX_TRACE_LENGTH:
+        raise ValueError(f"trace length {t_len} > {limits.TMODE_MAX_TRACE_LENGTH} is not supported")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("prove: no CUDA card here; pass device='cpu' to prove on the CPU")
     blowup = options.blowup
     delta = pub_inputs.server_key.parameters.delta
-    stage = _Stages(stage_seconds, device)
+    stage = _Stages(stage_seconds, device, stage_peaks)
     with stage("constants"):
         if mode == "mono":
             from .mono import MonoStages

@@ -1,8 +1,10 @@
 """Top-level API: run, prove and verify a program on PyTorch / CUDA.
 
 Port of ``zkvm.vm``: ``prove(program, inputs)`` executes the program with
-the golden processor (pure Python), builds the 28-column trace and proves
-it on the CUDA card (``device="cpu"`` proves on the CPU), with the T-mode
+the native C++ trace generator (:mod:`zkvm_torch.runtime`, built with g++
+into ``zkvm_torch/build/`` at first use; the golden Python processor where
+it cannot be built, or with ``use_native=False``), builds the 28-column
+trace and proves it on the CUDA card (``device="cpu"`` proves on the CPU), with the T-mode
 pipeline or, for ``mode="mono"``, the full-LDE one; both give the same
 bytes.  It uses the reference parameter preset by default (32 queries,
 blowup 8, grinding 0, FRI fold 8, remainder degree <= 127).
@@ -24,6 +26,7 @@ from zkvm_torch.isa import Program, ProgramInputs
 from zkvm_torch.processor import Processor
 from zkvm_torch.prover import Proof, ProofOptions
 from zkvm_torch.prover.pipeline import prove as stark_prove
+from zkvm_torch.runtime import NativeProcessor, native_available
 from zkvm_torch.verifier import verify as stark_verify
 from zkvm_torch.verifier import verify_bytes as stark_verify_bytes
 
@@ -39,8 +42,12 @@ def read_add_chain(n_ops: int, key) -> Tuple[Program, ProgramInputs]:
     return Program.compile("\n".join(ops)), ProgramInputs(tuple([1] * (n_ops // 2 + 2)), (), key)
 
 
-def run(program: Program, inputs: ProgramInputs):
-    """Execute a program; returns its ExecutionTrace."""
+def run(program: Program, inputs: ProgramInputs, use_native: bool = True):
+    """Execute a program; returns its ExecutionTrace: by the native trace
+    generator when it is available and ``use_native`` is true, else by the
+    golden processor (the same trace)."""
+    if use_native and native_available():
+        return NativeProcessor.run(program, inputs, seed=DEFAULT_SEED)
     return Processor.run(program, inputs).trace(seed=DEFAULT_SEED)
 
 
@@ -50,11 +57,14 @@ def prove(
     options: Optional[ProofOptions] = None,
     device="cuda",
     mode="tmode",
+    use_native: bool = True,
 ) -> Tuple[tuple, tuple, Proof]:
     """Prove a program run; returns (program_hash, stack_outputs, proof).
 
-    ``mode``: ``"tmode"`` or ``"mono"`` (see :func:`prover.pipeline.prove`)."""
-    trace = run(program, inputs)
+    ``mode``: ``"tmode"`` or ``"mono"`` (see :func:`prover.pipeline.prove`);
+    ``use_native``: trace with the native generator when it is available
+    (see :func:`run`)."""
+    trace = run(program, inputs, use_native)
     pub = PublicInputs(program.hash, trace.outputs, inputs.server_key)
     proof = stark_prove(trace, pub, options or ProofOptions(), device=device, mode=mode)
     return program.hash, trace.outputs, proof
