@@ -23,10 +23,15 @@ Phases, each printing one JSON line:
       beforehand) and at their wrapper, and one wrapper call of each (and
       of the Merkle heap) runs under torch.cuda.set_sync_debug_mode("error"),
       so a wrapper that waits for the stream fails the run; and zk::mul32
-      alone against the plain multiply on every pair of edge values;
+      alone against the plain multiply on every pair of edge values; the
+      batch inverse (csrc/batch_inverse.cu) against its plain Fermat
+      version at the provers' shapes (kernel_bench.BINV_CASES: (3, 8,
+      2^19), (16, 8, 2^16), (16, 8, 2^20), (3, 8, 2^16), (8, 2^16), and
+      the 2^20-row cls prove's (3, 8, 2^20), (8, 2^20)), with zeros and the
+      edge values mixed in, its wrapper under the sync check;
   (d) conformance: the T = 128 program of conformance/vectors_e2e.json,
-      proved in both modes, whose roots and proof bytes must match the
-      vector byte for byte;
+      proved in all three modes (T-mode, mono, cls), whose roots and proof
+      bytes must match the vector byte for byte;
   (e) the bench's primary configuration: a READ/ADD chain of 20000 ops
       (T = 2^16, D = 2^19), proved in T-mode once to warm up and once
       timed, with per-stage seconds; K1, K2 and K3 must have launched in
@@ -35,26 +40,39 @@ Phases, each printing one JSON line:
   (f) the same chain in mono (full-LDE) mode: warm-up, timed prove, verify
       and tamper check; K1, K2, K4 and the Merkle heap must have launched
       in the timed prove; with the peak device memory and the time of the
-      DEEP stage's batch inverse; the proofs of (e) and (f) must be equal
+      DEEP stage's batch inverse; the batch inverse must have launched;
+  (e2) the same chain in the standard-layout class prover (cls): warm-up,
+      timed prove, verify and tamper check; K1, K2 and the Merkle heap
+      must have launched in the timed prove, K4 exactly 8 times (once a
+      class, step 1, N = 2^16), the batch inverse exactly 16 times (twice
+      a class), K3 never; the proofs of (e), (f) and (e2) must be equal
       byte for byte;
   (g) lr_large: the linear regression over encrypted inputs at T = 2^20
       (zkvm_torch.examples.prove_lr_large), traced by the native generator,
       proved in T-mode once cold and once steady (each stage's seconds and
       peak device memory), decrypted against the clear prediction,
-      verified, and a one-byte tamper rejected; K1, K2, K3 and the Merkle
+      verified, and a one-byte tamper rejected; the batch inverse must have
+      launched in the cold prove (the constants); K1, K2, K3 and the Merkle
       heap must have launched in the steady prove (printed by shape), the
       Merkle heap in at most ceil(23 / 10) launches a tree of 2^23 leaves.
-      Before it, two checks: at T = 2^18 the proof with the chunked stage
+      Then the same trace proved once in cls (its constants built in that
+      prove), whose bytes must equal the T-mode proof's, with each stage's
+      seconds and peaks and its launches (K4 8, the batch inverse 16).
+      Before the 2^20 proves, two checks: at T = 2^18 the proof with the chunked stage
       forms (the default there) equals the one without them; at T = 2^17
       and 2^20, multi_eval_rows of two random columns at two random points
-      equals a host Horner evaluation.  Phase (c) also runs K1, K2, K3 and
-      the Merkle heap at this path's shapes (kernel_bench's *_LARGE_*).
+      equals a host Horner evaluation.  Phase (c) also runs K1, K2, K3,
+      K4's class shape, the Merkle heap and the batch inverse at this
+      path's shapes (kernel_bench's *_LARGE_*, K3_LARGE_T, BINV_CASES).
 
-Then a {"kernels": [...]} line, and last
+Then a {"kernels": [...]} line (each kernel's launches by path: the timed
+proves of (e), (f) and (e2), and the cold, steady and cls proves of (g)),
+and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure raises and exits non-zero; there is no CPU fallback.
 """
 
+import itertools
 import json
 import os
 import random
@@ -73,9 +91,9 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from kernel_bench import (K1_CASES, K1_LARGE_CASES, K2_CASES, K2_LARGE_CASES, K3_LARGE_T,  # noqa: E402
-                          MERKLE_CASES, MERKLE_LARGE_CASES, air_calls, air_cases, capture_entry, cuda_ms,
-                          ptxas_summary, sass_opcodes)
+from kernel_bench import (BINV_CASES, K1_CASES, K1_LARGE_CASES, K2_CASES, K2_LARGE_CASES,  # noqa: E402
+                          K3_LARGE_T, MERKLE_CASES, MERKLE_LARGE_CASES, air_calls, air_cases, binv_name,
+                          capture_entry, cuda_ms, ptxas_summary, sass_opcodes)
 from zkvm_torch import kernels, vm  # noqa: E402
 from zkvm_torch.air import composition as cp  # noqa: E402
 from zkvm_torch.air import transition as tr  # noqa: E402
@@ -120,6 +138,10 @@ BLAKE3_PACK_OPS = 4
 # Merkle heap of N leaves: N - 1 compresses; 32 bytes a leaf read, the
 # 2N rows of 32 bytes written
 MERKLE_BYTES_PER_LEAF = 3 * 32
+# the batch inverse by Montgomery's trick over a whole row: 3 multiplies an
+# element (prefix product, and two in the backward sweep; the one
+# exponentiation a row is negligible), 32 bytes read and 32 written
+BINV_MULS = 3
 
 
 def emit(obj):
@@ -168,9 +190,11 @@ def compare(name, kernel_fn, plain_fn, nbytes, ops, reps=20, plain_reps=2, entry
     """Kernel vs plain on the card: exact equality, both times and the
     bound of the work (``nbytes`` moved, ``ops`` 32-bit operations).  With
     ``entry_fn`` (the C entry alone), ``ms`` is its time and the wrapper's
-    is ``wrapper_ms``."""
-    got, want = kernel_fn(), plain_fn()
-    torch.cuda.synchronize()
+    is ``wrapper_ms``.  With ``plain_reps=0`` the plain time is that of the
+    one call that the check makes (for a plain version that takes
+    seconds)."""
+    got = kernel_fn()
+    want, plain_once_ms = timed_once(plain_fn)
     err = max_abs_err(got, want)
     if err != 0 or got.shape != want.shape:
         raise AssertionError(f"{name}: kernel differs from its plain version (max abs err {err})")
@@ -180,11 +204,22 @@ def compare(name, kernel_fn, plain_fn, nbytes, ops, reps=20, plain_reps=2, entry
     if entry_fn is not None:
         extra = {"wrapper_ms": ms, "wrapper_host_ms": host_ms}
         ms, host_ms = cuda_ms(entry_fn, reps)
-    plain_ms = cuda_ms(plain_fn, plain_reps)[0]
+    plain_ms = cuda_ms(plain_fn, plain_reps)[0] if plain_reps else plain_once_ms
     bound, bound_by = bound_ms(nbytes, ops)
     emit({"phase": "kernels", "case": name, "max_abs_err": err, "ms": ms, "host_ms": host_ms, **extra,
           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by})
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+
+
+def timed_once(fn):
+    """(fn's result, its ms on the card by CUDA events), one call."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def sync_free(name, wrapper_call):
@@ -338,11 +373,13 @@ def phase_kernels():
         del leaves, cargs, keep
     results["merkle"] = dict(heaps[0], max_abs_err=max(r["max_abs_err"] for r in heaps))
     # K3 (one class at T = 2^16, the real boundary columns) and K4 (the
-    # mono shape and one class): kernel_bench.air_cases; then K3 at the
-    # 2^20-row path's T (its first case)
+    # mono shape and one class): kernel_bench.air_cases; then K3 and K4's
+    # class shape (the cls prove's, step 1) at the 2^20-row path's T; made
+    # one case at a time
     k4 = {}
     limbs = lambda shape: rand_limbs(rng, shape, spread=True)
-    for name, kind, args, host in [*air_cases(limbs, DEV), next(air_cases(limbs, DEV, K3_LARGE_T))]:
+    for name, kind, args, host in itertools.chain(air_cases(limbs, DEV),
+                                                  air_cases(limbs, DEV, K3_LARGE_T, ("class",))):
         wrapper, plain, launch = air_calls(kind)
         cname, cargs, keep = capture_entry(kernels, launch, *args, *host)
         lib = kernels.lib()
@@ -357,6 +394,23 @@ def phase_kernels():
             k4[name] = res
         del args, cargs, keep
     results["transition"] = dict(k4[next(iter(k4))], max_abs_err=max(r["max_abs_err"] for r in k4.values()))
+    # the batch inverse at the provers' shapes, zeros and edge values in
+    # every row; its plain version takes seconds at the large shapes, so
+    # its time is that of the checking call (one call) from 2^20 lanes on
+    binv = []
+    for shape in BINV_CASES:
+        x = rand_limbs(rng, shape, spread=True)
+        n_elems = x.numel() // 8
+        cname, cargs, keep = capture_entry(kernels, ft.launch_batch_inverse, x)
+        binv.append(compare(
+            binv_name(shape), lambda: ft.batch_inverse(x), lambda: ft.batch_inverse_plain(x),
+            2 * LIMB_BYTES * n_elems, BINV_MULS * OPS_MUL * n_elems, plain_reps=int(shape[-1] < 1 << 20),
+            entry_fn=lambda: kernels.check(getattr(lib, cname)(*cargs), cname),
+        ))
+        sync_free(binv_name(shape), lambda: ft.batch_inverse(x))
+        del x, cargs, keep
+        torch.cuda.empty_cache()
+    results["batch_inverse"] = dict(binv[0], max_abs_err=max(r["max_abs_err"] for r in binv))
     torch.cuda.empty_cache()
     return results
 
@@ -366,7 +420,7 @@ def phase_conformance():
     key = vm.ServerKey(vm.DEMO_PARAMETERS, random.Random(7))
     program = vm.Program.compile(vec["program_source"])
     inputs = vm.ProgramInputs(tuple(vec["public_inputs_tape"]), (key.encrypt(2),), key)
-    for mode in ("tmode", "mono"):
+    for mode in MODES:
         t0 = time.perf_counter()
         _, _, proof = vm.prove(program, inputs, device=DEV, mode=mode)
         data = proof.to_wire_bytes()
@@ -381,19 +435,30 @@ def phase_conformance():
             raise AssertionError(f"{mode} conformance proof differs from the vector: {checks}")
 
 
-COUNTERS = {"ntt_stages": nt, "blake3_rows": b3t, "merkle": mk, "composition": cp, "transition": tr}
+MODES = ("tmode", "mono", "cls")
+COUNTERS = {"ntt_stages": nt, "blake3_rows": b3t, "merkle": mk, "composition": cp, "transition": tr,
+            "batch_inverse": ft}
+# the kernels each path's run must have launched, and the launch counts it
+# must have made exactly (the cls path: K4 once a class, the batch inverse
+# twice a class, no K3)
 PATH_KERNELS = {"tmode": ("ntt_stages", "blake3_rows", "merkle", "composition"),
-                "mono": ("ntt_stages", "blake3_rows", "merkle", "transition"),
-                "lr_large": ("ntt_stages", "blake3_rows", "merkle", "composition")}
+                "mono": ("ntt_stages", "blake3_rows", "merkle", "transition", "batch_inverse"),
+                "cls": ("ntt_stages", "blake3_rows", "merkle", "transition", "batch_inverse"),
+                "lr_large_cold": ("batch_inverse",),
+                "lr_large": ("ntt_stages", "blake3_rows", "merkle", "composition"),
+                "lr_large_cls": ("ntt_stages", "blake3_rows", "merkle", "transition", "batch_inverse")}
+CLS_EXACT = {"transition": 8, "batch_inverse": 16, "composition": 0}
+PATH_EXACT = {"tmode": {"transition": 0}, "mono": {"composition": 0}, "cls": CLS_EXACT,
+              "lr_large_cls": CLS_EXACT}
 
 
 def reset_counts():
-    """Every launch count to 0 (K1, K2, K3 and the Merkle heap also count by
+    """Every launch count to 0 (all but K1 also count by shape; K1 only by
     shape)."""
-    for mod in (b3t, mk, cp, tr):
+    for mod in (b3t, mk, cp, tr, ft):
         mod.launches = 0
-    for counter in (nt.launches, b3t.launches_by_shape, cp.launches_by_shape, mk.launches_by_size,
-                    mk.trees_by_size):
+    for counter in (nt.launches, b3t.launches_by_shape, cp.launches_by_shape, tr.launches_by_shape,
+                    ft.launches_by_shape, mk.launches_by_size, mk.trees_by_size):
         counter.clear()
 
 
@@ -404,10 +469,26 @@ def read_counts():
         "ntt_stages": {f"M={m} B={b} NL={nl} {v}": n for (m, b, nl, v), n in sorted(nt.launches.items())},
         "blake3_rows": {f"C={c} N={n}": k for (c, n), k in sorted(b3t.launches_by_shape.items())},
         "composition": {f"T={t}": k for t, k in sorted(cp.launches_by_shape.items())},
+        "transition": {f"N={n} step={st}": k for (n, st), k in sorted(tr.launches_by_shape.items())},
+        "batch_inverse": {f"R={r} N={n}": k for (r, n), k in sorted(ft.launches_by_shape.items())},
         "merkle": {f"N={n} trees={mk.trees_by_size[n]}": k for n, k in sorted(mk.launches_by_size.items())},
     }
     launches["ntt_stages"] = sum(by_shape["ntt_stages"].values())
     return launches, by_shape
+
+
+def check_path(path, launches, by_shape):
+    """The kernels ``path`` must have launched, the counts it must have
+    made exactly, and for the cls paths K4 at step 1 alone."""
+    for name in PATH_KERNELS[path]:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the {path} path")
+    for name, n in PATH_EXACT.get(path, {}).items():
+        if launches[name] != n:
+            raise AssertionError(f"kernel {name} launched {launches[name]} times on the {path} path, "
+                                 f"expected {n}")
+    if PATH_EXACT.get(path) is CLS_EXACT and any(not k.endswith(" step=1") for k in by_shape["transition"]):
+        raise AssertionError(f"K4 on the {path} path at {by_shape['transition']}, expected step 1")
 
 
 def phase_bench(mode):
@@ -435,7 +516,6 @@ def phase_bench(mode):
     torch.cuda.synchronize()
     steady = time.perf_counter() - t0
     launches, by_shape = read_counts()
-    k1_shapes = by_shape["ntt_stages"]
     peak = torch.cuda.max_memory_allocated()
 
     data = proof.to_wire_bytes()
@@ -457,12 +537,12 @@ def phase_bench(mode):
           "trace_length": trace.length, "lde_domain": trace.length * 8, "trace_gen_seconds": trace_seconds,
           "warmup_prove_seconds": warm, "prove_seconds": steady, "rows_per_sec": trace.length / steady,
           "stage_seconds": stages, "proof_bytes": len(data), "verified": True, "tampered_rejected": rejected,
-          "launches": launches, "k1_launches_by_shape": k1_shapes, "peak_mem_gib": peak / 2**30, **extra})
+          "launches": launches, "k1_launches_by_shape": by_shape["ntt_stages"],
+          "launches_by_shape": {k: by_shape[k] for k in ("transition", "batch_inverse")},
+          "peak_mem_gib": peak / 2**30, **extra})
     if not rejected:
         raise AssertionError(f"{mode}: the verifier accepted a tampered proof")
-    for name in PATH_KERNELS[mode]:
-        if launches[name] <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the {mode} path")
+    check_path(mode, launches, by_shape)
     return launches, data
 
 
@@ -494,7 +574,7 @@ def check_multi_eval(rng, t):
 def phase_lr_large(card):
     """(g): the linear regression over encrypted inputs at T = 2^20, after
     the chunked-forms and multi-eval checks.  Returns the launch counts of
-    the steady prove."""
+    its paths: the cold and the steady T-mode prove, and the cls prove."""
     if not native_available():
         raise AssertionError("lr_large: the native trace generator did not build (g++)")
     # (i) at T = 2^18 the chunked forms are the default; without them the
@@ -528,32 +608,38 @@ def phase_lr_large(card):
     emit({"phase": "lr_large", "n_terms": run.n_terms, "ops": len(run.program.code),
           "trace_length": run.trace.length, "lde_domain": 8 * run.trace.length, "native_trace": True,
           **{f"{k}_seconds": v for k, v in run.seconds.items()}, "card": card})
-    proves = {}
-    for name in ("cold", "steady"):
-        if name == "steady":
-            reset_counts()
-        proof, seconds, stages, peaks, peak = run.prove(DEV)
-        proves[name] = seconds
-        emit({"phase": "lr_large", "prove": name, "seconds": seconds, "rows_per_sec": run.trace.length / seconds,
-              "stage_seconds": stages, "stage_peak_gib": {k: gib(v) for k, v in peaks.items()},
-              "peak_gib": gib(peak), "card": card})
-    launches, by_shape = read_counts()
-    clear, verify_seconds, rejected = run.check(proof)
-    # the trace and the composition trees have 2^23 leaves each: the
-    # launches the Merkle entry reported for them, a tree
-    trees = mk.trees_by_size[1 << 23]
-    per_tree, rest = divmod(mk.launches_by_size[1 << 23], max(trees, 1))
+    # the cold T-mode prove (the constants built), the steady one, then the
+    # same trace in cls; every count set to 0 before each, read after it
+    counts = {}
+    for path, name, mode in (("lr_large_cold", "cold", "tmode"), ("lr_large", "steady", "tmode"),
+                             ("lr_large_cls", "cls", "cls")):
+        reset_counts()
+        proof, seconds, stages, peaks, peak = run.prove(DEV, mode)
+        counts[path] = read_counts()
+        emit({"phase": "lr_large", "prove": name, "mode": mode, "seconds": seconds,
+              "rows_per_sec": run.trace.length / seconds, "stage_seconds": stages,
+              "stage_peak_gib": {k: gib(v) for k, v in peaks.items()}, "peak_gib": gib(peak),
+              "launches": counts[path][0], "card": card})
+        check_path(path, *counts[path])
+        if path == "lr_large":
+            # the trace and the composition trees have 2^23 leaves each:
+            # the launches the Merkle entry reported for them, a tree
+            steady, trees, merkle_2_23 = proof, mk.trees_by_size[1 << 23], mk.launches_by_size[1 << 23]
+    same = proof.to_wire_bytes() == steady.to_wire_bytes()
+    emit({"phase": "lr_large", "cls_equals_tmode": same, "card": card})
+    if not same:
+        raise AssertionError("the cls and T-mode proofs of the 2^20-row trace differ")
+    launches, by_shape = counts["lr_large"]
+    clear, verify_seconds, rejected = run.check(steady)
+    per_tree, rest = divmod(merkle_2_23, max(trees, 1))
     emit({"phase": "lr_large", "decrypted": clear, "expected": run.expected, "verified": True,
           "verify_seconds": verify_seconds, "tampered_rejected": rejected,
-          "proof_bytes": len(proof.to_wire_bytes()), "launches": launches, "launches_by_shape": by_shape,
+          "proof_bytes": len(steady.to_wire_bytes()), "launches": launches, "launches_by_shape": by_shape,
           "merkle_launches_per_tree_2^23": per_tree, "card": card})
     if trees != 2 or rest or not 0 < per_tree <= -(-23 // 10):
         raise AssertionError(f"the Merkle heap of 2^23 leaves: {trees} trees in the prove, "
-                             f"{mk.launches_by_size[1 << 23]} launches")
-    for name in PATH_KERNELS["lr_large"]:
-        if launches[name] <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the lr_large path")
-    return launches
+                             f"{merkle_2_23} launches")
+    return {path: launches for path, (launches, _) in counts.items()}
 
 
 SOURCES = {
@@ -562,6 +648,8 @@ SOURCES = {
     "merkle": ("zkvm_torch/csrc/merkle.cu", "zkvm/hash/blake3_jax.py:178 merkle_flat (XLA, no Pallas)"),
     "composition": ("zkvm_torch/csrc/composition.cu", "zkvm/air/constraints_pallas.py:230"),
     "transition": ("zkvm_torch/csrc/transition.cu", "zkvm/air/constraints_pallas.py:378"),
+    "batch_inverse": ("zkvm_torch/csrc/batch_inverse.cu",
+                      "zkvm/field/jax_f128.py:310 batch_inverse (XLA, no Pallas)"),
 }
 
 
@@ -570,16 +658,16 @@ def main():
     phase_build()
     results = phase_kernels()
     phase_conformance()
-    runs = {mode: phase_bench(mode) for mode in ("tmode", "mono")}
+    runs = {mode: phase_bench(mode) for mode in MODES}
     by_path = {mode: launches for mode, (launches, _) in runs.items()}
-    # both layouts prove the same trace: their proofs must be the same bytes
-    same = runs["tmode"][1] == runs["mono"][1]
-    emit({"phase": "bench", "tmode_equals_mono": same, "proof_bytes": len(runs["tmode"][1])})
+    # the three layouts prove the same trace: their proofs must be the same bytes
+    same = runs["tmode"][1] == runs["mono"][1] == runs["cls"][1]
+    emit({"phase": "bench", "tmode_mono_cls_equal": same, "proof_bytes": len(runs["tmode"][1])})
     if not same:
-        raise AssertionError("the T-mode and mono proofs of the same trace differ")
+        raise AssertionError("the T-mode, mono and cls proofs of the same trace differ")
     del runs
     torch.cuda.empty_cache()
-    by_path["lr_large"] = phase_lr_large(card)
+    by_path.update(phase_lr_large(card))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],

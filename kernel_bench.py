@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the hand-written kernels K1-K4 and the Merkle heap on one CUDA card.
+"""Time the hand-written kernels K1-K4, the Merkle heap and the batch
+inverse on one CUDA card.
 
-    python3 kernel_bench.py [--tree DIR] [--label NAME] [--only K1 K2 K3 K4 Merkle] [--large]
-    python3 kernel_bench.py --sweep [K1 K2 K3 K4 Merkle] [--tree DIR] [--label NAME]
+    python3 kernel_bench.py [--tree DIR] [--label NAME] [--only K1 K2 K3 K4 Merkle BINV] [--large]
+    python3 kernel_bench.py --sweep [K1 K2 K3 K4 Merkle BINV] [--tree DIR] [--label NAME]
     python3 kernel_bench.py --sass [--tree DIR]
 
 The first form times, at the cases of chip_smoke.py's phase (c), the
@@ -15,22 +16,26 @@ from the call the prover makes down to the C entry point:
     wrapper  ``ntt_t.pease_stages``,
     launch   ``ntt_t.launch_stages`` (the input checks and the C call),
     entry    the C entry point ``zk_ntt_stages`` alone;
-  K2 (blake3_rows.cu), K3 (composition.cu), K4 (transition.cu) and the
-  Merkle heap (merkle.cu):
+  K2 (blake3_rows.cu), K3 (composition.cu), K4 (transition.cu), the
+  Merkle heap (merkle.cu) and the batch inverse (batch_inverse.cu, BINV):
     wrapper  ``blake3_t.hash_rows_t`` / ``composition.composition_t`` /
-             ``transition.merged_transition`` / ``merkle.merkle_flat``,
+             ``transition.merged_transition`` / ``merkle.merkle_flat`` /
+             ``f128t.batch_inverse``,
     launch   ``launch_rows`` / ``launch_composition`` /
-             ``launch_transition`` / ``launch_heap`` (the input checks,
-             the constants the tree builds per call, the C call),
+             ``launch_transition`` / ``launch_heap`` /
+             ``launch_batch_inverse`` (the input checks, the constants the
+             tree builds per call, the C call),
     entry    the C entry point alone, with the arguments that one launch
              call passed to it, recorded beforehand (see capture_entry).
   A tree without the Merkle kernel (the parent of its port) times its
   ``merkle_flat``, plain torch on the card, at the wrapper level alone.
   ``--large`` takes the cases of the 2^20-row path instead
-  (K1_LARGE_CASES, K2_LARGE_CASES, K3 at K3_LARGE_T, MERKLE_LARGE_CASES;
-  K4 is not on it); where a tree other than this checkout refuses the
+  (K1_LARGE_CASES, K2_LARGE_CASES, K3 and K4's class shape at K3_LARGE_T,
+  MERKLE_LARGE_CASES; K4's mono shape is not on it); where a tree other than this checkout refuses the
   Merkle heap at 2^23 leaves (the parent of the three-level heap), each
-  refused call prints its error; any other error is raised.
+  refused call prints its error; any other error is raised.  The batch
+  inverse (``--only BINV``) takes BINV_CASES either way: the provers' 2^16
+  and 2^20 shapes, those of the 2^20-row cls prove included.
 
 For each it prints one JSON line: ``ms``, the card's milliseconds per
 call with the calls queued behind a spin (see :func:`cuda_ms`);
@@ -60,7 +65,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import itertools
 import json
 import os
 import random
@@ -117,6 +121,15 @@ MERKLE_LARGE_CASES = [1 << 23, 1 << 20]
 # K2: threads a block, blocks an SM for __launch_bounds__; the first is the
 # shipped default
 K2_SHAPES = [(256, 2), (128, 1), (64, 1), (256, 1), (128, 4)]
+# The batch inverse's cases in chip_smoke.py's phase (c), (..., 8, N): the
+# mono DEEP (3, 8, D) at D = 2^19, the T-mode constants' (16, 8, T) at
+# 2^16 and 2^20, a class of the cls DEEP (3, 8, T) and of its composition
+# (8, T) at T = 2^16 and at T = 2^20 (the 2^20-row cls prove)
+BINV_CASES = [(3, 8, 1 << 19), (16, 8, 1 << 16), (16, 8, 1 << 20), (3, 8, 1 << 16), (8, 1 << 16),
+              (3, 8, 1 << 20), (8, 1 << 20)]
+# its shapes: elements a thread (K), threads a block; the first is the
+# shipped default
+BINV_SHAPES = [(16, 256), (8, 256), (32, 256), (16, 128), (4, 256)]
 SWEEPS = {
     "K1": ("ntt_stages.cu", "zk_ntt_stages", [
         {"ZK_K1_TILE": tile, "ZK_K1_LANES": lanes, "ZK_K1_PER_THREAD": k}
@@ -133,6 +146,8 @@ SWEEPS = {
     "K4": ("transition.cu", "zk_transition", [
         {"ZK_AIR_THREADS": th, "ZK_AIR_MIN_BLOCKS": mb, "ZK_AIR_SPLIT": sp}
         for th, mb, sp in [K4_SHAPE] + [x for x in AIR_SHAPES if x != K4_SHAPE]]),
+    "BINV": ("batch_inverse.cu", "zk_batch_inverse", [
+        {"ZK_BINV_K": k, "ZK_BINV_THREADS": th} for k, th in BINV_SHAPES]),
 }
 
 
@@ -212,13 +227,15 @@ def _limbs(rng, shape, dev):
     return torch.from_numpy(limbs.astype(np.int32)).to(dev)
 
 
-def air_cases(limbs, dev, t=1 << 16):
+def air_cases(limbs, dev, t=1 << 16, k4=("mono", "class")):
     """K3 and K4 at the main paths' shapes, one case at a time: (name,
     kind, limb tensors, host arguments).  K3 is one class at T = 2^16 with
-    the real boundary columns; K4 the mono shape (the full domain D = 2^19,
-    next row +8, tables of period 128) and one class (T = 2^16, next row
-    +1, 16-step patterns).  ``limbs(shape)`` makes random limbs on ``dev``;
-    a smaller ``t`` is for rehearsing on the CPU."""
+    the real boundary columns; K4 (the shapes named in ``k4``) the mono
+    shape (the full domain D = 8T, next row +8, tables of period 128) and
+    one class (T, next row +1, 16-step patterns).  ``limbs(shape)`` makes
+    random limbs on ``dev``; a smaller ``t`` is for rehearsing on the CPU.
+    The 2^20-row path (T = 2^20) runs K3 (T-mode) and K4's class shape
+    (cls), not its mono shape."""
     from zkvm_torch import vm
     from zkvm_torch.air.periodic import periodic_class_patterns, periodic_table
     from zkvm_torch.field.limbs import from_numpy
@@ -239,7 +256,12 @@ def air_cases(limbs, dev, t=1 << 16):
     tab = from_numpy(periodic_table(t, 8), dev)
     for name, n, step, mk, ak in [("mono", 8 * t, 8, tab[0], tab[1:].contiguous()),
                                   ("class", t, 1, mask_cls, ark_cls)]:
-        yield f"K4 {name} N={n} step={step}", "transition", [limbs((28, 8, n)), mk, ak, rows(20)], (delta, step)
+        if name in k4:
+            yield f"K4 {name} N={n} step={step}", "transition", [limbs((28, 8, n)), mk, ak, rows(20)], (delta, step)
+
+
+def binv_name(shape):
+    return "BINV " + "x".join(str(n) for n in shape)
 
 
 def air_calls(kind):
@@ -315,6 +337,7 @@ def capture_entry(kernels, launch, *args):
 def bench_tree(tree, label, only, reps=20, large=False):
     sys.path.insert(0, str(tree))
     from zkvm_torch import kernels
+    from zkvm_torch.field import f128t as ft
     from zkvm_torch.ntt import ntt_t as nt
 
     dev = torch.device("cuda", 0)
@@ -323,8 +346,7 @@ def bench_tree(tree, label, only, reps=20, large=False):
     rng = np.random.default_rng(20261017)
     k1_cases, hashes = (K1_LARGE_CASES, hash_cases(rng, dev, K2_LARGE_CASES, MERKLE_LARGE_CASES)) if large \
         else (K1_CASES, hash_cases(rng, dev))
-    airs = itertools.islice(air_cases(lambda shape: _limbs(rng, shape, dev), dev, K3_LARGE_T), 1) if large \
-        else air_cases(lambda shape: _limbs(rng, shape, dev), dev)
+    airs = air_cases(lambda shape: _limbs(rng, shape, dev), dev, *((K3_LARGE_T, ("class",)) if large else ()))
     for m, b, nl, variants in k1_cases if "K1" in only else []:
         for variant in variants:
             y, tw, pre, r1 = _k1_inputs(nt, rng, m, b, nl, variant, dev)
@@ -367,6 +389,19 @@ def bench_tree(tree, label, only, reps=20, large=False):
                 continue
             _emit({"tree": label, "case": name, "level": level, "ms": ms, "host_ms": host_ms})
         del args, calls
+        torch.cuda.empty_cache()
+    for shape in BINV_CASES if "BINV" in only else []:
+        x = _limbs(rng, shape, dev)
+        cname, cargs, keep = capture_entry(kernels, ft.launch_batch_inverse, x)
+        calls = {
+            "wrapper": lambda: ft.batch_inverse(x),
+            "launch": lambda: ft.launch_batch_inverse(lib, stream, x),
+            "entry": lambda: kernels.check(getattr(lib, cname)(*cargs), cname),
+        }
+        for level, fn in calls.items():
+            ms, host_ms = cuda_ms(fn, reps)
+            _emit({"tree": label, "case": binv_name(shape), "level": level, "ms": ms, "host_ms": host_ms})
+        del x, cargs, keep
         torch.cuda.empty_cache()
     for name, kind, args, host in airs:
         if name.split()[0] not in only:
@@ -451,6 +486,14 @@ def sweep(tree, label, kernels_to_sweep, reps=20):
             first = lambda out: out[0] if isinstance(out, tuple) else out
             cases = [(name, plain(*args), lambda lib, a=args: first(launch(lib, stream, *a)))
                      for name, kind, args in hash_cases(rng, dev) if kind == kernel]
+        elif kernel == "BINV":
+            from zkvm_torch.field import f128t as ft
+
+            cases = []
+            for shape in BINV_CASES:
+                x = _limbs(rng, shape, dev)
+                cases.append((binv_name(shape), ft.batch_inverse_plain(x),
+                              lambda lib, x=x: ft.launch_batch_inverse(lib, stream, x)))
         else:
             cases = []
             for name, kind, args, host in air_cases(lambda shape: _limbs(rng, shape, dev), dev):
@@ -513,8 +556,8 @@ def main(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", type=Path, default=ROOT, help="checkout whose zkvm_torch is timed")
     ap.add_argument("--label", default="this", help="name of the tree in the output")
-    ap.add_argument("--only", nargs="+", default=["K1", "K2", "K3", "K4", "Merkle"],
-                    choices=["K1", "K2", "K3", "K4", "Merkle"],
+    ap.add_argument("--only", nargs="+", default=["K1", "K2", "K3", "K4", "Merkle", "BINV"],
+                    choices=["K1", "K2", "K3", "K4", "Merkle", "BINV"],
                     help="kernels to time")
     ap.add_argument("--large", action="store_true", help="the cases of the 2^20-row path")
     ap.add_argument("--sweep", nargs="*", choices=list(SWEEPS), help="time these kernels at each shape of SWEEPS")

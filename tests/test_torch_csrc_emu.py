@@ -19,7 +19,8 @@ import torch
 
 from zkvm.field import f128
 from zkvm_torch import kernels
-from zkvm_torch.field.limbs import from_numpy, to_limbs, to_numpy
+from zkvm_torch.field import f128t as tft
+from zkvm_torch.field.limbs import from_numpy, from_t, to_limbs, to_numpy
 from zkvm.hash import blake3_jax as b3j
 from zkvm.hash import blake3_t as jb3t
 from zkvm_torch.hash import blake3_t as tb3t
@@ -311,3 +312,65 @@ def test_air_wrappers_refuse_what_the_kernels_cannot_hold():
     with pytest.raises(ValueError, match="table length"):
         ttr.launch_transition(None, 0, lde, lde[0], torch.zeros((8, 8, p), dtype=torch.int32),
                               torch.zeros((20, 8), dtype=torch.int32), 1, 1)
+
+
+def _binv_input(r, n, k, seed):
+    """(r, 8, n) limbs for the batch inverse: random elements, the field's
+    edge values, and zeros at the first, a middle and the last element of
+    chunks (the kernel's thread t takes lanes t, t + W, ..., W =
+    ceil(n / k)); row 1, where there is one, is all zeros."""
+    rng = np.random.default_rng(seed)
+    x = rand_limbs(rng, (r, 8, n))
+    w = -(-n // k)
+    for t in range(0, w, 3):
+        for i in (0, k // 2, k - 1):
+            if t + i * w < n:
+                x[0, :, t + i * w] = 0
+    edges = [0, 1, f128.P - 1, 45 * 2**40 - 1, 2**127]
+    lanes = np.arange(min(n, len(edges)))
+    x[-1][:, lanes] = np.swapaxes(to_limbs(edges[: len(lanes)]), 0, 1)
+    if r > 1:
+        x[1] = 0
+    return x
+
+
+@pytest.mark.parametrize("k,threads", [(None, None), (3, 32), (1, 32)])
+@pytest.mark.parametrize("r,n", [(1, 1), (1, 16), (3, 1), (1, 37), (3, 100), (2, 700)])
+def test_batch_inverse_emulated(emu, emu_shape, k, threads, r, n):
+    """The batch-inverse kernel at its shipped chunk (K = 16 elements a
+    thread, 256 threads a block) and at K = 3 and 1 with 32 threads a block
+    (several blocks; a block boundary inside a row): N = 1, a whole chunk
+    (16), N not a multiple of K (37, 100, 700), R = 1, 2 and 3; zeros at
+    the ends and in the middle of chunks, a row of zeros, the edge values.
+    Exact against the plain Fermat version and the golden inverse."""
+    lib = emu if k is None else emu_shape(
+        "batch_inverse.cu", "zk_batch_inverse", (f"ZK_BINV_K={k}", f"ZK_BINV_THREADS={threads}"))
+    x = _binv_input(r, n, k or 16, 10 * r + n)
+    a = from_numpy(x)
+    got = to_numpy(tft.launch_batch_inverse(lib, 0, a))
+    np.testing.assert_array_equal(got, to_numpy(tft.batch_inverse_plain(a)))
+    vals = [int(v) for v in from_t(x.reshape(-1, 8, n).transpose(1, 0, 2).reshape(8, -1))]
+    assert [int(v) for v in from_t(got.reshape(-1, 8, n).transpose(1, 0, 2).reshape(8, -1))] == [
+        pow(v, f128.P - 2, f128.P) for v in vals]
+
+
+def test_batch_inverse_launch_takes_leading_dims_and_builds_nothing(emu, monkeypatch):
+    """The launch takes (..., 8, N) with any leading dimensions (one axis R
+    to the kernel), and a (8, N) tensor as R = 1; it builds no tensor from
+    host data (on a card such a copy waits for the stream).  It refuses a
+    strided input (the wrapper makes it contiguous) and an empty one."""
+    x = from_numpy(_binv_input(6, 40, 16, 5)).reshape(2, 3, 8, 40)
+    built = []
+    for name in ("tensor", "from_numpy", "as_tensor"):
+        fn = getattr(torch, name)
+        monkeypatch.setattr(torch, name, lambda *a, _n=name, _f=fn, **k: built.append(_n) or _f(*a, **k))
+    got = tft.launch_batch_inverse(emu, 0, x)
+    single = tft.launch_batch_inverse(emu, 0, x[1, 2])
+    assert built == []
+    np.testing.assert_array_equal(to_numpy(got), to_numpy(tft.batch_inverse_plain(x)))
+    np.testing.assert_array_equal(to_numpy(single), to_numpy(got[1, 2]))
+    with pytest.raises(ValueError, match="contiguous"):
+        tft.launch_batch_inverse(emu, 0, x.transpose(0, 1))
+    for empty in (x[..., :0], x[:0]):
+        with pytest.raises(ValueError, match="not empty"):
+            tft.launch_batch_inverse(emu, 0, empty)

@@ -76,6 +76,31 @@ def test_batch_inverse_matches_reference():
     assert [int(v) for v in from_limbs(want)] == [pow(v, f128.P - 2, f128.P) for v in vals]
 
 
+@pytest.mark.parametrize("n", [1, 37])
+def test_batch_inverse_leading_dims_match_reference(n):
+    """(3, 8, N), as the provers' DEEP stacks its three denominators: the
+    plain version (the wrapper's, on a CPU tensor) against the JAX
+    batch inverse of the same elements, zeros and edge values included."""
+    vals = (_values(5 + n, 3 * n) + EDGES + [2**127])[: 3 * n]
+    vals[n // 2] = 0
+    std = to_limbs(vals)  # (3N, 8)
+    want = np.asarray(jax.jit(jf.batch_inverse)(jnp.asarray(std)))  # (3N, 8)
+    limbs = np.ascontiguousarray(std.reshape(3, n, 8).transpose(0, 2, 1))
+    got = ft.batch_inverse(from_numpy(limbs))
+    assert got.shape == (3, 8, n)
+    np.testing.assert_array_equal(to_numpy(got).transpose(0, 2, 1).reshape(3 * n, 8), want)
+    np.testing.assert_array_equal(to_numpy(ft.batch_inverse_plain(from_numpy(limbs))), to_numpy(got))
+
+
+def test_batch_inverse_refuses_a_device_without_kernel():
+    """A tensor that is neither on the CPU (the plain version) nor on a
+    card (the kernel) raises before any launch; nothing is counted."""
+    before = ft.launches
+    with pytest.raises(ValueError, match="no kernel"):
+        ft.batch_inverse(torch.empty((3, 8, 4), dtype=torch.int32, device="meta"))
+    assert ft.launches == before
+
+
 @pytest.mark.parametrize("vals", [[0], [f128.P - 1, 1, EPS], [[3, 4], [5, 6]]])
 def test_limb_conversion_matches_reference(vals):
     np.testing.assert_array_equal(to_limbs(vals), jf.to_limbs(vals))

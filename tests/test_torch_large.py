@@ -7,7 +7,8 @@
   exactly (under ``-m slow`` the whole JAX ``_stage_deep_t``); a T = 2^8
   proof is the same bytes with and without them;
 * ``zkvm_torch.examples.prove_lr_large`` at log2_rows = 8 gives T = 2^8,
-  the clear prediction and a proof that verifies;
+  the clear prediction and a proof that verifies, in T-mode and with
+  ``--mode cls``;
 * the limits: mono past 2^17 and T-mode past 2^20 raise.
 """
 
@@ -115,18 +116,28 @@ def test_chunked_proof_bytes_equal(chunked):
     assert clear == run.expected and rejected
 
 
-def test_prove_lr_large_script_on_cpu():
+def _check_script(argv, mode):
     out = io.StringIO()
     with redirect_stdout(out):
-        lrl.main(["8", "--device", "cpu"])
+        lrl.main(argv)
     lines = out.getvalue().splitlines()
     assert lines[0] == "cpu"
     phases = {d["phase"]: d for d in map(json.loads, lines[1:])}
     assert phases["inputs"]["trace_length"] == T and phases["inputs"]["card"] == "cpu"
+    assert phases["inputs"]["mode"] == mode
     assert set(phases) == {"inputs", "cold_prove", "steady_prove", "verify"}
     assert phases["steady_prove"]["rows_per_sec"] > 0 and "deep" in phases["steady_prove"]["stage_seconds"]
     v = phases["verify"]
     assert v["decrypted"] == v["expected"] and v["tampered_rejected"]
+
+
+def test_prove_lr_large_script_on_cpu():
+    _check_script(["8", "--device", "cpu"], "tmode")
+
+
+def test_prove_lr_large_script_cls_on_cpu():
+    """``--mode cls``: the same run through the class prover."""
+    _check_script(["8", "--device", "cpu", "--mode", "cls"], "cls")
 
 
 class _Trace:

@@ -15,12 +15,15 @@ the periodic columns are tables of length P read at n mod P
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from zkvm_torch import kernels
 from .composition import delta_words, mds_dev, mds_pair, merged_transition_t
 
 launches = 0  # launches of the CUDA kernel in this process
+launches_by_shape = collections.Counter()  # the same, by (N, step)
 MAX_PERIOD = 1024  # the longest periodic table the kernel stages into shared memory
 
 
@@ -76,4 +79,5 @@ def merged_transition(lde_t, mask_tab, ark_tab, alphas, delta, step) -> torch.Te
         kernels.lib(), kernels.stream_of(lde_t), *(a.contiguous() for a in args), delta, step,
     )
     launches += 1
+    launches_by_shape[(lde_t.shape[-1], step)] += 1
     return out

@@ -1,7 +1,8 @@
 """The large-trace linear regression over LWE-encrypted inputs (BASELINE.md
-configuration 5), proved in T-mode and verified by the port.
+configuration 5), proved in T-mode (or the class prover) and verified by
+the port.
 
-    python -m zkvm_torch.examples.prove_lr_large [log2_rows] [--device cpu]
+    python -m zkvm_torch.examples.prove_lr_large [log2_rows] [--device cpu] [--mode {tmode,cls}]
 
 Port of ``scripts/prove_lr_large.py``: the same program (the
 ``lr.txt`` block repeated, an n-term dot product of encrypted features with
@@ -103,15 +104,17 @@ class LrRun:
         self.pub = PublicInputs(self.program.hash, self.trace.outputs, self.key)
         return self.trace
 
-    def prove(self, device):
-        """One timed T-mode prove: (proof, seconds, stage seconds, stage
-        peak bytes, peak bytes or None on the CPU)."""
+    def prove(self, device, mode="tmode"):
+        """One timed prove in ``mode`` (``pipeline.prove``'s): (proof,
+        seconds, stage seconds, stage peak bytes, peak bytes or None on the
+        CPU)."""
         stages, peaks = {}, {}
         cuda = torch.device(device).type == "cuda"
         if cuda:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        proof = stark_prove(self.trace, self.pub, device=device, stage_seconds=stages, stage_peaks=peaks)
+        proof = stark_prove(self.trace, self.pub, device=device, stage_seconds=stages, stage_peaks=peaks,
+                            mode=mode)
         if cuda:
             torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
@@ -140,6 +143,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("log2_rows", type=int, nargs="?", default=20)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mode", default="tmode", choices=["tmode", "cls"], help="the prover's layout")
     args = ap.parse_args(argv)
     card = card_name(args.device)
     print(card, flush=True)
@@ -149,10 +153,10 @@ def main(argv=None):
     run.prepare()
     emit({"phase": "inputs", "n_terms": run.n_terms, "ops": len(run.program.code),
           "trace_length": run.trace.length, "lde_domain": 8 * run.trace.length,
-          "chunk_t": limits.CHUNK_T,
+          "chunk_t": limits.CHUNK_T, "mode": args.mode,
           **{f"{k}_seconds": v for k, v in run.seconds.items()}})
     for name in ("cold", "steady"):
-        proof, seconds, stages, peaks, peak = run.prove(args.device)
+        proof, seconds, stages, peaks, peak = run.prove(args.device, args.mode)
         emit({"phase": f"{name}_prove", "seconds": seconds, "rows_per_sec": run.trace.length / seconds,
               "stage_seconds": stages, "stage_peak_gib": {k: v / 2**30 for k, v in peaks.items()},
               "peak_gib": None if peak is None else peak / 2**30})

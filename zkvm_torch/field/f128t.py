@@ -10,13 +10,18 @@ the reference does; the canonical result is the same bits whatever the
 carry scheme.
 
 This is plain PyTorch: it runs on whatever device its inputs are on.  The
-CUDA kernels share the same arithmetic in ``csrc/f128.cuh``.
+CUDA kernels share the same arithmetic in ``csrc/f128.cuh``.  The one
+exception is :func:`batch_inverse`, the kernel ``csrc/batch_inverse.cu``
+for a CUDA tensor (its plain version is :func:`batch_inverse_plain`).
 """
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
+from zkvm_torch import kernels
 from zkvm_torch.field import f128
 from .limbs import MASK, NLIMBS
 
@@ -164,8 +169,47 @@ def fpow_const(a: torch.Tensor, e: int) -> torch.Tensor:
     return result
 
 
-def batch_inverse(a: torch.Tensor) -> torch.Tensor:
-    """Elementwise inverse a^(p-2) (Fermat), zero -> zero, as
-    ``jax_f128.batch_inverse`` (which uses Montgomery's trick; both give
-    the unique canonical inverse)."""
+# ---------------------------------------------------------------------------
+# the batch inverse: csrc/batch_inverse.cu
+# ---------------------------------------------------------------------------
+
+launches = 0  # launches of the batch-inverse kernel in this process
+launches_by_shape = collections.Counter()  # the same, by (R, N)
+
+
+def batch_inverse_plain(a: torch.Tensor) -> torch.Tensor:
+    """Plain version of the batch inverse: elementwise a^(p-2) (Fermat),
+    zero -> zero, as ``jax_f128.batch_inverse`` (which uses Montgomery's
+    trick; both give the unique canonical inverse)."""
     return fpow_const(a, f128.P - 2)
+
+
+def launch_batch_inverse(lib, stream, a: torch.Tensor) -> torch.Tensor:
+    """Call the batch-inverse entry point of ``lib`` on contiguous int32
+    limbs (..., 8, N), not empty; the leading dimensions are one axis R to
+    the kernel.  It copies nothing to the device, so it never waits for
+    the stream."""
+    if a.dim() < 2 or a.shape[-2] != NLIMBS or a.numel() == 0:
+        raise ValueError(f"batch_inverse: shape {tuple(a.shape)}, expected (..., 8, N), not empty")
+    kernels.expect(a, a.shape, a.device, "a")
+    n = a.shape[-1]
+    out = torch.empty_like(a)
+    rc = lib.zk_batch_inverse(kernels.ptr(a), kernels.ptr(out), a.numel() // (NLIMBS * n), n, stream)
+    kernels.check(rc, "zk_batch_inverse")
+    return out
+
+
+def batch_inverse(a: torch.Tensor) -> torch.Tensor:
+    """Elementwise inverse of (..., 8, N) limbs, zero -> zero
+    (``jax_f128.batch_inverse``): the kernel ``csrc/batch_inverse.cu``
+    for a CUDA tensor (or it raises), :func:`batch_inverse_plain` for a
+    CPU tensor."""
+    global launches
+    if a.device.type == "cpu":
+        return batch_inverse_plain(a)
+    if a.device.type != "cuda":
+        raise ValueError(f"batch_inverse: no kernel for device {a.device}")
+    out = launch_batch_inverse(kernels.lib(), kernels.stream_of(a), a.contiguous())
+    launches += 1
+    launches_by_shape[(a.numel() // (NLIMBS * a.shape[-1]), a.shape[-1])] += 1
+    return out

@@ -26,7 +26,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
-SOURCES = ("ntt_stages.cu", "blake3_rows.cu", "merkle.cu", "composition.cu", "transition.cu")
+SOURCES = (
+    "ntt_stages.cu", "blake3_rows.cu", "merkle.cu", "composition.cu", "transition.cu", "batch_inverse.cu",
+)
 HEADERS = ("zk_common.cuh", "f128.cuh", "transition.cuh", "blake3.cuh", "host_emu.h")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -52,6 +54,8 @@ SIGNATURES = {
     "zk_composition": (_P,) * 8 + (_U64, _U64, _P, _P, _IP, _I, _P, _P, _IP, _I, _P, _L, _P),
     # lde, mask, ark, mds, alphas, delta_lo, delta_hi, out, N, P, step, stream
     "zk_transition": (_P,) * 5 + (_U64, _U64, _P, _L, _L, _L, _P),
+    # in, out, R, N, stream
+    "zk_batch_inverse": (_P, _P, _L, _L, _P),
 }
 
 build_seconds = 0.0  # wall time of the last nvcc build in this process

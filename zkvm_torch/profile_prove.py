@@ -1,6 +1,6 @@
 """Where the time of one prove goes, on a CUDA card.
 
-    python -m zkvm_torch.profile_prove [--mode tmode|mono]
+    python -m zkvm_torch.profile_prove [--mode tmode|mono|cls]
 
 Proves the bench's READ/ADD chain (n_ops = 20000 gives T = 2^16) once to
 warm up, once with per-stage synchronised wall clocks, and once under

@@ -39,7 +39,7 @@ from zkvm_torch.field.limbs import from_numpy, from_t, tensor, to_numpy
 from zkvm_torch.hash import blake3_t as b3t
 from zkvm_torch.hash.merkle import merkle_flat
 from zkvm_torch.ntt import ntt_t as nt
-from .pipeline import comp_columns
+from .pipeline import comp_columns, weighted_host
 
 # Columns per limb product in the DEEP sums: fmul widens (C, 8, D) limbs to
 # int64 partial products 48x the operand's bytes, so 4 columns at D = 2^19
@@ -98,13 +98,6 @@ def _weighted_columns(lde_t, weights_t):
     return acc
 
 
-def _weighted_host(weights, values) -> int:
-    acc = 0
-    for w, v in zip(weights, values):
-        acc = f128.fadd(acc, f128.fmul(w, v))
-    return acc
-
-
 def _rows(lde_t, index) -> list:
     """Rows of a (C, 8, D) LDE at the given positions, as host ints [Q][C]."""
     cols = from_t(to_numpy(lde_t.index_select(-1, index)))  # (C, Q)
@@ -155,9 +148,9 @@ class MonoStages:
             _weighted_columns(self.comp_lde, tensor(epsilons, dev)),
         )
         at_points = (
-            _weighted_host(gammas, ood_cur),
-            _weighted_host(deltas, ood_nxt),
-            _weighted_host(epsilons, ood_comp),
+            weighted_host(gammas, ood_cur),
+            weighted_host(deltas, ood_nxt),
+            weighted_host(epsilons, ood_comp),
         )
         inv = ft.batch_inverse(torch.stack([ft.fsub(x, ft.const_col(p, dev)) for p in points]))
         y = None

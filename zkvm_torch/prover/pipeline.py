@@ -19,7 +19,11 @@ the full (28, 8, D) LDE.  Stages, in proof order:
 7. queries: multi-point evaluation at the query points, Merkle openings.
 
 Transcript and proof bytes are identical to the reference's (exact field
-arithmetic).  T-mode runs up to T = 2^20, mono up to 2^17
+arithmetic).  :func:`prove` also runs the other two layouts, with the same
+bytes: the full-LDE prover (:mod:`.mono`) and the standard-layout class
+prover (:mod:`.cls`, which shares the commitments and query rows of
+:class:`ClassStages` and inverts per class instead of hoisting T-mode's
+domain factors).  T-mode and cls run up to T = 2^20, mono up to 2^17
 (:mod:`.limits`); from ``limits.CHUNK_T`` on, the stages take the
 reference's chunked forms, which change no value.
 """
@@ -61,11 +65,12 @@ NUM_COMP_COLUMNS = 8  # ce blowup for max constraint degree 7
 
 
 @functools.lru_cache(maxsize=None)
-def _class_constants_t(t_len: int, blowup: int, device):
-    """Proof-independent device tensors for one (T, blowup, device):
-    class coset bases and their NTT scales, periodic patterns, and the
-    composition's domain factors ee = (x-e1)(x-e2)/(x^T-1), i0 = 1/(x-1),
-    i1 = 1/(x-x_last) per class — the hot path inverts nothing."""
+def _class_base_t(t_len: int, blowup: int, device):
+    """Proof-independent constants of the two class-decomposed provers
+    (T-mode and ``cls``) for one (T, blowup, device): the class coset
+    bases and their NTT scales, the periodic class patterns, the
+    inverse-offset ladder, and the host ints of the composition's domain
+    factors: 1/(x^T - 1) per class (``inv_xt``), e1, e2 and x_last."""
     d = t_len * blowup
     offset = f128.DOMAIN_OFFSET
     g_trace = f128.get_root_of_unity(t_len)
@@ -73,22 +78,7 @@ def _class_constants_t(t_len: int, blowup: int, device):
     bases = [f128.fmul(offset, pow(w_d, r, f128.P)) for r in range(blowup)]
     s_t = pow(offset, t_len, f128.P)
     w_b = f128.get_root_of_unity(blowup)
-    inv_xt = [f128.finv(f128.fsub(f128.fmul(s_t, pow(w_b, r, f128.P)), 1)) for r in range(blowup)]
-    e1 = pow(g_trace, t_len - 1, f128.P)
-    e2 = pow(g_trace, t_len - 2, f128.P)
-    x_last = pow(g_trace, t_len - NUM_EXEMPTIONS, f128.P)
-
     mask_cls, ark_cls = periodic_class_patterns(t_len, blowup)
-    col = lambda v: ft.const_col(v, device)
-    w_t = ttensor(g_trace, device)
-    ee, den0, den1 = [], [], []
-    for r in range(blowup):
-        x_r = nt.ladder_t(w_t, ttensor(bases[r], device), t_len)  # class points
-        ex = ft.fmul(ft.fsub(x_r, col(e1)), ft.fsub(x_r, col(e2)))
-        ee.append(ft.fmul(ex, col(inv_xt[r])))
-        den0.append(ft.fsub(x_r, col(1)))
-        den1.append(ft.fsub(x_r, col(x_last)))
-    inv = ft.batch_inverse(torch.stack(den0 + den1))  # (2B, 8, T)
     class_bases_t = tensor(bases, device)  # (B, 8)
     return dict(
         d=d,
@@ -98,11 +88,37 @@ def _class_constants_t(t_len: int, blowup: int, device):
         class_scales=[nt.class_scale(class_bases_t[r], t_len) for r in range(blowup)],
         mask_cls_t=from_numpy(np.swapaxes(mask_cls, -1, -2), device),  # (B, 8, 16)
         ark_cls_t=from_numpy(np.swapaxes(ark_cls, -1, -2), device),  # (B, 8, 8, 16)
-        ee_cls_t=torch.stack(ee),
-        i0_cls_t=inv[:blowup],
-        i1_cls_t=inv[blowup:],
         inv_off_t=nt.ladder_t_host(f128.finv(offset), d, device=device),  # (8, D)
+        inv_xt=[f128.finv(f128.fsub(f128.fmul(s_t, pow(w_b, r, f128.P)), 1)) for r in range(blowup)],
+        e1=pow(g_trace, t_len - 1, f128.P),
+        e2=pow(g_trace, t_len - 2, f128.P),
+        x_last=pow(g_trace, t_len - NUM_EXEMPTIONS, f128.P),
     )
+
+
+def class_points(dct, r):
+    """Class r's domain points base_r * g^k, (8, T)."""
+    bases = dct["class_bases_t"]
+    t = dct["d"] // bases.shape[0]
+    return nt.ladder_t(ttensor(dct["g_trace"], bases.device), bases[r], t)
+
+
+@functools.lru_cache(maxsize=None)
+def _class_constants_t(t_len: int, blowup: int, device):
+    """T-mode's constants: the class constants, and the composition's
+    domain factors ee = (x-e1)(x-e2)/(x^T-1), i0 = 1/(x-1) and
+    i1 = 1/(x-x_last) per class, so T-mode's hot path inverts nothing."""
+    dct = _class_base_t(t_len, blowup, device)
+    col = lambda v: ft.const_col(v, device)
+    ee, den0, den1 = [], [], []
+    for r in range(blowup):
+        x_r = class_points(dct, r)
+        ex = ft.fmul(ft.fsub(x_r, col(dct["e1"])), ft.fsub(x_r, col(dct["e2"])))
+        ee.append(ft.fmul(ex, col(dct["inv_xt"][r])))
+        den0.append(ft.fsub(x_r, col(1)))
+        den1.append(ft.fsub(x_r, col(dct["x_last"])))
+    inv = ft.batch_inverse(torch.stack(den0 + den1))  # (2B, 8, T)
+    return dict(dct, ee_cls_t=torch.stack(ee), i0_cls_t=inv[:blowup], i1_cls_t=inv[blowup:])
 
 
 def _class_ntt(coeffs_t, dct, r):
@@ -197,6 +213,15 @@ def _weighted_sum(cols_t, w_t):
     acc = torch.zeros_like(cols_t[0])
     for c in range(cols_t.shape[0]):
         acc = ft.fadd(acc, ft.fmul(cols_t[c], w_t[c][:, None]))
+    return acc
+
+
+def weighted_host(weights, values) -> int:
+    """sum_c weights[c] * values[c] mod p, on the host (the DEEP's
+    combined OOD values)."""
+    acc = 0
+    for w, v in zip(weights, values):
+        acc = f128.fadd(acc, f128.fmul(w, v))
     return acc
 
 
@@ -298,27 +323,20 @@ class _Stages:
             self.peaks[name] = max(self.peaks.get(name, 0), torch.cuda.max_memory_allocated(self.device))
 
 
-class _TModeStages:
-    """The T-mode stages behind :func:`prove` (per class; no LDE resident)."""
+class ClassStages:
+    """The stages that T-mode and the class prover share: the two
+    commitments (per-class coset NTTs, row hashes, one Merkle heap) and the
+    query rows, over the class constants ``dct``."""
 
-    def __init__(self, t_len, blowup, device):
-        self.dct = _class_constants_t(t_len, blowup, device)
-        self.d, self.g_trace = self.dct["d"], self.dct["g_trace"]
+    def __init__(self, dct):
+        self.dct = dct
+        self.d, self.g_trace = dct["d"], dct["g_trace"]
 
     def trace_commit(self, cols_t):
         return _stage_trace_commit_t(cols_t, self.dct)
 
-    def composition(self, coeffs_t, alphas, bv0, bb0, bv1, bb1, delta, bcols0, bcols1):
-        return _stage_composition_t(coeffs_t, self.dct, alphas, bv0, bb0, bv1, bb1, delta,
-                                    bcols0, bcols1)
-
     def comp_commit(self, comp_t):
         return _stage_comp_commit_t(comp_t, self.dct)
-
-    def deep(self, coeffs_t, h_t, gammas, deltas, epsilons, points, ood):
-        dev = coeffs_t.device
-        return _stage_deep_t(coeffs_t, h_t, tensor(gammas, dev), tensor(deltas, dev),
-                             tensor(epsilons, dev), *points, self.dct)
 
     def query_rows(self, coeffs_t, h_t, positions):
         """Evaluate the committed polynomials at the query points (equal
@@ -327,7 +345,25 @@ class _TModeStages:
         return me.multi_eval_rows(coeffs_t, x_pts), me.multi_eval_rows(h_t, x_pts)
 
 
-MODES = ("tmode", "mono")
+class _TModeStages(ClassStages):
+    """The T-mode stages behind :func:`prove` (per class; no LDE resident)."""
+
+    def __init__(self, t_len, blowup, device):
+        super().__init__(_class_constants_t(t_len, blowup, device))
+
+    def composition(self, coeffs_t, alphas, bv0, bb0, bv1, bb1, delta, bcols0, bcols1):
+        return _stage_composition_t(coeffs_t, self.dct, alphas, bv0, bb0, bv1, bb1, delta,
+                                    bcols0, bcols1)
+
+    def deep(self, coeffs_t, h_t, gammas, deltas, epsilons, points, ood):
+        dev = coeffs_t.device
+        return _stage_deep_t(coeffs_t, h_t, tensor(gammas, dev), tensor(deltas, dev),
+                             tensor(epsilons, dev), *points, self.dct)
+
+
+MODES = ("tmode", "mono", "cls")
+MAX_TRACE_LENGTH = {"tmode": limits.TMODE_MAX_TRACE_LENGTH, "mono": limits.MONO_MAX_TRACE_LENGTH,
+                    "cls": limits.CLS_MAX_TRACE_LENGTH}
 
 
 def prove(trace, pub_inputs: PublicInputs, options: ProofOptions = ProofOptions(),
@@ -335,20 +371,21 @@ def prove(trace, pub_inputs: PublicInputs, options: ProofOptions = ProofOptions(
     """Prove an execution trace on ``device`` (the CUDA card unless the
     caller passes ``device="cpu"``; without a card a CUDA call raises).
 
-    ``mode``: ``"tmode"`` (the class-decomposed prover) or ``"mono"`` (the
-    full-LDE prover of :mod:`zkvm_torch.prover.mono`); both give the same
-    bytes.  ``stage_seconds``: a dict to receive each stage's wall-clock
-    seconds, ``stage_peaks`` (on a card) each stage's peak allocated device
-    bytes; the device is synchronised per stage only when one is given.
-    T-mode takes T <= 2^20, mono T <= 2^17 (:mod:`.limits`)."""
+    ``mode``: ``"tmode"`` (the class-decomposed prover with the domain
+    factors hoisted into its constants), ``"mono"`` (the full-LDE prover
+    of :mod:`zkvm_torch.prover.mono`) or ``"cls"`` (the standard-layout
+    class prover of :mod:`zkvm_torch.prover.cls`, which inverts per
+    class); all three give the same bytes.  ``stage_seconds``: a dict to
+    receive each stage's wall-clock seconds, ``stage_peaks`` (on a card)
+    each stage's peak allocated device bytes; the device is synchronised
+    per stage only when one is given.  T-mode and cls take T <= 2^20,
+    mono T <= 2^17 (:mod:`.limits`)."""
     t_len = trace.length
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: expected one of {MODES}")
-    if mode == "mono" and t_len > limits.MONO_MAX_TRACE_LENGTH:
-        raise ValueError(f"mono: trace length {t_len} > {limits.MONO_MAX_TRACE_LENGTH}; mono at "
-                         "T >= 2^18 is ROADMAP A8, prove with mode='tmode'")
-    if t_len > limits.TMODE_MAX_TRACE_LENGTH:
-        raise ValueError(f"trace length {t_len} > {limits.TMODE_MAX_TRACE_LENGTH} is not supported")
+    if t_len > MAX_TRACE_LENGTH[mode]:
+        hint = "; mono at T >= 2^18 is ROADMAP A8, prove with mode='tmode'" if mode == "mono" else ""
+        raise ValueError(f"{mode}: trace length {t_len} > {MAX_TRACE_LENGTH[mode]} is not supported{hint}")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("prove: no CUDA card here; pass device='cpu' to prove on the CPU")
@@ -360,6 +397,10 @@ def prove(trace, pub_inputs: PublicInputs, options: ProofOptions = ProofOptions(
             from .mono import MonoStages
 
             stages = MonoStages(t_len, blowup, device)
+        elif mode == "cls":
+            from .cls import ClsStages
+
+            stages = ClsStages(t_len, blowup, device)
         else:
             stages = _TModeStages(t_len, blowup, device)
     d = stages.d

@@ -4,10 +4,12 @@ Port of ``zkvm.vm``: ``prove(program, inputs)`` executes the program with
 the native C++ trace generator (:mod:`zkvm_torch.runtime`, built with g++
 into ``zkvm_torch/build/`` at first use; the golden Python processor where
 it cannot be built, or with ``use_native=False``), builds the 28-column
-trace and proves it on the CUDA card (``device="cpu"`` proves on the CPU), with the T-mode
-pipeline or, for ``mode="mono"``, the full-LDE one; both give the same
-bytes.  It uses the reference parameter preset by default (32 queries,
-blowup 8, grinding 0, FRI fold 8, remainder degree <= 127).
+trace and proves it on the CUDA card (``device="cpu"`` proves on the
+CPU), with the T-mode pipeline, or for ``mode="mono"`` the full-LDE one,
+or for ``mode="cls"`` the standard-layout class prover (T-mode and cls up
+to T = 2^20, mono up to 2^17); all three give the same bytes.  It uses the
+reference parameter preset by default (32 queries, blowup 8, grinding 0,
+FRI fold 8, remainder degree <= 127).
 
 The host-side types a caller builds its inputs from (program, inputs, FHE
 key and parameters, public inputs and the AIR's assertions) come from the
@@ -61,7 +63,8 @@ def prove(
 ) -> Tuple[tuple, tuple, Proof]:
     """Prove a program run; returns (program_hash, stack_outputs, proof).
 
-    ``mode``: ``"tmode"`` or ``"mono"`` (see :func:`prover.pipeline.prove`);
+    ``mode``: ``"tmode"``, ``"mono"`` or ``"cls"`` (see
+    :func:`prover.pipeline.prove`);
     ``use_native``: trace with the native generator when it is available
     (see :func:`run`)."""
     trace = run(program, inputs, use_native)
