@@ -27,15 +27,17 @@ Phases, each printing one JSON line:
       batch inverse (csrc/batch_inverse.cu) against its plain Fermat
       version at the provers' shapes (kernel_bench.BINV_CASES: (3, 8,
       2^19), (16, 8, 2^16), (16, 8, 2^20), (3, 8, 2^16), (8, 2^16), and
-      the 2^20-row cls prove's (3, 8, 2^20), (8, 2^20)), with zeros and the
-      edge values mixed in, its wrapper under the sync check;
+      the 2^20-row proves' (3, 8, 2^20), (8, 2^20)), with zeros and the
+      edge values mixed in, its wrapper under the sync check, and its
+      addition chain for a^(p-2) alone against pow on the host;
   (d) conformance: the T = 128 program of conformance/vectors_e2e.json,
       proved in all three modes (T-mode, mono, cls), whose roots and proof
       bytes must match the vector byte for byte;
   (e) the bench's primary configuration: a READ/ADD chain of 20000 ops
       (T = 2^16, D = 2^19), proved in T-mode once to warm up and once
-      timed, with per-stage seconds; K1, K2 and K3 must have launched in
-      the timed prove (K1's launches also by shape), and the Merkle heap;
+      timed, with per-stage seconds; K1, K2, K3 and the Merkle heap must
+      have launched in the timed prove (K1's launches also by shape), the
+      batch inverse exactly 8 times (the DEEP, once a class), K4 never;
       the proof must verify and fail with one byte flipped;
   (f) the same chain in mono (full-LDE) mode: warm-up, timed prove, verify
       and tamper check; K1, K2, K4 and the Merkle heap must have launched
@@ -52,9 +54,10 @@ Phases, each printing one JSON line:
       proved in T-mode once cold and once steady (each stage's seconds and
       peak device memory), decrypted against the clear prediction,
       verified, and a one-byte tamper rejected; the batch inverse must have
-      launched in the cold prove (the constants); K1, K2, K3 and the Merkle
-      heap must have launched in the steady prove (printed by shape), the
-      Merkle heap in at most ceil(23 / 10) launches a tree of 2^23 leaves.
+      launched 9 times in the cold prove (the constants once, the DEEP 8)
+      and 8 in the steady one; K1, K2, K3 and the Merkle heap must have
+      launched in the steady prove (printed by shape), the Merkle heap in
+      at most ceil(23 / 10) launches a tree of 2^23 leaves.
       Then the same trace proved once in cls (its constants built in that
       prove), whose bytes must equal the T-mode proof's, with each stage's
       seconds and peaks and its launches (K4 8, the batch inverse 16).
@@ -100,7 +103,7 @@ from zkvm_torch.air import transition as tr  # noqa: E402
 from zkvm_torch.field import f128  # noqa: E402
 from zkvm_torch.field import f128t as ft  # noqa: E402
 from zkvm_torch.examples.prove_lr_large import LrRun  # noqa: E402
-from zkvm_torch.field.limbs import from_numpy, from_t, to_numpy  # noqa: E402
+from zkvm_torch.field.limbs import from_numpy, from_t, to_numpy, ttensor  # noqa: E402
 from zkvm_torch.hash import blake3_t as b3t  # noqa: E402
 from zkvm_torch.hash import merkle as mk  # noqa: E402
 from zkvm_torch.ntt import ntt_t as nt  # noqa: E402
@@ -410,7 +413,24 @@ def phase_kernels():
         sync_free(binv_name(shape), lambda: ft.batch_inverse(x))
         del x, cargs, keep
         torch.cuda.empty_cache()
-    results["batch_inverse"] = dict(binv[0], max_abs_err=max(r["max_abs_err"] for r in binv))
+    # the kernels line reports the shape that T-mode launches 8 times a
+    # prove: a class of the DEEP at T = 2^16
+    deep_class = binv[BINV_CASES.index((3, 8, 1 << 16))]
+    results["batch_inverse"] = dict(deep_class, max_abs_err=max(r["max_abs_err"] for r in binv))
+    # the batch inverse's addition chain for a^(p-2) alone (its probe
+    # kernel): the edge values and random elements against pow on the host
+    vals = [v for v in EDGES if v] + [2, f128.P - 2, 2**64 - 1, 2**64]
+    vals += [int(rng.integers(0, 2**62)) << 66 | int(rng.integers(0, 2**62)) for _ in range(4096)]
+    vals = [v % f128.P for v in vals]
+    a = nt.pack_t(ttensor(vals, DEV))
+    out = torch.empty_like(a)
+    kernels.check(kernels.lib().zk_binv_power(kernels.ptr(a), kernels.ptr(out), len(vals), kernels.stream_of(out)),
+                  "zk_binv_power")
+    got = [int(v) for v in from_t(to_numpy(nt.unpack_t(out)))]
+    wrong = sum(g != pow(v, f128.P - 2, f128.P) for g, v in zip(got, vals))
+    emit({"phase": "kernels", "case": f"batch inverse a^(p-2) alone, {len(vals)} elements", "wrong": wrong})
+    if wrong:
+        raise AssertionError(f"the batch inverse's addition chain differs from pow in {wrong} elements")
     torch.cuda.empty_cache()
     return results
 
@@ -439,16 +459,18 @@ MODES = ("tmode", "mono", "cls")
 COUNTERS = {"ntt_stages": nt, "blake3_rows": b3t, "merkle": mk, "composition": cp, "transition": tr,
             "batch_inverse": ft}
 # the kernels each path's run must have launched, and the launch counts it
-# must have made exactly (the cls path: K4 once a class, the batch inverse
-# twice a class, no K3)
-PATH_KERNELS = {"tmode": ("ntt_stages", "blake3_rows", "merkle", "composition"),
+# must have made exactly (T-mode: the batch inverse once a class in the DEEP,
+# and once more for the constants of a cold prove; the cls path: K4 once a
+# class, the batch inverse twice a class, no K3)
+PATH_KERNELS = {"tmode": ("ntt_stages", "blake3_rows", "merkle", "composition", "batch_inverse"),
                 "mono": ("ntt_stages", "blake3_rows", "merkle", "transition", "batch_inverse"),
                 "cls": ("ntt_stages", "blake3_rows", "merkle", "transition", "batch_inverse"),
                 "lr_large_cold": ("batch_inverse",),
-                "lr_large": ("ntt_stages", "blake3_rows", "merkle", "composition"),
+                "lr_large": ("ntt_stages", "blake3_rows", "merkle", "composition", "batch_inverse"),
                 "lr_large_cls": ("ntt_stages", "blake3_rows", "merkle", "transition", "batch_inverse")}
 CLS_EXACT = {"transition": 8, "batch_inverse": 16, "composition": 0}
-PATH_EXACT = {"tmode": {"transition": 0}, "mono": {"composition": 0}, "cls": CLS_EXACT,
+PATH_EXACT = {"tmode": {"transition": 0, "batch_inverse": 8}, "mono": {"composition": 0}, "cls": CLS_EXACT,
+              "lr_large_cold": {"batch_inverse": 9}, "lr_large": {"batch_inverse": 8, "transition": 0},
               "lr_large_cls": CLS_EXACT}
 
 

@@ -35,7 +35,7 @@ from the call the prover makes down to the C entry point:
   Merkle heap at 2^23 leaves (the parent of the three-level heap), each
   refused call prints its error; any other error is raised.  The batch
   inverse (``--only BINV``) takes BINV_CASES either way: the provers' 2^16
-  and 2^20 shapes, those of the 2^20-row cls prove included.
+  and 2^20 shapes, those of the 2^20-row proves included.
 
 For each it prints one JSON line: ``ms``, the card's milliseconds per
 call with the calls queued behind a spin (see :func:`cuda_ms`);
@@ -123,13 +123,13 @@ MERKLE_LARGE_CASES = [1 << 23, 1 << 20]
 K2_SHAPES = [(256, 2), (128, 1), (64, 1), (256, 1), (128, 4)]
 # The batch inverse's cases in chip_smoke.py's phase (c), (..., 8, N): the
 # mono DEEP (3, 8, D) at D = 2^19, the T-mode constants' (16, 8, T) at
-# 2^16 and 2^20, a class of the cls DEEP (3, 8, T) and of its composition
-# (8, T) at T = 2^16 and at T = 2^20 (the 2^20-row cls prove)
+# 2^16 and 2^20, a class of the DEEP of T-mode and cls (3, 8, T) and of the
+# cls composition (8, T) at T = 2^16 and at T = 2^20 (the 2^20-row proves)
 BINV_CASES = [(3, 8, 1 << 19), (16, 8, 1 << 16), (16, 8, 1 << 20), (3, 8, 1 << 16), (8, 1 << 16),
               (3, 8, 1 << 20), (8, 1 << 20)]
-# its shapes: elements a thread (K), threads a block; the first is the
-# shipped default
-BINV_SHAPES = [(16, 256), (8, 256), (32, 256), (16, 128), (4, 256)]
+# its shapes: elements a thread (K), threads a block (a block's product
+# tree has that many leaves); the first is the shipped default
+BINV_SHAPES = [(8, 128), (4, 256), (4, 128), (16, 64), (8, 64), (2, 512), (8, 256)]
 SWEEPS = {
     "K1": ("ntt_stages.cu", "zk_ntt_stages", [
         {"ZK_K1_TILE": tile, "ZK_K1_LANES": lanes, "ZK_K1_PER_THREAD": k}

@@ -8,9 +8,12 @@ the port's other two layouts, at tolerance 0 (exact field arithmetic).
 * T = 256 (one FRI layer): the cls proof equals the T-mode and mono
   proofs byte for byte, verifies in both packages, and a tampered copy is
   rejected by both;
-* the stages at T = 128 on numpy-seeded challenges: the cls composition
-  and DEEP evaluations (8, D) equal T-mode's ``_stage_composition_t`` and
-  ``_stage_deep_t`` (which are held to the JAX package elsewhere);
+* the stages on numpy-seeded challenges: the cls composition (8, D)
+  equals T-mode's ``_stage_composition_t`` (held to the JAX package
+  elsewhere) at T = 128; the DEEP that cls and T-mode share
+  (``ClassStages.deep``) equals a Python-int evaluation of the DEEP
+  formula with the port's golden f128 at every domain point, from each
+  prover's constants, at T = 16 and 128;
 * the limits: T > ``CLS_MAX_TRACE_LENGTH`` raises, and so does a prove
   without a card unless it is given ``device="cpu"``;
 * under ``-m slow``: the cls composition and DEEP against the JAX
@@ -30,7 +33,8 @@ import torch
 
 from zkvm.field import f128
 from zkvm_torch import vm
-from zkvm_torch.field.limbs import from_numpy, tensor, to_limbs, to_numpy
+from zkvm_torch.field import f128 as gf
+from zkvm_torch.field.limbs import from_numpy, from_t, tensor, to_limbs, to_numpy
 from zkvm_torch.prover import limits
 from zkvm_torch.prover import multi_eval as me
 from zkvm_torch.prover import pipeline as tpl
@@ -145,14 +149,72 @@ def test_cls_composition_equals_tmode(stage_inputs):
     np.testing.assert_array_equal(to_numpy(got), to_numpy(want))
 
 
-def test_cls_deep_equals_tmode(stage_inputs):
-    s = stage_inputs
-    got = ClsStages(T, 8, CPU).deep(s["coeffs"], s["h"], s["gammas"], s["gammas"], s["epsilons"], s["points"],
-                                    s["ood"])
-    want = tpl._TModeStages(T, 8, CPU).deep(s["coeffs"], s["h"], s["gammas"], s["gammas"], s["epsilons"],
-                                            s["points"], s["ood"])
-    assert got.shape == (8, 8 * T)
-    np.testing.assert_array_equal(to_numpy(got), to_numpy(want))
+def _horner(coeffs, x):
+    acc = 0
+    for c in reversed(coeffs):
+        acc = gf.fadd(gf.fmul(acc, x), c)
+    return acc
+
+
+def _combine(cols, weights):
+    """Coefficients of sum_c weights[c] * cols[c] (Python ints)."""
+    acc = [0] * len(cols[0])
+    for w, col in zip(weights, cols):
+        acc = [gf.fadd(a, gf.fmul(w, c)) for a, c in zip(acc, col)]
+    return acc
+
+
+def _deep_case(t, seed):
+    """Random trace (28) and composition (8) coefficients of length t as
+    Python ints, numpy-seeded weights and z, and the OOD values by Horner."""
+    rng = np.random.default_rng(seed)
+    coeffs = [_vals(rng, t) for _ in range(28)]
+    h = [_vals(rng, t) for _ in range(8)]
+    gammas, epsilons, z = _vals(rng, 28), _vals(rng, 8), _vals(rng, 1)[0]
+    points = (z, gf.fmul(z, gf.get_root_of_unity(t)), pow(z, 8, gf.P))
+    ood = ([_horner(c, points[0]) for c in coeffs], [_horner(c, points[1]) for c in coeffs],
+           [_horner(c, points[2]) for c in h])
+    return coeffs, h, gammas, epsilons, points, ood
+
+
+def _golden_deep(coeffs, h, gammas, epsilons, points):
+    """The DEEP witness at every point x_i = offset * w_D^i of the domain, in
+    Python ints: (A(x) - A(z)) / (x - z) + (A(x) - A(z g)) / (x - z g) +
+    (H(x) - H(z^8)) / (x - z^8), A = sum_c gamma_c P_c (the z and z g terms
+    share their weights), H = sum_k epsilon_k H_k."""
+    a, hh = _combine(coeffs, gammas), _combine(h, epsilons)
+    terms = [(a, points[0]), (a, points[1]), (hh, points[2])]
+    at = [_horner(poly, pt) for poly, pt in terms]
+    d = 8 * len(coeffs[0])
+    w_d, x, out = gf.get_root_of_unity(d), gf.DOMAIN_OFFSET, []
+    for _ in range(d):
+        y = 0
+        for (poly, pt), v in zip(terms, at):
+            y = gf.fadd(y, gf.fmul(gf.fsub(_horner(poly, x), v), gf.finv(gf.fsub(x, pt))))
+        out.append(y)
+        x = gf.fmul(x, w_d)
+    return out
+
+
+def _check_deep_golden(t, seed):
+    coeffs, h, gammas, epsilons, points, ood = _deep_case(t, seed)
+    want = _golden_deep(coeffs, h, gammas, epsilons, points)
+    limbs = lambda cols: from_numpy(np.swapaxes(to_limbs(np.array(cols, dtype=object)), -1, -2))
+    for stages in (ClsStages(t, 8, CPU), tpl._TModeStages(t, 8, CPU)):
+        got = stages.deep(limbs(coeffs), limbs(h), gammas, gammas, epsilons, points, ood)
+        assert got.shape == (8, 8 * t)
+        assert [int(v) for v in from_t(to_numpy(got))] == want
+
+
+def test_cls_deep_equals_tmode():
+    """The DEEP of cls and T-mode (one ``ClassStages.deep``, run from each
+    prover's constants) equals the DEEP formula in Python ints at T = 128."""
+    _check_deep_golden(T, 2027)
+
+
+def test_class_deep_equals_golden_formula_t16():
+    """The same at T = 16 (a domain of 128 points)."""
+    _check_deep_golden(16, 2028)
 
 
 class _Trace:

@@ -314,18 +314,22 @@ def test_air_wrappers_refuse_what_the_kernels_cannot_hold():
                               torch.zeros((20, 8), dtype=torch.int32), 1, 1)
 
 
-def _binv_input(r, n, k, seed):
+def _binv_input(r, n, k, threads, seed):
     """(r, 8, n) limbs for the batch inverse: random elements, the field's
-    edge values, and zeros at the first, a middle and the last element of
-    chunks (the kernel's thread t takes lanes t, t + W, ..., W =
-    ceil(n / k)); row 1, where there is one, is all zeros."""
+    edge values, and zeros at the tree's boundaries in row 0 (block b of a
+    row takes the S = k * threads elements from b S on, its thread t the
+    elements b S + t + i threads): each block's first and last element, the
+    whole chunk of thread 1 in every other block (a leaf of one) and an
+    element in the middle; row 1, where there is one, is all zeros."""
     rng = np.random.default_rng(seed)
     x = rand_limbs(rng, (r, 8, n))
-    w = -(-n // k)
-    for t in range(0, w, 3):
-        for i in (0, k // 2, k - 1):
-            if t + i * w < n:
-                x[0, :, t + i * w] = 0
+    span = k * threads
+    lanes = set()
+    for first in range(0, n, span):
+        lanes |= {first, min(first + span, n) - 1, first + threads // 2 + k // 2 * threads}
+        if first // span % 2 == 0:
+            lanes |= {first + 1 + i * threads for i in range(k)}
+    x[0][:, sorted(j for j in lanes if j < n)] = 0
     edges = [0, 1, f128.P - 1, 45 * 2**40 - 1, 2**127]
     lanes = np.arange(min(n, len(edges)))
     x[-1][:, lanes] = np.swapaxes(to_limbs(edges[: len(lanes)]), 0, 1)
@@ -334,18 +338,23 @@ def _binv_input(r, n, k, seed):
     return x
 
 
-@pytest.mark.parametrize("k,threads", [(None, None), (3, 32), (1, 32)])
-@pytest.mark.parametrize("r,n", [(1, 1), (1, 16), (3, 1), (1, 37), (3, 100), (2, 700)])
+BINV_SHIPPED = (8, 128)  # csrc/batch_inverse.cu's default ZK_BINV_K, ZK_BINV_THREADS
+
+
+@pytest.mark.parametrize("k,threads", [(None, None), (3, 4), (2, 8)])
+@pytest.mark.parametrize("r,n", [(1, 1), (1, 16), (3, 1), (1, 37), (3, 100), (2, 700), (2, 2500)])
 def test_batch_inverse_emulated(emu, emu_shape, k, threads, r, n):
-    """The batch-inverse kernel at its shipped chunk (K = 16 elements a
-    thread, 256 threads a block) and at K = 3 and 1 with 32 threads a block
-    (several blocks; a block boundary inside a row): N = 1, a whole chunk
-    (16), N not a multiple of K (37, 100, 700), R = 1, 2 and 3; zeros at
-    the ends and in the middle of chunks, a row of zeros, the edge values.
-    Exact against the plain Fermat version and the golden inverse."""
+    """The batch-inverse kernel at its shipped shape (K = 8 elements a
+    thread, 128 threads a block: S = 1024 elements a block) and at two
+    small trees (K = 3 with 4 threads, K = 2 with 8: a block of 12 or 16
+    elements): rows shorter than a block, rows that end inside a block,
+    several blocks a row (2500 at the shipped shape; 37-700 at the small
+    ones), R = 1, 2 and 3; zeros at the ends of blocks and chunks, a chunk
+    of zeros, a row of zeros, the edge values.  Exact against the plain
+    Fermat version and the golden inverse."""
     lib = emu if k is None else emu_shape(
         "batch_inverse.cu", "zk_batch_inverse", (f"ZK_BINV_K={k}", f"ZK_BINV_THREADS={threads}"))
-    x = _binv_input(r, n, k or 16, 10 * r + n)
+    x = _binv_input(r, n, *((k, threads) if k else BINV_SHIPPED), 10 * r + n)
     a = from_numpy(x)
     got = to_numpy(tft.launch_batch_inverse(lib, 0, a))
     np.testing.assert_array_equal(got, to_numpy(tft.batch_inverse_plain(a)))
@@ -354,12 +363,26 @@ def test_batch_inverse_emulated(emu, emu_shape, k, threads, r, n):
         pow(v, f128.P - 2, f128.P) for v in vals]
 
 
+def test_batch_inverse_power_chain_emulated(emu):
+    """The batch inverse's addition chain for a^(p-2) alone (its probe
+    kernel, one element a thread) against pow(a, p - 2, p) on the edge
+    values and on random elements."""
+    edges = [0, 1, 2, 3, f128.P - 1, f128.P - 2, 45 * 2**40 - 1, 2**127, 2**64 - 1, 2**64, f128.P - 2**64]
+    rng = np.random.default_rng(129)
+    rand = [int(a) << 64 | int(b) for a, b in zip(*rng.integers(0, 2**63, size=(2, 300), dtype=np.int64))]
+    vals = edges + [(v << 1 | (v & 1)) % f128.P for v in rand]
+    words = np.array([[v & (2**64 - 1), v >> 64] for v in vals], dtype=np.uint64)
+    out = np.zeros_like(words)
+    assert emu.zk_binv_power(words.ctypes.data, out.ctypes.data, len(vals), None) == 0
+    assert [int(hi) << 64 | int(lo) for lo, hi in out] == [pow(v, f128.P - 2, f128.P) for v in vals]
+
+
 def test_batch_inverse_launch_takes_leading_dims_and_builds_nothing(emu, monkeypatch):
     """The launch takes (..., 8, N) with any leading dimensions (one axis R
     to the kernel), and a (8, N) tensor as R = 1; it builds no tensor from
     host data (on a card such a copy waits for the stream).  It refuses a
     strided input (the wrapper makes it contiguous) and an empty one."""
-    x = from_numpy(_binv_input(6, 40, 16, 5)).reshape(2, 3, 8, 40)
+    x = from_numpy(_binv_input(6, 40, *BINV_SHIPPED, 5)).reshape(2, 3, 8, 40)
     built = []
     for name in ("tensor", "from_numpy", "as_tensor"):
         fn = getattr(torch, name)

@@ -4,7 +4,8 @@
   2^8 takes them): the DEEP's column-scanned weighted sums and the
   multi-point evaluation in pairs (``test_torch_prover.py``) equal their
   one-shot forms and the JAX package's sums / ``eval_mxu.multi_eval_rows``,
-  exactly (under ``-m slow`` the whole JAX ``_stage_deep_t``); a T = 2^8
+  exactly (under ``-m slow`` the DEEP that T-mode and cls share against the
+  whole JAX ``_stage_deep_t``); a T = 2^8
   proof is the same bytes with and without them;
 * ``zkvm_torch.examples.prove_lr_large`` at log2_rows = 8 gives T = 2^8,
   the clear prediction and a proof that verifies, in T-mode and with
@@ -29,6 +30,7 @@ from zkvm.field import jax_f128 as jf
 from zkvm_torch.examples import prove_lr_large as lrl
 from zkvm_torch.field.limbs import from_numpy, tensor, to_limbs, to_numpy
 from zkvm_torch.prover import limits
+from zkvm_torch.prover import multi_eval as me
 from zkvm_torch.prover import pipeline as tpl
 
 torch.set_num_threads(1)
@@ -64,9 +66,12 @@ def _deep_inputs():
 
 
 def _port_deep(coeffs, h, gammas, epsilons, z, zg, zm):
-    dct = tpl._class_constants_t(T, 8, torch.device("cpu"))
-    return to_numpy(tpl._stage_deep_t(from_numpy(coeffs), from_numpy(h), tensor(gammas), tensor(gammas),
-                                      tensor(epsilons), z, zg, zm, dct))
+    """The DEEP that T-mode and cls share (``ClassStages.deep``), from
+    T-mode's constants, with the OOD values by the multi-point evaluation."""
+    cols, hc = from_numpy(coeffs), from_numpy(h)
+    ood = (*me.multi_eval_rows(cols, [z, zg]), me.multi_eval_rows(hc, [zm])[0])
+    stages = tpl._TModeStages(T, 8, torch.device("cpu"))
+    return to_numpy(stages.deep(cols, hc, gammas, gammas, epsilons, (z, zg, zm), ood))
 
 
 def test_deep_chunked_equals_one_shot_and_jax_sums(chunked):

@@ -1,6 +1,6 @@
 """zkvm_torch prover components against the JAX reference: multi-point
-evaluation, the DEEP quotient and the FRI fold (exact equality on inputs
-from numpy seeds), and the copied host modules against their originals."""
+evaluation and the FRI fold (exact equality on inputs from numpy seeds),
+and the copied host modules against their originals."""
 
 import random
 from pathlib import Path
@@ -11,8 +11,7 @@ import pytest
 import torch
 
 from zkvm.field import f128
-from zkvm.ntt import ntt_t as jnt
-from zkvm_torch.field.limbs import from_numpy, tlimbs, to_limbs, to_numpy
+from zkvm_torch.field.limbs import from_numpy, to_limbs, to_numpy
 from zkvm_torch.ntt import ntt_t as tnt
 
 torch.set_num_threads(1)
@@ -62,28 +61,6 @@ def test_multi_eval_pairs_match_reference(monkeypatch):
     l1, l2 = tnt.ladders_split(from_numpy(to_limbs(pts)), 1024)
     joined = torch.cat([tnt.ladders_join(l1[i:i + 2], l2[i:i + 2]) for i in (0, 2)])
     np.testing.assert_array_equal(to_numpy(joined), to_numpy(lad))
-
-
-def test_deep_quotient_matches_reference():
-    from zkvm.prover import pipeline as jpl
-    from zkvm_torch.prover import pipeline as tpl
-
-    t = 16
-    a = _t(_vals(3, (t,)))
-    z = int(_vals(4, (1,))[0])
-    zi = f128.finv(z)
-    one = tlimbs(1)
-    want = jpl._deep_quotient_t(
-        jnp.asarray(a),
-        jnt.ladder_t(jnp.asarray(tlimbs(z)), jnp.asarray(one), t),
-        jnt.ladder_t(jnp.asarray(tlimbs(zi)), jnp.asarray(tlimbs(zi)), t),
-    )
-    got = tpl._deep_quotient_t(
-        from_numpy(a),
-        tnt.ladder_t(from_numpy(tlimbs(z)), from_numpy(one), t),
-        tnt.ladder_t(from_numpy(tlimbs(zi)), from_numpy(tlimbs(zi)), t),
-    )
-    np.testing.assert_array_equal(to_numpy(got), np.asarray(want))
 
 
 def test_fri_fold_matches_reference():

@@ -56,6 +56,8 @@ SIGNATURES = {
     "zk_transition": (_P,) * 5 + (_U64, _U64, _P, _L, _L, _L, _P),
     # in, out, R, N, stream
     "zk_batch_inverse": (_P, _P, _L, _L, _P),
+    # a, out (packed elements), n, stream: the batch inverse's a^(p-2) alone (a check)
+    "zk_binv_power": (_P, _P, _I, _P),
 }
 
 build_seconds = 0.0  # wall time of the last nvcc build in this process

@@ -1,13 +1,16 @@
 """Where the time of one prove goes, on a CUDA card.
 
-    python -m zkvm_torch.profile_prove [--mode tmode|mono|cls]
+    python -m zkvm_torch.profile_prove [--mode tmode|mono|cls] [--tree DIR]
 
 Proves the bench's READ/ADD chain (n_ops = 20000 gives T = 2^16) once to
-warm up, once with per-stage synchronised wall clocks, and once under
-``torch.profiler`` (CPU and CUDA activity).  Prints one JSON line: the
-card, the stage seconds, the profiled prove's wall time, device-busy
-seconds (the union of kernel intervals) and idle share, the number of
-device kernels per prove, and the kernels with the most device time.
+warm up, once with per-stage synchronised wall clocks and peak device
+memory, and once under ``torch.profiler`` (CPU and CUDA activity).  Prints
+one JSON line: the card, the stage seconds and peaks, the profiled prove's
+wall time, device-busy seconds (the union of kernel intervals) and idle
+share, the number of device kernels per prove, and the kernels with the
+most device time.  ``--tree DIR`` proves with the ``zkvm_torch`` of
+another checkout (e.g. the parent unpacked with ``git archive`` into
+``zkvm_torch/build/parent``), so one script measures both.
 """
 
 from __future__ import annotations
@@ -16,12 +19,13 @@ import argparse
 import json
 import random
 import subprocess
+import sys
 import time
+from pathlib import Path
 
 import torch
 
-from zkvm_torch import vm
-from zkvm_torch.prover.pipeline import MODES, prove
+from zkvm_torch.prover.pipeline import MODES
 
 
 def _busy_seconds(events) -> float:
@@ -41,7 +45,16 @@ def _busy_seconds(events) -> float:
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--mode", choices=MODES, default="tmode", help="the prover's stages")
-    mode = parser.parse_args().mode
+    parser.add_argument("--tree", type=Path, help="prove with another checkout's zkvm_torch")
+    args = parser.parse_args()
+    mode = args.mode
+    if args.tree is not None:
+        for name in [m for m in sys.modules if m.split(".")[0] == "zkvm_torch"]:
+            del sys.modules[name]
+        sys.path.insert(0, str(args.tree.resolve()))
+    from zkvm_torch import vm
+    from zkvm_torch.prover.pipeline import prove
+
     if not torch.cuda.is_available():
         raise SystemExit("profile_prove: no CUDA device")
     dev = torch.device("cuda", 0)
@@ -56,10 +69,10 @@ def main():
     pub = vm.PublicInputs(program.hash, trace.outputs, key)
 
     prove(trace, pub, device=dev, mode=mode)  # warm-up: kernel build, device tables
-    stages = {}
+    stages, peaks = {}, {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    prove(trace, pub, device=dev, stage_seconds=stages, mode=mode)
+    prove(trace, pub, device=dev, stage_seconds=stages, mode=mode, stage_peaks=peaks)
     synced = time.perf_counter() - t0
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -78,8 +91,9 @@ def main():
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
 
     print(json.dumps({
-        "card": smi, "mode": mode, "trace_length": trace.length, "stage_seconds": stages,
-        "synced_prove_seconds": synced, "profiled_prove_seconds": wall,
+        "card": smi, "mode": mode, "tree": str(args.tree or "."), "trace_length": trace.length,
+        "stage_seconds": stages, "stage_peak_gib": {k: v / 2**30 for k, v in peaks.items()},
+        "peak_gib": max(peaks.values()) / 2**30, "synced_prove_seconds": synced, "profiled_prove_seconds": wall,
         "device_busy_seconds": busy, "device_idle_share": 1.0 - busy / wall,
         "device_kernels": len(kernels),
         "top_kernels": [{"name": k[:90], "ms": us / 1e3, "count": n} for k, (us, n) in top],

@@ -9,18 +9,20 @@ in the port's transposed (8, N) layout.  Like T-mode it holds one blowup
 class of the LDE at a time; unlike T-mode it hoists no inverse out of the
 proof: each class inverts its own denominators, as the reference does.
 
-1. trace commit, 3. composition commit, 7. query rows: T-mode's
-   (:class:`~zkvm_torch.prover.pipeline.ClassStages`);
+1. trace commit, 3. composition commit, 5. DEEP, 7. query rows: the
+   stages it shares with T-mode
+   (:class:`~zkvm_torch.prover.pipeline.ClassStages`; the DEEP is
+   ``_stage_deep_cls``: the weighted sums in coefficient space, then per
+   class one coset NTT of the three combined polynomials (K1) and one
+   batch inverse of x - (z, z g, z^8); the sum of (values - OOD values) /
+   (x - point));
 2. composition, per class r: the class LDE (K1); the merged transition
    with next row +1 and the 16-step periodic patterns (K4); times
    (x - e1)(x - e2) / (x^T - 1); one batch inverse of (x - 1)(x - x_last)
-   gives both boundary denominators; plus the two boundary groups;
-5. DEEP: the weighted sums in coefficient space, then per class one coset
-   NTT of the three combined polynomials (K1) and one batch inverse of
-   x - (z, z g, z^8); the sum of (values - OOD values) / (x - point).
+   gives both boundary denominators; plus the two boundary groups.
 
-The OOD frame, FRI and the proof assembly are T-mode's.
-:func:`zkvm_torch.prover.pipeline.prove` runs these stages for
+The OOD frame, FRI and the proof assembly are T-mode's:
+:func:`zkvm_torch.prover.pipeline.prove` runs them and these stages for
 ``mode="cls"``; the proof bytes equal T-mode's and mono's.
 """
 
@@ -28,26 +30,20 @@ from __future__ import annotations
 
 import functools
 
-import torch
-
 from zkvm_torch.air import composition as cp
 from zkvm_torch.air.transition import merged_transition
 from zkvm_torch.field import f128t as ft
-from zkvm_torch.field.limbs import tensor
-from .pipeline import (ClassStages, _class_base_t, _class_ntt, _class_ntt_blocked, _interleave,
-                       _weighted_sum, class_points, weighted_host)
+from .pipeline import ClassStages, _class_base_t, _class_ntt_blocked, _interleave
 
 
 @functools.lru_cache(maxsize=None)
 def _cls_constants(t_len: int, blowup: int, device):
-    """The class constants, the composition's host constants as device
-    columns (8, 1), and each class's domain points x (B, 8, T): 16 MB at
-    T = 2^16, 256 MB at 2^20, built once instead of a ladder a stage."""
+    """The class constants (each class's domain points x among them) and
+    the composition's host constants as device columns (8, 1)."""
     dct = _class_base_t(t_len, blowup, device)
     col = lambda v: ft.const_col(v, device)
     return dict(
         dct,
-        x_cls_t=torch.stack([class_points(dct, r) for r in range(blowup)]),
         inv_xt_cols=[col(v) for v in dct["inv_xt"]],
         one_col=col(1),
         e1_col=col(dct["e1"]),
@@ -80,24 +76,3 @@ class ClsStages(ClassStages):
             del lde
             q.append(qr)
         return _interleave(q)
-
-    def deep(self, coeffs_t, h_t, gammas, deltas, epsilons, points, ood):
-        """DEEP witness Y over the domain, (8, D): the three combined
-        polynomials evaluated per class, each quotient pointwise."""
-        dev = coeffs_t.device
-        dct = self.dct
-        abc = torch.stack([
-            _weighted_sum(coeffs_t, tensor(gammas, dev)),
-            _weighted_sum(coeffs_t, tensor(deltas, dev)),
-            _weighted_sum(h_t, tensor(epsilons, dev)),
-        ])  # (3, 8, T) coefficients
-        ood_cur, ood_nxt, ood_comp = ood
-        at = tensor([weighted_host(gammas, ood_cur), weighted_host(deltas, ood_nxt),
-                     weighted_host(epsilons, ood_comp)], dev)[:, :, None]  # (3, 8, 1)
-        pts = tensor(list(points), dev)[:, :, None]  # z, z g, z^8: (3, 8, 1)
-        y = []
-        for r in range(len(dct["class_scales"])):
-            vals = _class_ntt(abc, dct, r)  # (3, 8, T)
-            inv = ft.batch_inverse(ft.fsub(dct["x_cls_t"][r], pts))
-            y.append(ft.fsum(ft.fmul(ft.fsub(vals, at), inv), axis=0))
-        return _interleave(y)

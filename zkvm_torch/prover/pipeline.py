@@ -13,17 +13,19 @@ the full (28, 8, D) LDE.  Stages, in proof order:
 3. composition commit: size-D iNTT, split into 8 columns, per class coset
    NTT (K1) and row hashes (K2); Merkle heap;
 4. OOD frame: multi-point evaluation (float64 matrix product);
-5. DEEP: weighted column sums and suffix-scan synthetic division in
-   coefficient space, then one coset NTT per class (K1);
+5. DEEP, the reference's class form (``_stage_deep_cls``; it gives the
+   values of its T-mode suffix scan): the weighted column sums in
+   coefficient space, then per class one coset NTT of the three combined
+   polynomials (K1) and one batch inverse of x - (z, z g, z^8);
 6. FRI: per layer, group hashes (K2), Merkle heap, 8-point iNTT fold (K1);
 7. queries: multi-point evaluation at the query points, Merkle openings.
 
 Transcript and proof bytes are identical to the reference's (exact field
 arithmetic).  :func:`prove` also runs the other two layouts, with the same
 bytes: the full-LDE prover (:mod:`.mono`) and the standard-layout class
-prover (:mod:`.cls`, which shares the commitments and query rows of
-:class:`ClassStages` and inverts per class instead of hoisting T-mode's
-domain factors).  T-mode and cls run up to T = 2^20, mono up to 2^17
+prover (:mod:`.cls`, which shares the commitments, the DEEP and the query
+rows of :class:`ClassStages` and inverts per class instead of hoisting
+T-mode's domain factors).  T-mode and cls run up to T = 2^20, mono up to 2^17
 (:mod:`.limits`); from ``limits.CHUNK_T`` on, the stages take the
 reference's chunked forms, which change no value.
 """
@@ -68,9 +70,11 @@ NUM_COMP_COLUMNS = 8  # ce blowup for max constraint degree 7
 def _class_base_t(t_len: int, blowup: int, device):
     """Proof-independent constants of the two class-decomposed provers
     (T-mode and ``cls``) for one (T, blowup, device): the class coset
-    bases and their NTT scales, the periodic class patterns, the
-    inverse-offset ladder, and the host ints of the composition's domain
-    factors: 1/(x^T - 1) per class (``inv_xt``), e1, e2 and x_last."""
+    bases and their NTT scales, each class's domain points x (``x_cls_t``,
+    (B, 8, T): 16 MB at T = 2^16, 256 MB at 2^20, built once instead of a
+    ladder each stage), the periodic class patterns, the inverse-offset
+    ladder, and the host ints of the composition's domain factors:
+    1/(x^T - 1) per class (``inv_xt``), e1, e2 and x_last."""
     d = t_len * blowup
     offset = f128.DOMAIN_OFFSET
     g_trace = f128.get_root_of_unity(t_len)
@@ -80,7 +84,7 @@ def _class_base_t(t_len: int, blowup: int, device):
     w_b = f128.get_root_of_unity(blowup)
     mask_cls, ark_cls = periodic_class_patterns(t_len, blowup)
     class_bases_t = tensor(bases, device)  # (B, 8)
-    return dict(
+    dct = dict(
         d=d,
         g_trace=g_trace,
         w_d=w_d,
@@ -94,6 +98,8 @@ def _class_base_t(t_len: int, blowup: int, device):
         e2=pow(g_trace, t_len - 2, f128.P),
         x_last=pow(g_trace, t_len - NUM_EXEMPTIONS, f128.P),
     )
+    dct["x_cls_t"] = torch.stack([class_points(dct, r) for r in range(blowup)])
+    return dct
 
 
 def class_points(dct, r):
@@ -112,7 +118,7 @@ def _class_constants_t(t_len: int, blowup: int, device):
     col = lambda v: ft.const_col(v, device)
     ee, den0, den1 = [], [], []
     for r in range(blowup):
-        x_r = class_points(dct, r)
+        x_r = dct["x_cls_t"][r]
         ex = ft.fmul(ft.fsub(x_r, col(dct["e1"])), ft.fsub(x_r, col(dct["e2"])))
         ee.append(ft.fmul(ex, col(dct["inv_xt"][r])))
         den0.append(ft.fsub(x_r, col(1)))
@@ -188,20 +194,6 @@ def _stage_comp_commit_t(comp_t, dct):
     return h_t, _commit_classes(h_t, dct)
 
 
-def _deep_quotient_t(a_t, zlad, zinvlad):
-    """Coefficients of (A(x) - A(z)) / (x - z) from A's coefficients:
-    c_i = z^-(i+1) * sum_{j>i} a_j z^j.  The suffix sums are a Hillis-Steele
-    scan of exact modular adds; zlad[i] = z^i, zinvlad[i] = z^-(i+1)."""
-    u = ft.fmul(a_t, zlad)
-    n = u.shape[-1]
-    s = u
-    step = 1
-    while step < n:
-        s = ft.fadd(s, torch.nn.functional.pad(s[..., step:], (0, step)))
-        step *= 2
-    return ft.fmul(ft.fsub(s, u), zinvlad)
-
-
 def _weighted_sum(cols_t, w_t):
     """sum_c w[c] * cols[c] of (C, 8, T) columns and (C, 8) weights.  From
     ``limits.CHUNK_T`` on, a scan over the columns (the reference's,
@@ -223,23 +215,6 @@ def weighted_host(weights, values) -> int:
     for w, v in zip(weights, values):
         acc = f128.fadd(acc, f128.fmul(w, v))
     return acc
-
-
-def _stage_deep_t(coeffs_t, h_t, gammas_t, deltas_t, epsilons_t, z, zg, zm, dct):
-    """DEEP witness Y over the domain, (8, D): three synthetic-division
-    quotients combined in coefficient space, one coset NTT per class."""
-    t = coeffs_t.shape[-1]
-    dev = coeffs_t.device
-    a = _weighted_sum(coeffs_t, gammas_t)
-    b = _weighted_sum(coeffs_t, deltas_t)
-    h = _weighted_sum(h_t, epsilons_t)
-    one = ttensor(1, dev)
-    y = None
-    for poly, pt in ((a, z), (b, zg), (h, zm)):
-        pl, pil = ttensor(pt, dev), ttensor(f128.finv(pt), dev)
-        quo = _deep_quotient_t(poly, nt.ladder_t(pl, one, t), nt.ladder_t(pil, pil, t))
-        y = quo if y is None else ft.fadd(y, quo)
-    return _interleave([_class_ntt(y, dct, r) for r in range(len(dct["class_scales"]))])
 
 
 def _assemble_proof(t_len, options, trace_tree, comp_tree, ood_cur, ood_nxt, ood_comp,
@@ -325,8 +300,8 @@ class _Stages:
 
 class ClassStages:
     """The stages that T-mode and the class prover share: the two
-    commitments (per-class coset NTTs, row hashes, one Merkle heap) and the
-    query rows, over the class constants ``dct``."""
+    commitments (per-class coset NTTs, row hashes, one Merkle heap), the
+    DEEP and the query rows, over the class constants ``dct``."""
 
     def __init__(self, dct):
         self.dct = dct
@@ -337,6 +312,29 @@ class ClassStages:
 
     def comp_commit(self, comp_t):
         return _stage_comp_commit_t(comp_t, self.dct)
+
+    def deep(self, coeffs_t, h_t, gammas, deltas, epsilons, points, ood):
+        """DEEP witness Y over the domain, (8, D): the three combined
+        polynomials evaluated per class, each quotient pointwise
+        (``_stage_deep_cls``): sum of (values - OOD values) / (x - point)
+        over the points z, z g and z^8, with one batch inverse a class."""
+        dev = coeffs_t.device
+        dct = self.dct
+        abc = torch.stack([
+            _weighted_sum(coeffs_t, tensor(gammas, dev)),
+            _weighted_sum(coeffs_t, tensor(deltas, dev)),
+            _weighted_sum(h_t, tensor(epsilons, dev)),
+        ])  # (3, 8, T) coefficients
+        ood_cur, ood_nxt, ood_comp = ood
+        at = tensor([weighted_host(gammas, ood_cur), weighted_host(deltas, ood_nxt),
+                     weighted_host(epsilons, ood_comp)], dev)[:, :, None]  # (3, 8, 1)
+        pts = tensor(list(points), dev)[:, :, None]  # z, z g, z^8: (3, 8, 1)
+        y = []
+        for r in range(len(dct["class_scales"])):
+            vals = _class_ntt(abc, dct, r)  # (3, 8, T)
+            inv = ft.batch_inverse(ft.fsub(dct["x_cls_t"][r], pts))
+            y.append(ft.fsum(ft.fmul(ft.fsub(vals, at), inv), axis=0))
+        return _interleave(y)
 
     def query_rows(self, coeffs_t, h_t, positions):
         """Evaluate the committed polynomials at the query points (equal
@@ -354,11 +352,6 @@ class _TModeStages(ClassStages):
     def composition(self, coeffs_t, alphas, bv0, bb0, bv1, bb1, delta, bcols0, bcols1):
         return _stage_composition_t(coeffs_t, self.dct, alphas, bv0, bb0, bv1, bb1, delta,
                                     bcols0, bcols1)
-
-    def deep(self, coeffs_t, h_t, gammas, deltas, epsilons, points, ood):
-        dev = coeffs_t.device
-        return _stage_deep_t(coeffs_t, h_t, tensor(gammas, dev), tensor(deltas, dev),
-                             tensor(epsilons, dev), *points, self.dct)
 
 
 MODES = ("tmode", "mono", "cls")
