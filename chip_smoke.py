@@ -68,9 +68,22 @@ Phases, each printing one JSON line:
       K4's class shape, the Merkle heap and the batch inverse at this
       path's shapes (kernel_bench's *_LARGE_*, K3_LARGE_T, BINV_CASES).
 
+  (h) dist: the chain of (e) proved in mono sharded by rows over spawned
+      ranks (zkvm_torch.dist; the kernels built once, before the ranks
+      start): one rank over NCCL, 2 and 4 ranks sharing cuda:0 over gloo
+      (every collective staged through the host and counted), and NCCL
+      over min(cards, 4) ranks where there is more than one card; each
+      rank proves twice (a warm-up, then the one counted); every rank's
+      proof must equal (e)'s bytes and verify, and every rank must launch
+      K1, K2, K4, the Merkle heap and the batch inverse (K3 never);
+      each rank's seconds, launches, collectives and peaks are printed (the
+      shared-card seconds are not speed figures).  Phase (c) also runs K1,
+      K2, K4, the Merkle heap and the batch inverse at this path's shapes
+      (kernel_bench's *_DIST_*, K4's halo blocks).
+
 Then a {"kernels": [...]} line (each kernel's launches by path: the timed
-proves of (e), (f) and (e2), and the cold, steady and cls proves of (g)),
-and last
+proves of (e), (f) and (e2), the cold, steady and cls proves of (g), and
+every rank of (h)), and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure raises and exits non-zero; there is no CPU fallback.
 """
@@ -94,10 +107,13 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from kernel_bench import (BINV_CASES, K1_CASES, K1_LARGE_CASES, K2_CASES, K2_LARGE_CASES,  # noqa: E402
-                          K3_LARGE_T, MERKLE_CASES, MERKLE_LARGE_CASES, air_calls, air_cases, binv_name,
-                          capture_entry, cuda_ms, ptxas_summary, sass_opcodes)
+from kernel_bench import (BINV_CASES, K1_CASES, K1_DIST_CASES, K1_LARGE_CASES, K2_CASES,  # noqa: E402
+                          K2_DIST_CASES, K2_LARGE_CASES, K3_LARGE_T, MERKLE_CASES, MERKLE_DIST_CASES,
+                          MERKLE_LARGE_CASES, air_calls, air_cases, binv_name, capture_entry, cuda_ms,
+                          ptxas_summary, sass_opcodes)
 from zkvm_torch import kernels, vm  # noqa: E402
+from zkvm_torch.dist import multihost  # noqa: E402
+from zkvm_torch.dist import run as dist_run  # noqa: E402
 from zkvm_torch.air import composition as cp  # noqa: E402
 from zkvm_torch.air import transition as tr  # noqa: E402
 from zkvm_torch.field import f128  # noqa: E402
@@ -321,7 +337,7 @@ def phase_kernels():
     # the 28 trace columns), 32 (both passes of that LDE's size-1024 pass 1,
     # over 28 x 512 rows); then the 2^20-row path's (K1_LARGE_CASES)
     k1 = []
-    for m, b, nl, variants in K1_CASES + K1_LARGE_CASES:
+    for m, b, nl, variants in K1_CASES + K1_LARGE_CASES + K1_DIST_CASES:
         tw = nt._stage_twiddles_dev(m, False, DEV)
         y = rand_limbs(rng, (b, m, 8, nl))
         for variant in variants:
@@ -352,7 +368,7 @@ def phase_kernels():
     # one launch call), beside the wrapper's
     lib = kernels.lib()
     k2 = []
-    for c, n in K2_CASES + K2_LARGE_CASES:
+    for c, n in K2_CASES + K2_LARGE_CASES + K2_DIST_CASES:
         x = rand_limbs(rng, (c, 8, n))
         work = ((c + 1) * LIMB_BYTES * n, (-(-c // 4) * BLAKE3_BLOCK_OPS + BLAKE3_PACK_OPS * c) * n)
         cname, cargs, keep = capture_entry(kernels, b3t.launch_rows, x)
@@ -364,7 +380,7 @@ def phase_kernels():
     # the Merkle heap over random digests, given as the provers give them:
     # the (N, 8) transposed view of (8, N) words
     heaps = []
-    for n in MERKLE_CASES + MERKLE_LARGE_CASES:
+    for n in MERKLE_CASES + MERKLE_LARGE_CASES + MERKLE_DIST_CASES:
         leaves = torch.from_numpy(rng.integers(0, 1 << 32, size=(8, n), dtype=np.uint64).astype(np.uint32)
                                   .view(np.int32)).to(DEV)
         cname, cargs, keep = capture_entry(kernels, mk.launch_heap, leaves)
@@ -377,12 +393,13 @@ def phase_kernels():
     results["merkle"] = dict(heaps[0], max_abs_err=max(r["max_abs_err"] for r in heaps))
     # K3 (one class at T = 2^16, the real boundary columns) and K4 (the
     # mono shape and one class): kernel_bench.air_cases; then K3 and K4's
-    # class shape (the cls prove's, step 1) at the 2^20-row path's T; made
-    # one case at a time
+    # class shape (the cls prove's, step 1) at the 2^20-row path's T; then
+    # K4 on the sharded mono's halo blocks (phase h); made one case at a time
     k4 = {}
     limbs = lambda shape: rand_limbs(rng, shape, spread=True)
     for name, kind, args, host in itertools.chain(air_cases(limbs, DEV),
-                                                  air_cases(limbs, DEV, K3_LARGE_T, ("class",))):
+                                                  air_cases(limbs, DEV, K3_LARGE_T, ("class",)),
+                                                  air_cases(limbs, DEV, k4=("halo P=2", "halo P=4"), k3=False)):
         wrapper, plain, launch = air_calls(kind)
         cname, cargs, keep = capture_entry(kernels, launch, *args, *host)
         lib = kernels.lib()
@@ -664,6 +681,70 @@ def phase_lr_large(card):
     return {path: launches for path, (launches, _) in counts.items()}
 
 
+# the kernels every rank of the sharded mono prove must launch
+DIST_KERNELS = ("ntt_stages", "blake3_rows", "merkle", "transition", "batch_inverse")
+DIST_TIMEOUT = 300.0  # seconds for one spawned run
+
+
+def dist_runs():
+    """(world size, backend) of phase (h): one rank over NCCL; 2 and 4 ranks
+    sharing cuda:0 over gloo (NCCL refuses ranks that share a card); and
+    NCCL over min(cards, 4) ranks, one card each, where there is more than
+    one card."""
+    runs = [(1, "nccl"), (2, "gloo"), (4, "gloo")]
+    if torch.cuda.device_count() > 1:
+        runs.append((min(torch.cuda.device_count(), 4), "nccl"))
+    return runs
+
+
+def phase_dist(card, want):
+    """(h): the bench's chain (T = 2^16) proved in mono over spawned ranks
+    (``zkvm_torch.dist.run.prove_chain``: a warm-up prove, then the
+    reported one): every rank's proof must be the bytes ``want`` (phase
+    (e)'s), the proof must verify, and every rank must have launched K1,
+    K2, K4, the Merkle heap and the batch inverse in the reported prove
+    (counts set to 0 in each rank just before it, read just after).  Ranks
+    that share one card over gloo contend for it and stage every
+    collective through the host, so their seconds are not speed figures.
+    Returns the launches summed over every rank of every run."""
+    key = vm.ServerKey(vm.DEMO_PARAMETERS, random.Random(3))
+    torch.cuda.empty_cache()
+    total = {name: 0 for name in COUNTERS}
+    for world, backend in dist_runs():
+        device = None if backend == "nccl" else str(DEV)
+        t0 = time.perf_counter()
+        ranks = multihost.spawn(dist_run.prove_chain, world, backend, device, args=(vm.BENCH_N_OPS, 3),
+                                timeout=DIST_TIMEOUT)
+        wall = time.perf_counter() - t0
+        first = ranks[0]
+        vm.verify_bytes(first["proof"], first["program_hash"], first["outputs"], key)
+        same = all(r["proof"] == want for r in ranks)
+        emit({"phase": "dist", "world": world, "backend": backend, "device": device or "cuda:rank",
+              "shared_card": backend == "gloo" and world > 1,
+              "trace_length": first["trace_length"], "wall_seconds": wall, "equals_phase_e": same,
+              "verified": True, "card": card,
+              "ranks": [{"rank": r["rank"], "cold_prove_seconds": r["cold_seconds"], "prove_seconds": r["seconds"],
+                         "stage_seconds": r["stage_seconds"],
+                         "stage_peak_gib": {k: gib(v) for k, v in r["stage_peaks"].items()},
+                         "peak_gib": gib(r["peak_bytes"]), "launches": r["launches"], "comm": r["comm"]}
+                        for r in ranks]})
+        if not same:
+            raise AssertionError(f"dist: a proof over {world} {backend} ranks differs from phase (e)'s")
+        for r in ranks:
+            for name in DIST_KERNELS:
+                if r["launches"][name] <= 0:
+                    raise AssertionError(f"kernel {name} was not launched on rank {r['rank']} of the "
+                                         f"{world}-rank {backend} run")
+            if r["launches"]["composition"] != 0:
+                raise AssertionError("K3 launched on the sharded mono path")
+            staged = r["comm"]["host_staged_bytes"]
+            if (backend == "gloo") != (staged > 0):
+                raise AssertionError(f"dist: {staged} bytes staged through the host under {backend}")
+            for name in total:
+                total[name] += r["launches"][name]
+    return total
+
+
 SOURCES = {
     "ntt_stages": ("zkvm_torch/csrc/ntt_stages.cu", "zkvm/ntt/ntt_t.py:320"),
     "blake3_rows": ("zkvm_torch/csrc/blake3_rows.cu", "zkvm/hash/blake3_t.py:115"),
@@ -687,9 +768,11 @@ def main():
     emit({"phase": "bench", "tmode_mono_cls_equal": same, "proof_bytes": len(runs["tmode"][1])})
     if not same:
         raise AssertionError("the T-mode, mono and cls proofs of the same trace differ")
+    bench_proof = runs["tmode"][1]
     del runs
     torch.cuda.empty_cache()
     by_path.update(phase_lr_large(card))
+    by_path["dist"] = phase_dist(card, bench_proof)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],

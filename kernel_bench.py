@@ -95,6 +95,13 @@ K1_LARGE_CASES = [(32, 7 * 512, 64, ("plain",)), (64, 7 * 512, 32, ("full",)), (
                   (32, 8 * 512, 64, ("plain",)), (64, 8 * 512, 32, ("full",)), (512, 8, 2048, ("full",)),
                   (32, 28 * 512, 64, ("plain",)), (64, 28 * 512, 32, ("full",)), (512, 28, 2048, ("full",)),
                   (128, 512, 128, ("plain", "full")), (512, 1, 1 << 14, ("full",)), (8, 1, 1 << 20, ("plain",))]
+# K1 on the sharded mono path (zkvm_torch.dist.ntt_dist) at T = 2^16: the
+# P-point NTTs along the ranks' axis M = P, over L / P lanes (L = D / P) of
+# the trace LDE's 28 columns at P = 2 and 4, and of the composition LDE's 8
+# at P = 4; the first pass of the trace LDE's L-point NTT with the rank's
+# twiddles as its premultiplier (r1) at P = 2 (512 x 512) and 4 (256 x 512)
+K1_DIST_CASES = [(2, 28, 1 << 17, ("plain",)), (4, 28, 1 << 16, ("plain",)), (4, 8, 1 << 16, ("plain",)),
+                 (512, 28, 512, ("r1",)), (256, 28, 512, ("r1",))]
 K1_SWEEP_CASES = [(256, 28, 256, "r1"), (256, 8, 256, "full"), (512, 28, 1024, "full"),
                   (32, 28 * 512, 32, "full"), (8, 1, 1 << 16, "plain"), (512, 1, 1024, "full")]
 # The other launch shapes of each kernel, as -D defines; the first of each
@@ -118,15 +125,20 @@ MERKLE_CASES = [1 << 19, 1 << 16, 1 << 13, 1 << 10]
 K2_LARGE_CASES = [(28, 1 << 20), (8, 1 << 20)]
 K3_LARGE_T = 1 << 20
 MERKLE_LARGE_CASES = [1 << 23, 1 << 20]
+# K2 and the Merkle heap on the sharded mono path at T = 2^16: a rank's
+# block of 2^18 (P = 2) or 2^17 (P = 4) rows
+K2_DIST_CASES = [(28, 1 << 18), (8, 1 << 17)]
+MERKLE_DIST_CASES = [1 << 18, 1 << 17]
 # K2: threads a block, blocks an SM for __launch_bounds__; the first is the
 # shipped default
 K2_SHAPES = [(256, 2), (128, 1), (64, 1), (256, 1), (128, 4)]
 # The batch inverse's cases in chip_smoke.py's phase (c), (..., 8, N): the
 # mono DEEP (3, 8, D) at D = 2^19, the T-mode constants' (16, 8, T) at
 # 2^16 and 2^20, a class of the DEEP of T-mode and cls (3, 8, T) and of the
-# cls composition (8, T) at T = 2^16 and at T = 2^20 (the 2^20-row proves)
+# cls composition (8, T) at T = 2^16 and at T = 2^20 (the 2^20-row proves),
+# and a rank's block of the sharded mono DEEP (3, 8, D / P) at P = 2 and 4
 BINV_CASES = [(3, 8, 1 << 19), (16, 8, 1 << 16), (16, 8, 1 << 20), (3, 8, 1 << 16), (8, 1 << 16),
-              (3, 8, 1 << 20), (8, 1 << 20)]
+              (3, 8, 1 << 20), (8, 1 << 20), (3, 8, 1 << 18), (3, 8, 1 << 17)]
 # its shapes: elements a thread (K), threads a block (a block's product
 # tree has that many leaves); the first is the shipped default
 BINV_SHAPES = [(8, 128), (4, 256), (4, 128), (16, 64), (8, 64), (2, 512), (8, 256)]
@@ -227,15 +239,17 @@ def _limbs(rng, shape, dev):
     return torch.from_numpy(limbs.astype(np.int32)).to(dev)
 
 
-def air_cases(limbs, dev, t=1 << 16, k4=("mono", "class")):
+def air_cases(limbs, dev, t=1 << 16, k4=("mono", "class"), k3=True):
     """K3 and K4 at the main paths' shapes, one case at a time: (name,
-    kind, limb tensors, host arguments).  K3 is one class at T = 2^16 with
-    the real boundary columns; K4 (the shapes named in ``k4``) the mono
-    shape (the full domain D = 8T, next row +8, tables of period 128) and
-    one class (T, next row +1, 16-step patterns).  ``limbs(shape)`` makes
-    random limbs on ``dev``; a smaller ``t`` is for rehearsing on the CPU.
-    The 2^20-row path (T = 2^20) runs K3 (T-mode) and K4's class shape
-    (cls), not its mono shape."""
+    kind, limb tensors, host arguments).  K3 (with ``k3``) is one class at
+    T = 2^16 with the real boundary columns; K4 (the shapes named in
+    ``k4``) the mono shape (the full domain D = 8T, next row +8, tables of
+    period 128), one class (T, next row +1, 16-step patterns), and the
+    sharded mono's halo blocks "halo P=2" and "halo P=4" (D / P + 128 rows,
+    next row +8).  ``limbs(shape)`` makes random limbs on ``dev``; a
+    smaller ``t`` is for rehearsing on the CPU.  The 2^20-row path
+    (T = 2^20) runs K3 (T-mode) and K4's class shape (cls), not its mono
+    shape."""
     from zkvm_torch import vm
     from zkvm_torch.air.periodic import periodic_class_patterns, periodic_table
     from zkvm_torch.field.limbs import from_numpy
@@ -249,13 +263,17 @@ def air_cases(limbs, dev, t=1 << 16, k4=("mono", "class")):
     mask_cls = from_numpy(np.ascontiguousarray(mask[3].T), dev)
     ark_cls = from_numpy(np.ascontiguousarray(np.swapaxes(ark[3], -1, -2)), dev)
     rows = lambda k: limbs((8, k)).T.contiguous()  # (k, 8) limbs last
-    yield (f"K3 T={t}", "composition",
-           [limbs((28, 8, t)), mask_cls, ark_cls, limbs((8, t)), limbs((8, t)), limbs((8, t)), rows(20),
-            rows(len(bcols0)), rows(len(bcols0)), rows(len(bcols1)), rows(len(bcols1))],
-           (delta, bcols0, bcols1))
+    if k3:
+        yield (f"K3 T={t}", "composition",
+               [limbs((28, 8, t)), mask_cls, ark_cls, limbs((8, t)), limbs((8, t)), limbs((8, t)), rows(20),
+                rows(len(bcols0)), rows(len(bcols0)), rows(len(bcols1)), rows(len(bcols1))],
+               (delta, bcols0, bcols1))
     tab = from_numpy(periodic_table(t, 8), dev)
+    period = tab.shape[-1]
     for name, n, step, mk, ak in [("mono", 8 * t, 8, tab[0], tab[1:].contiguous()),
-                                  ("class", t, 1, mask_cls, ark_cls)]:
+                                  ("class", t, 1, mask_cls, ark_cls),
+                                  ("halo P=2", 4 * t + period, 8, tab[0], tab[1:].contiguous()),
+                                  ("halo P=4", 2 * t + period, 8, tab[0], tab[1:].contiguous())]:
         if name in k4:
             yield f"K4 {name} N={n} step={step}", "transition", [limbs((28, 8, n)), mk, ak, rows(20)], (delta, step)
 

@@ -98,7 +98,7 @@ def _code_lines(path, strip_header):
 # the example's originals lie outside zkvm/.
 _COPIES = [(f"prover/{m}.py",) * 2 for m in ("options", "proof", "transcript", "wire")] + [
     (m, m) for m in (
-        "verifier/verifier.py", "field/f128.py", "hash/blake3.py", "hash/rescue.py",
+        "config.py", "verifier/verifier.py", "field/f128.py", "hash/blake3.py", "hash/rescue.py",
         "air/layout.py", "air/constraints_golden.py", "ntt/golden.py", "utils/serde.py",
         "fhe/__init__.py", "fhe/lwe.py", "isa/__init__.py", "isa/opcodes.py", "isa/program.py",
         "processor/__init__.py", "processor/golden.py",

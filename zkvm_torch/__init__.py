@@ -17,12 +17,15 @@ Layer map (mirrors :mod:`zkvm`):
              golden BLAKE3 and Rescue
   air/       layout, golden constraints and periodic columns; the fused
              composition (CUDA kernel K3) and the merged transition (K4)
-  prover/    the T-mode and mono pipelines, FRI, multi-point evaluation,
-             options, proof, transcript and wire format
+  prover/    the T-mode, mono and cls pipelines, FRI, multi-point
+             evaluation, options, proof, transcript and wire format
+  dist/      mono sharded by rows over a torch.distributed group: mesh,
+             collectives, four-step NTT, ranks spawned on one host
   verifier/  the host verifier
   isa/, processor/, fhe/, utils/  assembler, golden processor, LWE, serde
   csrc/      the CUDA C++ sources, built with nvcc at first use
   convert.py build the port's trace, key and public inputs from plain data
+  config.py  the typed configuration (a copy of zkvm/config.py)
   vm.py      prove / verify a program
 
 Limbs are ``torch.int32`` tensors holding 16-bit values, laid out

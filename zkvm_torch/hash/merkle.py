@@ -10,6 +10,11 @@ BLAKE3 compress per level, for a CPU tensor.
 Heap layout (winter-crypto style): nodes[1] = root, children of i at 2i and
 2i+1, leaf j at nodes[N + j], nodes[0] unused; digests are 8 little-endian
 32-bit words (int32 bits), one row each.
+
+Over a mesh (``zkvm_torch.dist``), :func:`merkle_forest_flat` builds each
+rank's subtree and :class:`ShardedMerkleTree` joins the P subtree roots on
+the host (``ShardedMerkleTree`` and ``blake3_jax.merkle_forest_flat`` of
+the reference), with the root and paths of one tree over all the leaves.
 """
 
 from __future__ import annotations
@@ -22,9 +27,10 @@ import numpy as np
 import torch
 
 from zkvm_torch import kernels
+from zkvm_torch.dist import comm
 from zkvm_torch.hash.blake3 import CHUNK_END, CHUNK_START, IV, ROOT, merge
 from zkvm_torch.field.limbs import to_numpy
-from .blake3_t import compress, M32
+from .blake3_t import compress, hash_rows_t, M32
 
 _MERGE_FLAGS = CHUNK_START | CHUNK_END | ROOT
 
@@ -137,6 +143,59 @@ class DeviceMerkleTree:
         return [
             [arr[k * d + t].tobytes() for t in range(d)] for k in range(len(positions))
         ]
+
+
+def merkle_forest_flat(rows_t: torch.Tensor) -> torch.Tensor:
+    """This rank's subtree of a tree over row-sharded leaves: the BLAKE3
+    hashes of its (C, 8, L) rows (kernel K2), then the Merkle heap kernel
+    over them, (2L, 8).  No collective: a rank's rows are the leaves of one
+    subtree of the whole tree (``blake3_jax.merkle_forest_flat``, whose
+    forest layout puts rank q's heap at rows [2qL, 2(q+1)L))."""
+    return merkle_flat(hash_rows_t(rows_t).transpose(0, 1))
+
+
+class ShardedMerkleTree:
+    """A Merkle tree over row-sharded leaves: each rank keeps the heap of
+    its subtree on its device (:func:`merkle_forest_flat`); the P subtree
+    roots are gathered and the host builds the top.
+
+    Port of ``zkvm.hash.merkle.ShardedMerkleTree``: the root and the paths
+    are those of :class:`DeviceMerkleTree` over the same leaves.  It is
+    built and opened by every rank of the mesh at once (SPMD): the
+    constructor and :meth:`open_many` are collectives."""
+
+    def __init__(self, nodes: torch.Tensor, mesh):
+        self.nodes = nodes  # (2L, 8) this rank's subtree heap
+        self.mesh = mesh
+        self.local_n = int(nodes.shape[0]) // 2
+        self.n = self.local_n * mesh.size
+        roots = to_numpy(comm.all_gather(nodes[1:2], mesh, dim=0)).astype("<u4")  # (P, 8)
+        self.top = MerkleTree.from_leaves([roots[q].tobytes() for q in range(mesh.size)])
+
+    @property
+    def root(self) -> bytes:
+        return self.top.root
+
+    @property
+    def depth(self) -> int:
+        return self.n.bit_length() - 1
+
+    def open_many(self, positions: Sequence[int]) -> List[List[bytes]]:
+        """Authentication paths (leaf -> root sibling digests): the owner
+        rank's path in its subtree, then the host top's.  Every rank
+        gathers the same relative nodes of its heap; the owner's are kept."""
+        d_local = self.local_n.bit_length() - 1
+        local = [[] for _ in positions]
+        if d_local:
+            sub = DeviceMerkleTree(self.nodes)
+            flat = [i for p in positions for i in sub._path_indices(p % self.local_n)]
+            index = torch.tensor(flat, dtype=torch.int64, device=self.nodes.device)
+            arr = to_numpy(comm.all_gather(self.nodes.index_select(0, index)[None], self.mesh, dim=0))
+            arr = arr.astype("<u4")  # (P, Q d_local, 8)
+            for k, p in enumerate(positions):
+                rows = arr[p // self.local_n, k * d_local:(k + 1) * d_local]
+                local[k] = [row.tobytes() for row in rows]
+        return [path + self.top.open(p // self.local_n) for path, p in zip(local, positions)]
 
 
 # Copy of zkvm/hash/merkle.py:137-186 (the host tree the verifier opens),

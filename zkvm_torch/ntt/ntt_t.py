@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import collections
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -338,12 +339,14 @@ def _ntt_t_core(x, inverse, top=True, scale_r1=None):
     """Four-step transform of (..., 8, N) -> (..., 8, N), natural order.
 
     ``scale_r1`` = (row ladder (8, N2), lane ladder (8, N1)) premultiplies
-    the input by base^n, fused into the pass-1 kernel.  The iNTT's 1/N is
-    fused into the top-level mid-twiddle tensor."""
+    the input by base^n, fused into the pass-1 kernel; where pass 1
+    recurses it is a :class:`Recursed` form (:func:`premultiplier`).  The
+    iNTT's 1/N is fused into the top-level mid-twiddle tensor."""
     n = x.shape[-1]
     n2, n1 = _split(n)
     batch = tuple(x.shape[:-2])
     y = x.reshape(batch + (8, n2, n1)).transpose(-3, -2)  # (..., N2, 8, N1)
+    pre = _mid_twiddles(n, inverse, inverse and top, x.device)
     if n2 <= MAX_AXIS:
         r1 = None
         if scale_r1 is not None:
@@ -354,12 +357,44 @@ def _ntt_t_core(x, inverse, top=True, scale_r1=None):
         y = _axis_ntt(y, n2, inverse, r1=r1)  # [k2][limb][n1]
         y = y.transpose(-3, -1)  # (..., N1, 8, N2)
     else:
-        assert scale_r1 is None
+        inner = None
+        if scale_r1 is not None:
+            inner, pre = scale_r1
         y = y.transpose(-3, -1)  # (..., N1, 8, N2)
-        y = _ntt_t_core(y.contiguous(), inverse, top=False)
-    pre = _mid_twiddles(n, inverse, inverse and top, x.device)
+        y = _ntt_t_core(y.contiguous(), inverse, top=False, scale_r1=inner)
     y = _axis_ntt(y, n1, inverse, pre=pre)  # [k1][limb][k2]
     return y.transpose(-3, -2).reshape(batch + (8, n))
+
+
+class Recursed(NamedTuple):
+    """The premultiplier base^n of a transform whose pass 1 recurses, with
+    n = n1 + N1 n2: ``inner``, the recursing pass-1 transform's own
+    premultiplier (base^N1)^n2; and ``pre``, pass 2's packed mid twiddles
+    times base^n1, which is constant over each pass-1 transform and so
+    moves past it."""
+
+    inner: object
+    pre: torch.Tensor
+
+
+def premultiplier(base: torch.Tensor, n: int, inverse: bool, factor=None, top: bool = True):
+    """``factor`` * base^i (i < n; ``factor`` an (8,) limb tensor, 1 by
+    default) in the form :func:`_ntt_t_core`'s ``scale_r1`` takes for a
+    size-n (i)NTT: the two ladders of :func:`class_scale` where pass 1 is
+    one launch, else a :class:`Recursed` form, so the scale is fused
+    into the kernels at every size.  Holds an O(n) table where pass 1
+    recurses: cache it."""
+    n2, n1 = _split(n)
+    one = _one(base.device)
+    lad_lane = ladder_t(base, one if factor is None else factor, n1)  # factor * base^n1
+    base_m = _pow2k(base, n1.bit_length() - 1)  # base^N1
+    if n2 <= MAX_AXIS:
+        return ladder_t(base_m, one, n2), lad_lane
+    if n1 > 1:  # pass 2's rows are in its initial layout order
+        lad_lane = lad_lane.index_select(1, _layout_dev(n1, base.device)[0])
+    mid = unpack_t(_mid_twiddles(n, inverse, inverse and top, base.device))  # (N1, 8, N2)
+    pre = pack_t(ft.fmul(mid, lad_lane.transpose(0, 1)[:, :, None]))
+    return Recursed(premultiplier(base_m, n2, inverse, top=False), pre)
 
 
 def ntt_t(x: torch.Tensor) -> torch.Tensor:

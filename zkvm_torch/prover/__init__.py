@@ -1,5 +1,6 @@
 """Prover layer: the STARK pipeline on PyTorch and CUDA, in T-mode
-(``pipeline.py``) or full-LDE mode (``mono.py``).
+(``pipeline.py``), full-LDE mode (``mono.py``, also sharded by rows over a
+mesh) or the standard-layout class mode (``cls.py``).
 
 trace commit -> constraint composition -> composition commit -> OOD ->
 DEEP -> FRI -> queries, with the host-side Fiat-Shamir transcript of the

@@ -5,6 +5,8 @@ Each prover raises past its limit rather than run out of device memory:
 T-mode and the class prover hold one class of the LDE at a time and reach
 the 2^20-row linear regression (``zkvm_torch.examples.prove_lr_large``);
 mono keeps the whole LDE resident, and T >= 2^18 in mono is ROADMAP A8.
+Mono over a mesh of P ranks (``prove(..., mesh=...)``) holds D / P rows of
+the LDE a rank, so its limit is per rank: T <= MONO_MAX_TRACE_LENGTH * P.
 
 From ``CHUNK_T`` on, the stages of T-mode and the class prover take the
 reference's chunked forms (``zkvm/prover/pipeline.py:303,339,433``,

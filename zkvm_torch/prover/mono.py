@@ -20,7 +20,9 @@ query-row gather).  Unlike T-mode, the whole (28, 8, D) trace LDE and the
 
 The OOD frame, FRI and the proof assembly are T-mode's (``pipeline.py``).
 :func:`zkvm_torch.prover.pipeline.prove` runs these stages for
-``mode="mono"``; the proof bytes equal T-mode's.
+``mode="mono"``; the proof bytes equal T-mode's.  Given a mesh, it runs
+:class:`ShardedMonoStages`, the same stages on each rank's row block (the
+reference's mesh path), with the same bytes.
 """
 
 from __future__ import annotations
@@ -30,14 +32,18 @@ import functools
 import torch
 
 from zkvm_torch.air import composition as cp
+from zkvm_torch.air.constraints_dist import merged_transition_sharded
 from zkvm_torch.air.layout import NUM_EXEMPTIONS
 from zkvm_torch.air.periodic import periodic_table
 from zkvm_torch.air.transition import merged_transition
+from zkvm_torch.dist import comm
+from zkvm_torch.dist.mesh import row_block
+from zkvm_torch.dist.ntt_dist import coset_lde_sharded, intt_sharded
 from zkvm_torch.field import f128
 from zkvm_torch.field import f128t as ft
 from zkvm_torch.field.limbs import from_numpy, from_t, tensor, to_numpy
 from zkvm_torch.hash import blake3_t as b3t
-from zkvm_torch.hash.merkle import merkle_flat
+from zkvm_torch.hash.merkle import merkle_flat, merkle_forest_flat
 from zkvm_torch.ntt import ntt_t as nt
 from .pipeline import comp_columns, weighted_host
 
@@ -48,13 +54,17 @@ DEEP_COLUMN_BLOCK = 4
 
 
 @functools.lru_cache(maxsize=None)
-def _domain_constants(t_len: int, blowup: int, device):
+def _domain_constants(t_len: int, blowup: int, device, rank: int = 0, ranks: int = 1):
     """Proof-independent device tensors for one (T, blowup, device): the
     domain points x (8, D), the composition's domain factor
     ee = (x - e1)(x - e2) / (x^T - 1) (1/(x^T - 1) depends on i mod blowup
     only), the boundary factors i0 = 1/(x - 1) and i1 = 1/(x - x_last), the
-    inverse-offset ladder and the periodic tables."""
+    inverse-offset ladder and the periodic tables.  With ``ranks`` > 1,
+    x, ee, i0, i1 and the ladder are rank ``rank``'s block of D / ranks
+    rows (one batch inverse over the block), and the tables are whole."""
     d = t_len * blowup
+    local = d // ranks
+    lo = rank * local
     offset = f128.DOMAIN_OFFSET
     g_trace = f128.get_root_of_unity(t_len)
     s_t = pow(offset, t_len, f128.P)
@@ -65,8 +75,9 @@ def _domain_constants(t_len: int, blowup: int, device):
     x_last = pow(g_trace, t_len - NUM_EXEMPTIONS, f128.P)
 
     col = lambda v: ft.const_col(v, device)
-    x = nt.ladder_t_host(f128.get_root_of_unity(d), d, offset, device)  # (8, D)
-    inv_xt_t = tensor(inv_xt, device).transpose(0, 1).repeat(1, t_len)  # (8, D)
+    w_d = f128.get_root_of_unity(d)
+    x = nt.ladder_t_host(w_d, local, f128.fmul(offset, pow(w_d, lo, f128.P)), device)  # (8, D / ranks)
+    inv_xt_t = tensor(inv_xt, device).transpose(0, 1).repeat(1, local // blowup)  # (8, D / ranks)
     ee = ft.fmul(ft.fmul(ft.fsub(x, col(e1)), ft.fsub(x, col(e2))), inv_xt_t)
     inv = ft.batch_inverse(torch.stack([ft.fsub(x, col(1)), ft.fsub(x, col(x_last))]))
     tab = from_numpy(periodic_table(t_len, blowup), device)  # (9, 8, 16*blowup)
@@ -77,7 +88,7 @@ def _domain_constants(t_len: int, blowup: int, device):
         ee=ee,
         i0=inv[0],
         i1=inv[1],
-        inv_off_t=nt.ladder_t_host(f128.finv(offset), d, device=device),
+        inv_off_t=nt.ladder_t_host(f128.finv(offset), local, pow(f128.finv(offset), lo, f128.P), device),
         mask_tab=tab[0],
         ark_tab=tab[1:].contiguous(),
     )
@@ -109,9 +120,9 @@ class MonoStages:
     :meth:`trace_commit`) and the composition LDE (after
     :meth:`comp_commit`) on the device."""
 
-    def __init__(self, t_len, blowup, device):
+    def __init__(self, t_len, blowup, device, rank=0, ranks=1):
         self.blowup = blowup
-        self.dc = _domain_constants(t_len, blowup, device)
+        self.dc = _domain_constants(t_len, blowup, device, rank, ranks)
         self.d, self.g_trace = self.dc["d"], self.dc["g_trace"]
         self.lde = self.comp_lde = None
 
@@ -124,10 +135,13 @@ class MonoStages:
     def composition(self, coeffs_t, alphas, bv0, bb0, bv1, bb1, delta, bcols0, bcols1):
         """(8, D) composition evaluations over the domain."""
         dc = self.dc
-        q = merged_transition(self.lde, dc["mask_tab"], dc["ark_tab"], alphas, delta, self.blowup)
-        q = ft.fmul(q, dc["ee"])
+        q = ft.fmul(self._transition(alphas, delta), dc["ee"])
         q = ft.fadd(q, ft.fmul(cp.boundary_group(self.lde, bcols0, bv0, bb0), dc["i0"]))
         return ft.fadd(q, ft.fmul(cp.boundary_group(self.lde, bcols1, bv1, bb1), dc["i1"]))
+
+    def _transition(self, alphas, delta):
+        dc = self.dc
+        return merged_transition(self.lde, dc["mask_tab"], dc["ark_tab"], alphas, delta, self.blowup)
 
     def comp_commit(self, comp_t):
         """(8, D) evaluations -> (h coefficients (8, 8, T), heap); keeps the
@@ -163,3 +177,66 @@ class MonoStages:
         """The trace and composition rows at the query positions."""
         index = torch.tensor(positions, dtype=torch.int64, device=self.lde.device)
         return _rows(self.lde, index), _rows(self.comp_lde, index)
+
+
+class ShardedMonoStages(MonoStages):
+    """The full-LDE stages over a mesh (the reference's ``prove(...,
+    mesh=...)``): rank q holds rows [qL, (q+1)L) of the trace and
+    composition LDEs and of every domain constant, L = D / P, and every
+    rank runs the same transcript.
+
+    1. trace commit: its block of the trace rows, the sharded iNTT over T
+       and coset LDE (:mod:`zkvm_torch.dist.ntt_dist`, K1), K2 and the
+       Merkle heap over its rows (a subtree of
+       :class:`~zkvm_torch.hash.merkle.ShardedMerkleTree`);
+    2. composition: K4 on its block with a one-period halo
+       (:mod:`zkvm_torch.air.constraints_dist`), the boundary groups local;
+    3. composition commit: the sharded iNTT over D, the inverse-offset
+       ladder and the column split (local, as 8 | L), the sharded coset LDE;
+    4. the coefficients of both commitments are gathered whole for the OOD
+       frame, which runs as in one process;
+    5. DEEP: local and pointwise, one batch inverse a rank; the witness Y is
+       gathered whole, and FRI runs on it on every rank (its fold groups
+       cross the blocks);
+    7. queries: each rank gives the rows it owns, gathered."""
+
+    def __init__(self, t_len, blowup, mesh):
+        super().__init__(t_len, blowup, mesh.device, mesh.rank, mesh.size)
+        self.mesh = mesh
+
+    def trace_commit(self, cols_t):
+        """The whole (28, 8, T) trace -> (the whole coefficients, this
+        rank's subtree heap); keeps this rank's block of the LDE."""
+        coeffs = intt_sharded(row_block(self.mesh, cols_t), self.mesh)
+        self.lde = coset_lde_sharded(coeffs, self.blowup, self.mesh)
+        return comm.all_gather(coeffs, self.mesh, dim=-1), merkle_forest_flat(self.lde)
+
+    def _transition(self, alphas, delta):
+        dc = self.dc
+        return merged_transition_sharded(self.lde, dc["mask_tab"], dc["ark_tab"], alphas, delta,
+                                         self.blowup, self.mesh)
+
+    def comp_commit(self, comp_t):
+        """This rank's (8, L) evaluations -> (the whole h coefficients
+        (8, 8, T), this rank's subtree heap)."""
+        h_t = comp_columns(comp_t, self.dc["inv_off_t"], intt=lambda x: intt_sharded(x, self.mesh))
+        self.comp_lde = coset_lde_sharded(h_t, self.blowup, self.mesh)
+        return comm.all_gather(h_t, self.mesh, dim=-1), merkle_forest_flat(self.comp_lde)
+
+    def deep(self, coeffs_t, h_t, gammas, deltas, epsilons, points, ood):
+        """The whole DEEP witness Y (8, D), from every rank's block."""
+        return comm.all_gather(super().deep(coeffs_t, h_t, gammas, deltas, epsilons, points, ood),
+                               self.mesh, dim=-1)
+
+    def query_rows(self, coeffs_t, h_t, positions):
+        """The rows at the query positions, each from the rank that owns it:
+        every rank takes the same local rows, the owner's are kept."""
+        local = self.lde.shape[-1]
+        index = torch.tensor([p % local for p in positions], dtype=torch.int64, device=self.lde.device)
+        owners = [p // local for p in positions]
+        out = []
+        for lde in (self.lde, self.comp_lde):
+            rows = comm.all_gather(lde.index_select(-1, index)[None], self.mesh, dim=0)  # (P, C, 8, Q)
+            cols = from_t(to_numpy(rows))  # (P, C, Q)
+            out.append([[int(v) for v in cols[q, :, k]] for k, q in enumerate(owners)])
+        return tuple(out)

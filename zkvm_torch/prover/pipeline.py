@@ -27,7 +27,9 @@ prover (:mod:`.cls`, which shares the commitments, the DEEP and the query
 rows of :class:`ClassStages` and inverts per class instead of hoisting
 T-mode's domain factors).  T-mode and cls run up to T = 2^20, mono up to 2^17
 (:mod:`.limits`); from ``limits.CHUNK_T`` on, the stages take the
-reference's chunked forms, which change no value.
+reference's chunked forms, which change no value.  Over a mesh
+(``prove(..., mesh=...)``, :mod:`zkvm_torch.dist`) every rank of a
+``torch.distributed`` group runs mono on its row block, with the same bytes.
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ from zkvm_torch.air.periodic import periodic_class_patterns
 from zkvm_torch.field import f128t as ft
 from zkvm_torch.field.limbs import from_limbs, from_numpy, tensor, to_limbs, ttensor
 from zkvm_torch.hash import blake3_t as b3t
-from zkvm_torch.hash.merkle import DeviceMerkleTree, merkle_flat
+from zkvm_torch.hash.merkle import DeviceMerkleTree, ShardedMerkleTree, merkle_flat
 from zkvm_torch.ntt import ntt_t as nt
 from . import limits
 from . import multi_eval as me
@@ -179,12 +181,14 @@ def _stage_composition_t(coeffs_t, dct, alphas, bv0, bb0, bv1, bb1, delta, bcols
     return _interleave(q)
 
 
-def comp_columns(comp_t, inv_off_t):
+def comp_columns(comp_t, inv_off_t, intt=nt.intt_t):
     """(8, D) composition evaluations -> the coefficients of its
     NUM_COMP_COLUMNS column polynomials, (8, 8, T): a size-D iNTT, the
-    inverse-offset ladder, and h_k = coeffs[k::8]."""
+    inverse-offset ladder, and h_k = coeffs[k::8].  Over a mesh, ``intt``
+    is the sharded one and the blocks are a rank's: the split is local
+    because 8 divides the block (``zkvm/prover/pipeline.py:771-775``)."""
     t = comp_t.shape[-1] // NUM_COMP_COLUMNS
-    coeffs = ft.fmul(nt.intt_t(comp_t), inv_off_t)  # (8, D)
+    coeffs = ft.fmul(intt(comp_t), inv_off_t)  # (8, D)
     return coeffs.reshape(8, t, NUM_COMP_COLUMNS).permute(2, 0, 1).contiguous()
 
 
@@ -360,33 +364,57 @@ MAX_TRACE_LENGTH = {"tmode": limits.TMODE_MAX_TRACE_LENGTH, "mono": limits.MONO_
 
 
 def prove(trace, pub_inputs: PublicInputs, options: ProofOptions = ProofOptions(),
-          device="cuda", stage_seconds=None, mode="tmode", stage_peaks=None) -> Proof:
+          device=None, stage_seconds=None, mode=None, stage_peaks=None, mesh=None) -> Proof:
     """Prove an execution trace on ``device`` (the CUDA card unless the
     caller passes ``device="cpu"``; without a card a CUDA call raises).
 
-    ``mode``: ``"tmode"`` (the class-decomposed prover with the domain
-    factors hoisted into its constants), ``"mono"`` (the full-LDE prover
-    of :mod:`zkvm_torch.prover.mono`) or ``"cls"`` (the standard-layout
-    class prover of :mod:`zkvm_torch.prover.cls`, which inverts per
-    class); all three give the same bytes.  ``stage_seconds``: a dict to
-    receive each stage's wall-clock seconds, ``stage_peaks`` (on a card)
-    each stage's peak allocated device bytes; the device is synchronised
-    per stage only when one is given.  T-mode and cls take T <= 2^20,
-    mono T <= 2^17 (:mod:`.limits`)."""
+    ``mode``: ``"tmode"`` (the default; the class-decomposed prover with
+    the domain factors hoisted into its constants), ``"mono"`` (the
+    full-LDE prover of :mod:`zkvm_torch.prover.mono`) or ``"cls"`` (the
+    standard-layout class prover of :mod:`zkvm_torch.prover.cls`, which
+    inverts per class); all three give the same bytes.  ``mesh`` (a
+    :class:`zkvm_torch.dist.mesh.Mesh`; every rank of its group calls
+    ``prove`` at once) shards mono's stages by rows over the group, as
+    the reference's ``prove(..., mesh=...)`` does; the proof bytes are the
+    same at every group size, and every rank returns the proof.  A mesh
+    means mono (another ``mode`` raises) on the mesh's device.
+    ``stage_seconds``: a dict to receive each stage's wall-clock seconds,
+    ``stage_peaks`` (on a card) each stage's peak allocated device bytes;
+    the device is synchronised per stage only when one is given.  T-mode
+    and cls take T <= 2^20, mono T <= 2^17, and mono over P ranks
+    T <= 2^17 P (:mod:`.limits`)."""
     t_len = trace.length
+    ranks = 1
+    if mesh is not None:
+        if mode not in (None, "mono"):
+            raise ValueError(f"mode {mode!r} with a mesh: the sharded prover is mono's layout "
+                             "(the reference's mesh path); pass mode='mono' or no mode")
+        if device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"prove: device {device} differs from the mesh's {mesh.device}")
+        mode, device, ranks = "mono", mesh.device, mesh.size
+        if ranks & (ranks - 1) or t_len % ranks:
+            raise ValueError(f"prove: a mesh of {ranks} ranks; it must be a power of two dividing T = {t_len}")
+    mode = mode or "tmode"
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: expected one of {MODES}")
-    if t_len > MAX_TRACE_LENGTH[mode]:
+    limit = MAX_TRACE_LENGTH[mode] * (ranks if mode == "mono" else 1)
+    if t_len > limit:
         hint = "; mono at T >= 2^18 is ROADMAP A8, prove with mode='tmode'" if mode == "mono" else ""
-        raise ValueError(f"{mode}: trace length {t_len} > {MAX_TRACE_LENGTH[mode]} is not supported{hint}")
-    device = torch.device(device)
+        raise ValueError(f"{mode}: trace length {t_len} > {limit} is not supported{hint}")
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("prove: no CUDA card here; pass device='cpu' to prove on the CPU")
     blowup = options.blowup
     delta = pub_inputs.server_key.parameters.delta
     stage = _Stages(stage_seconds, device, stage_peaks)
+    tree = DeviceMerkleTree
     with stage("constants"):
-        if mode == "mono":
+        if mesh is not None:
+            from .mono import ShardedMonoStages
+
+            stages = ShardedMonoStages(t_len, blowup, mesh)
+            tree = functools.partial(ShardedMerkleTree, mesh=mesh)
+        elif mode == "mono":
             from .mono import MonoStages
 
             stages = MonoStages(t_len, blowup, device)
@@ -406,7 +434,7 @@ def prove(trace, pub_inputs: PublicInputs, options: ProofOptions = ProofOptions(
     with stage("trace_commit"):
         cols_t = from_numpy(_trace_limbs_t(trace), device)
         coeffs_t, trace_nodes = stages.trace_commit(cols_t)
-        trace_tree = DeviceMerkleTree(trace_nodes)
+        trace_tree = tree(trace_nodes)
         del cols_t
         trace_root = trace_tree.root
 
@@ -429,7 +457,7 @@ def prove(trace, pub_inputs: PublicInputs, options: ProofOptions = ProofOptions(
     # ---- 3. composition commitment -----------------------------------
     with stage("comp_commit"):
         h_t, comp_nodes = stages.comp_commit(comp_t)
-        comp_tree = DeviceMerkleTree(comp_nodes)
+        comp_tree = tree(comp_nodes)
         del comp_t
         comp_root = comp_tree.root
     coin.reseed(comp_root)

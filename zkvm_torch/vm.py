@@ -7,9 +7,12 @@ it cannot be built, or with ``use_native=False``), builds the 28-column
 trace and proves it on the CUDA card (``device="cpu"`` proves on the
 CPU), with the T-mode pipeline, or for ``mode="mono"`` the full-LDE one,
 or for ``mode="cls"`` the standard-layout class prover (T-mode and cls up
-to T = 2^20, mono up to 2^17); all three give the same bytes.  It uses the
-reference parameter preset by default (32 queries, blowup 8, grinding 0,
-FRI fold 8, remainder degree <= 127).
+to T = 2^20, mono up to 2^17); all three give the same bytes.  With a
+``config`` whose mesh has more than one row, every rank of an initialised
+``torch.distributed`` group proves mono sharded by rows (:mod:`zkvm_torch.
+dist`), with the same bytes.  It uses the reference parameter preset by
+default (32 queries, blowup 8, grinding 0, FRI fold 8, remainder degree
+<= 127), or the config's.
 
 The host-side types a caller builds its inputs from (program, inputs, FHE
 key and parameters, public inputs and the AIR's assertions) come from the
@@ -22,6 +25,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 from zkvm_torch.air.layout import PublicInputs, get_assertions
+from zkvm_torch.config import ZkVmConfig
+from zkvm_torch.dist.mesh import make_mesh
 from zkvm_torch.fhe import ServerKey
 from zkvm_torch.fhe.lwe import DEMO_PARAMETERS
 from zkvm_torch.isa import Program, ProgramInputs
@@ -44,32 +49,50 @@ def read_add_chain(n_ops: int, key) -> Tuple[Program, ProgramInputs]:
     return Program.compile("\n".join(ops)), ProgramInputs(tuple([1] * (n_ops // 2 + 2)), (), key)
 
 
-def run(program: Program, inputs: ProgramInputs, use_native: bool = True):
+def run(program: Program, inputs: ProgramInputs, use_native: bool = True, seed: int = DEFAULT_SEED):
     """Execute a program; returns its ExecutionTrace: by the native trace
     generator when it is available and ``use_native`` is true, else by the
-    golden processor (the same trace)."""
+    golden processor (the same trace).  ``seed``: the randomizer rows'."""
     if use_native and native_available():
-        return NativeProcessor.run(program, inputs, seed=DEFAULT_SEED)
-    return Processor.run(program, inputs).trace(seed=DEFAULT_SEED)
+        return NativeProcessor.run(program, inputs, seed=seed)
+    return Processor.run(program, inputs).trace(seed=seed)
 
 
 def prove(
     program: Program,
     inputs: ProgramInputs,
     options: Optional[ProofOptions] = None,
-    device="cuda",
-    mode="tmode",
-    use_native: bool = True,
+    device=None,
+    mode=None,
+    use_native: Optional[bool] = None,
+    config: Optional[ZkVmConfig] = None,
 ) -> Tuple[tuple, tuple, Proof]:
     """Prove a program run; returns (program_hash, stack_outputs, proof).
 
-    ``mode``: ``"tmode"``, ``"mono"`` or ``"cls"`` (see
-    :func:`prover.pipeline.prove`);
-    ``use_native``: trace with the native generator when it is available
-    (see :func:`run`)."""
-    trace = run(program, inputs, use_native)
+    ``mode``: ``"tmode"`` (the default), ``"mono"`` or ``"cls"`` (see
+    :func:`prover.pipeline.prove`); ``use_native``: trace with the native
+    generator when it is available (see :func:`run`).  ``config``
+    (:class:`zkvm_torch.config.ZkVmConfig`, as ``zkvm/vm.py:29-62`` reads
+    it): the options, ``use_native`` and the randomizer seed where they are
+    not given; ``config.mesh.rows > 1`` proves mono sharded over the
+    initialised process group (every rank calls ``prove``; it raises if no
+    group is initialised or its size differs).  The profiler is not ported
+    (ROADMAP A7), so ``config.runtime.profile`` raises."""
+    cfg = config or ZkVmConfig()
+    if cfg.runtime.profile:
+        raise NotImplementedError("config.runtime.profile: the profiler is not ported yet (ROADMAP A7)")
+    if options is None:
+        options = cfg.proof
+    if use_native is None:
+        use_native = cfg.runtime.use_native_trace
+    seed = cfg.runtime.seed if cfg.runtime.seed is not None else DEFAULT_SEED
+    mesh = None
+    if cfg.mesh.rows > 1:
+        mesh = make_mesh(cfg.mesh.rows, axis=cfg.mesh.axis_name, device=device)
+        device = None
+    trace = run(program, inputs, use_native, seed)
     pub = PublicInputs(program.hash, trace.outputs, inputs.server_key)
-    proof = stark_prove(trace, pub, options or ProofOptions(), device=device, mode=mode)
+    proof = stark_prove(trace, pub, options, device=device, mode=mode, mesh=mesh)
     return program.hash, trace.outputs, proof
 
 
