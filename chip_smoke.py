@@ -29,13 +29,22 @@ Phases, each printing one JSON line:
       2^19), (16, 8, 2^16), (16, 8, 2^20), (3, 8, 2^16), (8, 2^16), and
       the 2^20-row proves' (3, 8, 2^20), (8, 2^20)), with zeros and the
       edge values mixed in, its wrapper under the sync check, and its
-      addition chain for a^(p-2) alone against pow on the host;
+      addition chain for a^(p-2) alone against pow on the host; then mono's
+      shapes at T = 2^20 (D = 2^23; kernel_bench's *_MONO_CASES): K1 at the
+      launches of the coset LDE of 28 columns, K2 at C = 28 and 8 over 2^23
+      lanes, K4 over the 2^23-row domain at step 8 and the batch inverse at
+      (3, 8, 2^23) and (2, 8, 2^23), each over the whole input, its plain
+      version on windows of it (K1's first and last batch rows, three
+      windows of lanes, K4's first and last 2^16 output rows with the
+      wrap), inputs drawn on the card;
   (d) conformance: the T = 128 program of conformance/vectors_e2e.json,
       proved in all three modes (T-mode, mono, cls), whose roots and proof
       bytes must match the vector byte for byte;
   (e) the bench's primary configuration: a READ/ADD chain of 20000 ops
       (T = 2^16, D = 2^19), proved in T-mode once to warm up and once
-      timed, with per-stage seconds; K1, K2, K3 and the Merkle heap must
+      timed, with per-stage seconds and the kernel-health report of the
+      timed prove (zkvm_torch.utils.kernel_health: every kernel's launches,
+      by shape; so in (f) and (e2)); K1, K2, K3 and the Merkle heap must
       have launched in the timed prove (K1's launches also by shape), the
       batch inverse exactly 8 times (the DEEP, once a class), K4 never;
       the proof must verify and fail with one byte flipped;
@@ -58,11 +67,14 @@ Phases, each printing one JSON line:
       and 8 in the steady one; K1, K2, K3 and the Merkle heap must have
       launched in the steady prove (printed by shape), the Merkle heap in
       at most ceil(23 / 10) launches a tree of 2^23 leaves.
-      Then the same trace proved once in cls (its constants built in that
-      prove), whose bytes must equal the T-mode proof's, with each stage's
-      seconds and peaks and its launches (K4 8, the batch inverse 16).
+      Then the same trace proved once in cls and once in mono (each with
+      its constants built in that prove), whose bytes must equal the
+      T-mode proof's, with each stage's seconds and peaks and its launches
+      by shape (cls: K4 8, the batch inverse 16; mono: K4 once over the
+      2^23-row domain, the batch inverse twice, no K3).
       Before the 2^20 proves, two checks: at T = 2^18 the proof with the chunked stage
-      forms (the default there) equals the one without them; at T = 2^17
+      forms (the default there) equals the one without them and mono's (in
+      row blocks there); at T = 2^17
       and 2^20, multi_eval_rows of two random columns at two random points
       equals a host Horner evaluation.  Phase (c) also runs K1, K2, K3,
       K4's class shape, the Merkle heap and the batch inverse at this
@@ -82,8 +94,8 @@ Phases, each printing one JSON line:
       (kernel_bench's *_DIST_*, K4's halo blocks).
 
 Then a {"kernels": [...]} line (each kernel's launches by path: the timed
-proves of (e), (f) and (e2), the cold, steady and cls proves of (g), and
-every rank of (h)), and last
+proves of (e), (f) and (e2), the cold, steady, cls and mono proves of (g),
+and every rank of (h)), and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failure raises and exits non-zero; there is no CPU fallback.
 """
@@ -107,10 +119,10 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from kernel_bench import (BINV_CASES, K1_CASES, K1_DIST_CASES, K1_LARGE_CASES, K2_CASES,  # noqa: E402
-                          K2_DIST_CASES, K2_LARGE_CASES, K3_LARGE_T, MERKLE_CASES, MERKLE_DIST_CASES,
-                          MERKLE_LARGE_CASES, air_calls, air_cases, binv_name, capture_entry, cuda_ms,
-                          ptxas_summary, sass_opcodes)
+from kernel_bench import (BINV_CASES, BINV_MONO_CASES, K1_CASES, K1_DIST_CASES, K1_LARGE_CASES,  # noqa: E402
+                          K1_MONO_CASES, K2_CASES, K2_DIST_CASES, K2_LARGE_CASES, K2_MONO_CASES, K3_LARGE_T,
+                          MERKLE_CASES, MERKLE_DIST_CASES, MERKLE_LARGE_CASES, MONO_T, air_calls, air_cases,
+                          binv_name, capture_entry, cuda_ms, ptxas_summary, sass_opcodes)
 from zkvm_torch import kernels, vm  # noqa: E402
 from zkvm_torch.dist import multihost  # noqa: E402
 from zkvm_torch.dist import run as dist_run  # noqa: E402
@@ -126,6 +138,7 @@ from zkvm_torch.ntt import ntt_t as nt  # noqa: E402
 from zkvm_torch.prover import limits, prove  # noqa: E402
 from zkvm_torch.prover import multi_eval as me  # noqa: E402
 from zkvm_torch.runtime import native_available  # noqa: E402
+from zkvm_torch.utils import kernel_health  # noqa: E402
 from zkvm_torch.verifier import VerificationError  # noqa: E402
 
 DEV = torch.device("cuda", 0)
@@ -195,6 +208,21 @@ def rand_limbs(rng, shape, pair=0, spread=False):
     return from_numpy(limbs, DEV)
 
 
+def dev_limbs(seed, shape):
+    """rand_limbs(spread=True) for the 2^23-row shapes (~1.9e9 limbs, which
+    numpy draws in tens of seconds): drawn on the card by torch's generator
+    from ``seed``, every row's lane s k holding EDGES[(k + r) % 5]."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    x = torch.randint(0, 1 << 16, shape, generator=gen, device=DEV, dtype=torch.int32)
+    x[..., 7, :] %= 0xFFFF
+    rows = x.view(-1, 8, shape[-1])
+    lanes = torch.arange(0, shape[-1], min(61, max(1, shape[-1] // 5)), device=DEV)
+    which = (torch.arange(len(lanes), device=DEV)[None] + torch.arange(rows.shape[0], device=DEV)[:, None]) % 5
+    rows[:, :, lanes] = torch.from_numpy(EDGE_LIMBS.astype(np.int32)).to(DEV)[which].transpose(1, 2)
+    return x
+
+
 def bound_ms(nbytes, ops):
     """The larger of the memory and the integer-operation time, in ms."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
@@ -205,14 +233,19 @@ def max_abs_err(a, b):
     return int((a.long() - b.long()).abs().max().item())
 
 
-def compare(name, kernel_fn, plain_fn, nbytes, ops, reps=20, plain_reps=2, entry_fn=None):
+def compare(name, kernel_fn, plain_fn, nbytes, ops, reps=20, plain_reps=2, entry_fn=None, windows=None):
     """Kernel vs plain on the card: exact equality, both times and the
     bound of the work (``nbytes`` moved, ``ops`` 32-bit operations).  With
     ``entry_fn`` (the C entry alone), ``ms`` is its time and the wrapper's
     is ``wrapper_ms``.  With ``plain_reps=0`` the plain time is that of the
     one call that the check makes (for a plain version that takes
-    seconds)."""
+    seconds).  With ``windows`` = (description, pick), for a shape whose
+    plain version does not fit the card: ``plain_fn`` computes the plain
+    version on those windows of the input alone, and ``pick`` takes the
+    same windows of the kernel's output over the whole input."""
     got = kernel_fn()
+    if windows is not None:
+        got = windows[1](got)
     want, plain_once_ms = timed_once(plain_fn)
     err = max_abs_err(got, want)
     if err != 0 or got.shape != want.shape:
@@ -225,6 +258,8 @@ def compare(name, kernel_fn, plain_fn, nbytes, ops, reps=20, plain_reps=2, entry
         ms, host_ms = cuda_ms(entry_fn, reps)
     plain_ms = cuda_ms(plain_fn, plain_reps)[0] if plain_reps else plain_once_ms
     bound, bound_by = bound_ms(nbytes, ops)
+    if windows is not None:
+        extra["plain_on"] = windows[0]
     emit({"phase": "kernels", "case": name, "max_abs_err": err, "ms": ms, "host_ms": host_ms, **extra,
           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by})
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
@@ -449,7 +484,95 @@ def phase_kernels():
     if wrong:
         raise AssertionError(f"the batch inverse's addition chain differs from pow in {wrong} elements")
     torch.cuda.empty_cache()
+    # mono's shapes at T = 2^20: the max_abs_err of each kernel covers them
+    for name, res in mono_kernels().items():
+        results[name]["max_abs_err"] = max([results[name]["max_abs_err"]] + [r["max_abs_err"] for r in res])
     return results
+
+
+LANE_WINDOW = 1 << 17  # lanes a window, where the plain version of a 2^23-lane case does not fit
+K4_WINDOW = 1 << 16  # K4's output rows a window, on its 2^23-row domain
+
+
+def lane_windows(n):
+    """(description, lane index) of the first, a middle and the last
+    LANE_WINDOW lanes of n."""
+    starts = (0, n // 2, n - LANE_WINDOW)
+    idx = torch.cat([torch.arange(a, a + LANE_WINDOW, device=DEV) for a in starts])
+    return ", ".join(f"lanes [{a}, {a + LANE_WINDOW})" for a in starts), idx
+
+
+def k4_window_plain(args, host, start, rows):
+    """K4's plain version on output rows [start, start + rows) of the
+    domain: on those rows and one table period after them (wrapping at N;
+    the halo of air/constraints_dist.py), the first ``rows`` kept."""
+    lde, mask = args[0], args[1]
+    idx = torch.arange(start, start + rows + mask.shape[-1], device=DEV) % lde.shape[-1]
+    return tr.merged_transition_plain(lde.index_select(-1, idx), *args[1:], *host)[:, :rows]
+
+
+def mono_kernels():
+    """Phase (c) at mono's shapes at T = 2^20 (D = 2^23; kernel_bench's
+    *_MONO_CASES): each kernel over the whole input, held against its plain
+    version on windows of it (the plain versions' int64 transients over
+    the whole input do not fit the card): K1 on the first and last rows of
+    its batch axis, K2 and the batch inverse on three windows of lanes, K4
+    on the first and last K4_WINDOW output rows, the wrap included.  Returns
+    each kernel's results."""
+    seeds = itertools.count(2026)
+    lib = kernels.lib()
+    out = {"ntt_stages": [], "blake3_rows": [], "transition": [], "batch_inverse": []}
+    for m, b, nl, variants in K1_MONO_CASES:
+        tw = nt._stage_twiddles_dev(m, False, DEV)
+        y = dev_limbs(next(seeds), (b, m, 8, nl))
+        w = max(1, min(b // 2, (1 << 22) // (m * nl)))  # batch rows a window: ~2^22 elements
+        pick = lambda o: torch.cat([o[:w], o[-w:]])
+        for variant in variants:
+            pre = nt.pack_t(dev_limbs(next(seeds), (m, 8, nl))) if variant == "full" else None
+            r1 = (dev_limbs(next(seeds), (8, m)), dev_limbs(next(seeds), (8, nl))) if variant == "r1" else None
+            out["ntt_stages"].append(compare(
+                f"K1 M={m} B={b} NL={nl} {variant}", lambda: nt.pease_stages(y, tw, pre=pre, r1=r1),
+                lambda: k1_plain(pick(y), tw, pre, r1), *_k1_work(b, m, nl, variant), plain_reps=0,
+                windows=(f"batch rows [0, {w}), [{b - w}, {b})", pick)))
+        del y, pre, r1
+        torch.cuda.empty_cache()
+    for c, n in K2_MONO_CASES:
+        x = dev_limbs(next(seeds), (c, 8, n))
+        desc, idx = lane_windows(n)
+        cname, cargs, keep = capture_entry(kernels, b3t.launch_rows, x)
+        out["blake3_rows"].append(compare(
+            f"K2 C={c} N={n}", lambda: b3t.hash_rows_t(x), lambda: b3t.hash_rows_plain(x.index_select(-1, idx)),
+            (c + 1) * LIMB_BYTES * n, (-(-c // 4) * BLAKE3_BLOCK_OPS + BLAKE3_PACK_OPS * c) * n, plain_reps=0,
+            entry_fn=lambda: kernels.check(getattr(lib, cname)(*cargs), cname),
+            windows=(desc, lambda h: h.index_select(-1, idx))))
+        del x, cargs, keep
+        torch.cuda.empty_cache()
+    for name, kind, args, host in air_cases(lambda shape: dev_limbs(next(seeds), shape), DEV, MONO_T, ("mono",),
+                                            k3=False):
+        n, rows = args[0].shape[-1], K4_WINDOW
+        cname, cargs, keep = capture_entry(kernels, tr.launch_transition, *args, *host)
+        out["transition"].append(compare(
+            name, lambda: tr.merged_transition(*args, *host),
+            lambda: torch.cat([k4_window_plain(args, host, 0, rows), k4_window_plain(args, host, n - rows, rows)], -1),
+            *_air_work(kind, args, host), plain_reps=0,
+            entry_fn=lambda: kernels.check(getattr(lib, cname)(*cargs), cname),
+            windows=(f"output rows [0, {rows}), [{n - rows}, {n})",
+                     lambda q: torch.cat([q[:, :rows], q[:, -rows:]], -1))))
+        del args, cargs, keep
+        torch.cuda.empty_cache()
+    for shape in BINV_MONO_CASES:
+        x = dev_limbs(next(seeds), shape)
+        n_elems = x.numel() // 8
+        desc, idx = lane_windows(shape[-1])
+        cname, cargs, keep = capture_entry(kernels, ft.launch_batch_inverse, x)
+        out["batch_inverse"].append(compare(
+            binv_name(shape), lambda: ft.batch_inverse(x), lambda: ft.batch_inverse_plain(x.index_select(-1, idx)),
+            2 * LIMB_BYTES * n_elems, BINV_MULS * OPS_MUL * n_elems, plain_reps=0,
+            entry_fn=lambda: kernels.check(getattr(lib, cname)(*cargs), cname),
+            windows=(desc, lambda o: o.index_select(-1, idx))))
+        del x, cargs, keep
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_conformance():
@@ -473,47 +596,23 @@ def phase_conformance():
 
 
 MODES = ("tmode", "mono", "cls")
-COUNTERS = {"ntt_stages": nt, "blake3_rows": b3t, "merkle": mk, "composition": cp, "transition": tr,
-            "batch_inverse": ft}
 # the kernels each path's run must have launched, and the launch counts it
 # must have made exactly (T-mode: the batch inverse once a class in the DEEP,
 # and once more for the constants of a cold prove; the cls path: K4 once a
-# class, the batch inverse twice a class, no K3)
+# class, the batch inverse twice a class, no K3; cold mono at T = 2^20: K4
+# once over the domain, the batch inverse for the constants and the DEEP)
+MONO_KERNELS = ("ntt_stages", "blake3_rows", "merkle", "transition", "batch_inverse")
 PATH_KERNELS = {"tmode": ("ntt_stages", "blake3_rows", "merkle", "composition", "batch_inverse"),
-                "mono": ("ntt_stages", "blake3_rows", "merkle", "transition", "batch_inverse"),
-                "cls": ("ntt_stages", "blake3_rows", "merkle", "transition", "batch_inverse"),
+                "mono": MONO_KERNELS,
+                "cls": MONO_KERNELS,
                 "lr_large_cold": ("batch_inverse",),
                 "lr_large": ("ntt_stages", "blake3_rows", "merkle", "composition", "batch_inverse"),
-                "lr_large_cls": ("ntt_stages", "blake3_rows", "merkle", "transition", "batch_inverse")}
+                "lr_large_cls": MONO_KERNELS,
+                "lr_large_mono": MONO_KERNELS}
 CLS_EXACT = {"transition": 8, "batch_inverse": 16, "composition": 0}
 PATH_EXACT = {"tmode": {"transition": 0, "batch_inverse": 8}, "mono": {"composition": 0}, "cls": CLS_EXACT,
               "lr_large_cold": {"batch_inverse": 9}, "lr_large": {"batch_inverse": 8, "transition": 0},
-              "lr_large_cls": CLS_EXACT}
-
-
-def reset_counts():
-    """Every launch count to 0 (all but K1 also count by shape; K1 only by
-    shape)."""
-    for mod in (b3t, mk, cp, tr, ft):
-        mod.launches = 0
-    for counter in (nt.launches, b3t.launches_by_shape, cp.launches_by_shape, tr.launches_by_shape,
-                    ft.launches_by_shape, mk.launches_by_size, mk.trees_by_size):
-        counter.clear()
-
-
-def read_counts():
-    """(launches per kernel, launches by shape per kernel)."""
-    launches = {name: mod.launches for name, mod in COUNTERS.items()}
-    by_shape = {
-        "ntt_stages": {f"M={m} B={b} NL={nl} {v}": n for (m, b, nl, v), n in sorted(nt.launches.items())},
-        "blake3_rows": {f"C={c} N={n}": k for (c, n), k in sorted(b3t.launches_by_shape.items())},
-        "composition": {f"T={t}": k for t, k in sorted(cp.launches_by_shape.items())},
-        "transition": {f"N={n} step={st}": k for (n, st), k in sorted(tr.launches_by_shape.items())},
-        "batch_inverse": {f"R={r} N={n}": k for (r, n), k in sorted(ft.launches_by_shape.items())},
-        "merkle": {f"N={n} trees={mk.trees_by_size[n]}": k for n, k in sorted(mk.launches_by_size.items())},
-    }
-    launches["ntt_stages"] = sum(by_shape["ntt_stages"].values())
-    return launches, by_shape
+              "lr_large_cls": CLS_EXACT, "lr_large_mono": {"composition": 0, "transition": 1, "batch_inverse": 2}}
 
 
 def check_path(path, launches, by_shape):
@@ -547,14 +646,15 @@ def phase_bench(mode):
     warm = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
+    kernel_health.reset()
     stages = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     proof = prove(trace, pub, device=DEV, stage_seconds=stages, mode=mode)
     torch.cuda.synchronize()
     steady = time.perf_counter() - t0
-    launches, by_shape = read_counts()
+    health = kernel_health.report()
+    launches, by_shape = health["launches"], health["launches_by_shape"]
     peak = torch.cuda.max_memory_allocated()
 
     data = proof.to_wire_bytes()
@@ -576,9 +676,7 @@ def phase_bench(mode):
           "trace_length": trace.length, "lde_domain": trace.length * 8, "trace_gen_seconds": trace_seconds,
           "warmup_prove_seconds": warm, "prove_seconds": steady, "rows_per_sec": trace.length / steady,
           "stage_seconds": stages, "proof_bytes": len(data), "verified": True, "tampered_rejected": rejected,
-          "launches": launches, "k1_launches_by_shape": by_shape["ntt_stages"],
-          "launches_by_shape": {k: by_shape[k] for k in ("transition", "batch_inverse")},
-          "peak_mem_gib": peak / 2**30, **extra})
+          **health, "k1_launches_by_shape": by_shape["ntt_stages"], "peak_mem_gib": peak / 2**30, **extra})
     if not rejected:
         raise AssertionError(f"{mode}: the verifier accepted a tampered proof")
     check_path(mode, launches, by_shape)
@@ -613,11 +711,12 @@ def check_multi_eval(rng, t):
 def phase_lr_large(card):
     """(g): the linear regression over encrypted inputs at T = 2^20, after
     the chunked-forms and multi-eval checks.  Returns the launch counts of
-    its paths: the cold and the steady T-mode prove, and the cls prove."""
+    its paths: the cold and the steady T-mode prove, the cls prove and the
+    mono prove."""
     if not native_available():
         raise AssertionError("lr_large: the native trace generator did not build (g++)")
     # (i) at T = 2^18 the chunked forms are the default; without them the
-    # proof must be the same bytes
+    # proof must be the same bytes, and so must mono's (in row blocks)
     small = LrRun(18)
     small.prepare()
     chunked = small.prove(DEV)
@@ -627,15 +726,21 @@ def phase_lr_large(card):
         unchunked = small.prove(DEV)
     finally:
         limits.CHUNK_T = saved
+    mono = small.prove(DEV, "mono")
     same = chunked[0].to_wire_bytes() == unchunked[0].to_wire_bytes()
-    emit({"phase": "lr_large", "check": "chunked proof equals unchunked", "t": small.trace.length,
-          "equal": same, "chunked_seconds": chunked[1], "unchunked_seconds": unchunked[1],
-          "chunked_peak_gib": gib(chunked[4]), "unchunked_peak_gib": gib(unchunked[4]),
+    mono_same = mono[0].to_wire_bytes() == chunked[0].to_wire_bytes()
+    emit({"phase": "lr_large", "check": "chunked proof equals unchunked and mono", "t": small.trace.length,
+          "equal": same, "mono_equal": mono_same, "chunked_seconds": chunked[1],
+          "unchunked_seconds": unchunked[1], "mono_seconds": mono[1],
+          "chunked_peak_gib": gib(chunked[4]), "unchunked_peak_gib": gib(unchunked[4]), "mono_peak_gib": gib(mono[4]),
           "chunked_stage_peak_gib": {k: gib(v) for k, v in chunked[3].items()},
-          "unchunked_stage_peak_gib": {k: gib(v) for k, v in unchunked[3].items()}, "card": card})
+          "unchunked_stage_peak_gib": {k: gib(v) for k, v in unchunked[3].items()},
+          "mono_stage_peak_gib": {k: gib(v) for k, v in mono[3].items()}, "card": card})
     if not same:
         raise AssertionError("the chunked and unchunked T = 2^18 proofs differ")
-    del small, chunked, unchunked
+    if not mono_same:
+        raise AssertionError("the mono and T-mode T = 2^18 proofs differ")
+    del small, chunked, unchunked, mono
     # (ii) the multi-point evaluation is exact at scale
     rng = np.random.default_rng(17)
     for t in (1 << 17, 1 << 20):
@@ -648,32 +753,37 @@ def phase_lr_large(card):
           "trace_length": run.trace.length, "lde_domain": 8 * run.trace.length, "native_trace": True,
           **{f"{k}_seconds": v for k, v in run.seconds.items()}, "card": card})
     # the cold T-mode prove (the constants built), the steady one, then the
-    # same trace in cls; every count set to 0 before each, read after it
-    counts = {}
+    # same trace in cls and in mono (each with its constants built); every
+    # count set to 0 before each, read after it
+    counts, proofs = {}, {}
     for path, name, mode in (("lr_large_cold", "cold", "tmode"), ("lr_large", "steady", "tmode"),
-                             ("lr_large_cls", "cls", "cls")):
-        reset_counts()
-        proof, seconds, stages, peaks, peak = run.prove(DEV, mode)
-        counts[path] = read_counts()
+                             ("lr_large_cls", "cls", "cls"), ("lr_large_mono", "mono", "mono")):
+        if mode == "mono":
+            torch.cuda.empty_cache()  # the whole (28, 8, 2^23) LDE and its transform's copies
+        kernel_health.reset()
+        proofs[path], seconds, stages, peaks, peak = run.prove(DEV, mode)
+        counts[path] = kernel_health.launches(), kernel_health.launches_by_shape()
         emit({"phase": "lr_large", "prove": name, "mode": mode, "seconds": seconds,
               "rows_per_sec": run.trace.length / seconds, "stage_seconds": stages,
               "stage_peak_gib": {k: gib(v) for k, v in peaks.items()}, "peak_gib": gib(peak),
-              "launches": counts[path][0], "card": card})
+              "launches": counts[path][0], "launches_by_shape": counts[path][1], "card": card})
         check_path(path, *counts[path])
         if path == "lr_large":
             # the trace and the composition trees have 2^23 leaves each:
             # the launches the Merkle entry reported for them, a tree
-            steady, trees, merkle_2_23 = proof, mk.trees_by_size[1 << 23], mk.launches_by_size[1 << 23]
-    same = proof.to_wire_bytes() == steady.to_wire_bytes()
-    emit({"phase": "lr_large", "cls_equals_tmode": same, "card": card})
-    if not same:
-        raise AssertionError("the cls and T-mode proofs of the 2^20-row trace differ")
+            trees, merkle_2_23 = mk.trees_by_size[1 << 23], mk.launches_by_size[1 << 23]
+    steady = proofs["lr_large"].to_wire_bytes()
+    for path in ("lr_large_cls", "lr_large_mono"):
+        same = proofs[path].to_wire_bytes() == steady
+        emit({"phase": "lr_large", "check": f"{path} equals the steady T-mode proof", "equal": same, "card": card})
+        if not same:
+            raise AssertionError(f"the {path} and T-mode proofs of the 2^20-row trace differ")
     launches, by_shape = counts["lr_large"]
-    clear, verify_seconds, rejected = run.check(steady)
+    clear, verify_seconds, rejected = run.check(proofs["lr_large"])
     per_tree, rest = divmod(merkle_2_23, max(trees, 1))
     emit({"phase": "lr_large", "decrypted": clear, "expected": run.expected, "verified": True,
           "verify_seconds": verify_seconds, "tampered_rejected": rejected,
-          "proof_bytes": len(steady.to_wire_bytes()), "launches": launches, "launches_by_shape": by_shape,
+          "proof_bytes": len(steady), "launches": launches, "launches_by_shape": by_shape,
           "merkle_launches_per_tree_2^23": per_tree, "card": card})
     if trees != 2 or rest or not 0 < per_tree <= -(-23 // 10):
         raise AssertionError(f"the Merkle heap of 2^23 leaves: {trees} trees in the prove, "
@@ -681,8 +791,6 @@ def phase_lr_large(card):
     return {path: launches for path, (launches, _) in counts.items()}
 
 
-# the kernels every rank of the sharded mono prove must launch
-DIST_KERNELS = ("ntt_stages", "blake3_rows", "merkle", "transition", "batch_inverse")
 DIST_TIMEOUT = 300.0  # seconds for one spawned run
 
 
@@ -709,7 +817,7 @@ def phase_dist(card, want):
     Returns the launches summed over every rank of every run."""
     key = vm.ServerKey(vm.DEMO_PARAMETERS, random.Random(3))
     torch.cuda.empty_cache()
-    total = {name: 0 for name in COUNTERS}
+    total = {name: 0 for name in kernel_health.FAMILIES}
     for world, backend in dist_runs():
         device = None if backend == "nccl" else str(DEV)
         t0 = time.perf_counter()
@@ -731,7 +839,7 @@ def phase_dist(card, want):
         if not same:
             raise AssertionError(f"dist: a proof over {world} {backend} ranks differs from phase (e)'s")
         for r in ranks:
-            for name in DIST_KERNELS:
+            for name in MONO_KERNELS:
                 if r["launches"][name] <= 0:
                     raise AssertionError(f"kernel {name} was not launched on rank {r['rank']} of the "
                                          f"{world}-rank {backend} run")

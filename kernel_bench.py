@@ -29,13 +29,16 @@ from the call the prover makes down to the C entry point:
              call passed to it, recorded beforehand (see capture_entry).
   A tree without the Merkle kernel (the parent of its port) times its
   ``merkle_flat``, plain torch on the card, at the wrapper level alone.
-  ``--large`` takes the cases of the 2^20-row path instead
-  (K1_LARGE_CASES, K2_LARGE_CASES, K3 and K4's class shape at K3_LARGE_T,
-  MERKLE_LARGE_CASES; K4's mono shape is not on it); where a tree other than this checkout refuses the
-  Merkle heap at 2^23 leaves (the parent of the three-level heap), each
-  refused call prints its error; any other error is raised.  The batch
-  inverse (``--only BINV``) takes BINV_CASES either way: the provers' 2^16
-  and 2^20 shapes, those of the 2^20-row proves included.
+  ``--large`` takes the cases of the 2^20-row path instead: T-mode's and
+  cls's (K1_LARGE_CASES, K2_LARGE_CASES, K3 and K4's class shape at
+  K3_LARGE_T, MERKLE_LARGE_CASES) and mono's over the whole D = 2^23
+  domain (K1_MONO_CASES, K2_MONO_CASES, K4's mono shape at N = 2^23, step
+  8, and the batch inverse's BINV_MONO_CASES); where a tree other than
+  this checkout refuses the Merkle heap at 2^23 leaves (the parent of the
+  three-level heap), each refused call prints its error; any other error
+  is raised.  The batch inverse (``--only BINV``) takes BINV_CASES either
+  way: the provers' 2^16 and 2^20 shapes, those of the 2^20-row proves
+  included.
 
 For each it prints one JSON line: ``ms``, the card's milliseconds per
 call with the calls queued behind a spin (see :func:`cuda_ms`);
@@ -65,6 +68,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import itertools
 import json
 import os
 import random
@@ -125,6 +129,16 @@ MERKLE_CASES = [1 << 19, 1 << 16, 1 << 13, 1 << 10]
 K2_LARGE_CASES = [(28, 1 << 20), (8, 1 << 20)]
 K3_LARGE_T = 1 << 20
 MERKLE_LARGE_CASES = [1 << 23, 1 << 20]
+# mono at T = 2^20 (D = 2^23): K1 at the launches of the coset LDE of the
+# 28 trace columns (pass 1 recurses: 128 x 128 over 28 x 512 rows, the
+# offset ladder its premultiplier (r1), then its mid twiddles (full); pass
+# 2's 512 over 2^14 lanes); K2 over the trace (C = 28) and composition
+# (C = 8) rows of 2^23 lanes; the batch inverse of the DEEP (3, 8, D) and
+# of the constants (2, 8, D); K4's mono shape at MONO_T (N = 8 MONO_T)
+K1_MONO_CASES = [(128, 28 * 512, 128, ("r1", "full")), (512, 28, 1 << 14, ("full",))]
+K2_MONO_CASES = [(28, 1 << 23), (8, 1 << 23)]
+BINV_MONO_CASES = [(3, 8, 1 << 23), (2, 8, 1 << 23)]
+MONO_T = 1 << 20
 # K2 and the Merkle heap on the sharded mono path at T = 2^16: a rank's
 # block of 2^18 (P = 2) or 2^17 (P = 4) rows
 K2_DIST_CASES = [(28, 1 << 18), (8, 1 << 17)]
@@ -233,10 +247,14 @@ def ptxas_summary(log):
 
 
 def _limbs(rng, shape, dev):
-    """Random canonical elements as (..., 8, L) int32 limbs."""
-    limbs = rng.integers(0, 1 << 16, size=shape, dtype=np.uint32)
+    """Random canonical elements as (..., 8, L) int32 limbs, drawn on
+    ``dev`` by torch's generator from a seed that ``rng`` draws (the
+    2^23-row cases hold ~1.9e9 limbs)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(0, 2**62)))
+    limbs = torch.randint(0, 1 << 16, shape, generator=gen, device=dev, dtype=torch.int32)
     limbs[..., 7, :] %= 0xFFFF
-    return torch.from_numpy(limbs.astype(np.int32)).to(dev)
+    return limbs
 
 
 def air_cases(limbs, dev, t=1 << 16, k4=("mono", "class"), k3=True):
@@ -362,9 +380,14 @@ def bench_tree(tree, label, only, reps=20, large=False):
     lib, stream = kernels.lib(), kernels.stream_of(torch.empty(1, device=dev))
     _emit({"tree": label, "build_seconds": kernels.build_seconds, "ptxas": ptxas_summary(kernels.build_log)})
     rng = np.random.default_rng(20261017)
-    k1_cases, hashes = (K1_LARGE_CASES, hash_cases(rng, dev, K2_LARGE_CASES, MERKLE_LARGE_CASES)) if large \
-        else (K1_CASES, hash_cases(rng, dev))
-    airs = air_cases(lambda shape: _limbs(rng, shape, dev), dev, *((K3_LARGE_T, ("class",)) if large else ()))
+    limbs = lambda shape: _limbs(rng, shape, dev)
+    if large:
+        k1_cases = K1_LARGE_CASES + K1_MONO_CASES
+        hashes = hash_cases(rng, dev, K2_LARGE_CASES + K2_MONO_CASES, MERKLE_LARGE_CASES)
+        airs = itertools.chain(air_cases(limbs, dev, K3_LARGE_T, ("class",)),
+                               air_cases(limbs, dev, MONO_T, ("mono",), k3=False))
+    else:
+        k1_cases, hashes, airs = K1_CASES, hash_cases(rng, dev), air_cases(limbs, dev)
     for m, b, nl, variants in k1_cases if "K1" in only else []:
         for variant in variants:
             y, tw, pre, r1 = _k1_inputs(nt, rng, m, b, nl, variant, dev)
@@ -408,7 +431,7 @@ def bench_tree(tree, label, only, reps=20, large=False):
             _emit({"tree": label, "case": name, "level": level, "ms": ms, "host_ms": host_ms})
         del args, calls
         torch.cuda.empty_cache()
-    for shape in BINV_CASES if "BINV" in only else []:
+    for shape in (BINV_CASES + (BINV_MONO_CASES if large else [])) if "BINV" in only else []:
         x = _limbs(rng, shape, dev)
         cname, cargs, keep = capture_entry(kernels, ft.launch_batch_inverse, x)
         calls = {

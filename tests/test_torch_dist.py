@@ -331,8 +331,14 @@ def test_vm_prove_mesh_config_needs_a_group():
     program, inputs = vm.Program.compile("push.1\npush.2\nadd"), vm.ProgramInputs((), (), key)
     with pytest.raises(RuntimeError, match="no torch.distributed process group"):
         vm.prove(program, inputs, device="cpu", config=ZkVmConfig().with_mesh(2))
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        vm.prove(program, inputs, device="cpu", config=ZkVmConfig(runtime=RuntimeConfig(profile=True)))
+    from zkvm_torch.utils.profiler import profiler
+
+    profiled = ZkVmConfig(runtime=RuntimeConfig(profile=True)).with_mesh(2)
+    try:
+        with pytest.raises(RuntimeError, match="no torch.distributed process group"):
+            vm.prove(program, inputs, device="cpu", config=profiled)
+    finally:
+        profiler.disable()
 
 
 def test_mesh_means_mono_and_limits_per_rank(monkeypatch):
@@ -350,9 +356,9 @@ def test_mesh_means_mono_and_limits_per_rank(monkeypatch):
         tpl.prove(trace, pub, mesh=mesh, device="cuda")
     with pytest.raises(ValueError, match="power of two"):
         tpl.prove(trace, pub, mesh=tmesh.Mesh(rank=0, size=3, device=torch.device("cpu"), backend="gloo"))
-    # the limit is per rank: T <= MONO_MAX_TRACE_LENGTH * P
+    # the limit is per rank: T <= MONO_RANK_MAX_TRACE_LENGTH * P
     t = trace.length
-    monkeypatch.setattr(tpl, "MAX_TRACE_LENGTH", dict(tpl.MAX_TRACE_LENGTH, mono=t // 4))
+    monkeypatch.setattr(limits, "MONO_RANK_MAX_TRACE_LENGTH", t // 4)
     with pytest.raises(ValueError, match=f"mono: trace length {t} > {t // 2} is not supported"):
         tpl.prove(trace, pub, mesh=mesh)
 

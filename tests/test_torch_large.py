@@ -9,8 +9,9 @@
   proof is the same bytes with and without them;
 * ``zkvm_torch.examples.prove_lr_large`` at log2_rows = 8 gives T = 2^8,
   the clear prediction and a proof that verifies, in T-mode and with
-  ``--mode cls``;
-* the limits: mono past 2^17 and T-mode past 2^20 raise.
+  ``--mode cls`` and ``--mode mono`` (in row blocks);
+* the limits: mono and T-mode past 2^20 raise; a rank of a mesh keeps
+  2^17.
 """
 
 import ast
@@ -145,17 +146,34 @@ def test_prove_lr_large_script_cls_on_cpu():
     _check_script(["8", "--device", "cpu", "--mode", "cls"], "cls")
 
 
+def test_prove_lr_large_script_mono_on_cpu(monkeypatch):
+    """``--mode mono``: the same run through the full-LDE prover, in row
+    blocks (the threshold and the block patched to 2^6)."""
+    from zkvm_torch.prover import mono
+
+    monkeypatch.setattr(limits, "CHUNK_T", 1 << 6)
+    monkeypatch.setattr(limits, "MONO_ROW_BLOCK", 1 << 6)
+    mono._domain_constants.cache_clear()
+    try:
+        _check_script(["8", "--device", "cpu", "--mode", "mono"], "mono")
+    finally:
+        mono._domain_constants.cache_clear()
+
+
 class _Trace:
     def __init__(self, length):
         self.length = length
 
 
-@pytest.mark.parametrize("mode,t", [("mono", 1 << 18), ("tmode", 1 << 21)])
+@pytest.mark.parametrize("mode,t", [("mono", 1 << 21), ("tmode", 1 << 21)])
 def test_trace_length_limits(mode, t):
+    """Past 2^20 both raise; mono's limit in one process is T-mode's, and a
+    rank's share of a mesh keeps its measured 2^17 (T <= 2^17 P)."""
     pub = tpl.PublicInputs((0, 0), (0,) * 16, None)
-    with pytest.raises(ValueError, match="ROADMAP A8" if mode == "mono" else "not supported"):
+    with pytest.raises(ValueError, match=f"{mode}: trace length {t} > {1 << 20} is not supported"):
         tpl.prove(_Trace(t), pub, device="cpu", mode=mode)
-    assert limits.MONO_MAX_TRACE_LENGTH == 1 << 17 and limits.TMODE_MAX_TRACE_LENGTH == 1 << 20
+    assert limits.MONO_MAX_TRACE_LENGTH == limits.TMODE_MAX_TRACE_LENGTH == 1 << 20
+    assert limits.MONO_RANK_MAX_TRACE_LENGTH == 1 << 17
 
 
 def test_inputs_follow_the_reference_script():

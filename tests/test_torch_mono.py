@@ -7,9 +7,13 @@ versions of the kernels), held against the JAX reference.
   T-mode proof has the same bytes;
 * ``prove`` takes the card unless told ``device="cpu"`` and raises without
   one;
+* the row-blocked forms (``limits.CHUNK_T`` and ``limits.MONO_ROW_BLOCK``
+  patched to 2^6, so T = 128 and 256 take them): the domain constants
+  (one process and a rank's block) equal the one-shot ones, and the
+  proofs equal the conformance vector and the one-shot, T-mode proof;
 * under ``-m slow``: byte equality with ``zkvm.prover.prove`` under
   ``ZKVM_CLASS=0`` (the reference's mono path) at T = 2^10 for the three
-  bench programs.
+  bench programs, and for the chain with the row-blocked forms.
 """
 
 import json
@@ -20,6 +24,8 @@ import pytest
 import torch
 
 from zkvm_torch import vm
+from zkvm_torch.prover import limits
+from zkvm_torch.prover import mono
 from zkvm_torch.prover import pipeline as tpl
 
 torch.set_num_threads(1)
@@ -27,15 +33,41 @@ torch.set_num_threads(1)
 VECTORS = Path(__file__).resolve().parents[1] / "conformance" / "vectors_e2e.json"
 
 
-def test_mono_conformance_proof_bytes():
+@pytest.fixture
+def row_blocks(monkeypatch):
+    """A function that patches the chunk threshold and mono's row block to
+    2^6 (undone after the test), with the domain constants built anew
+    under it."""
+    def patch():
+        monkeypatch.setattr(limits, "CHUNK_T", 1 << 6)
+        monkeypatch.setattr(limits, "MONO_ROW_BLOCK", 1 << 6)
+        mono._domain_constants.cache_clear()
+
+    yield patch
+    mono._domain_constants.cache_clear()
+
+
+def _conformance_proof():
     vec = json.loads(VECTORS.read_text())
     key = vm.ServerKey(vm.DEMO_PARAMETERS, random.Random(7))
     program = vm.Program.compile(vec["program_source"])
     inputs = vm.ProgramInputs(tuple(vec["public_inputs_tape"]), (key.encrypt(2),), key)
-    h, out, proof = vm.prove(program, inputs, device="cpu", mode="mono")
+    return vec, vm.prove(program, inputs, device="cpu", mode="mono")
+
+
+def test_mono_conformance_proof_bytes():
+    vec, (h, out, proof) = _conformance_proof()
     assert proof.trace_length == 128
     assert proof.trace_root.hex() == vec["trace_root_hex"]
     assert proof.comp_root.hex() == vec["comp_root_hex"]
+    assert proof.to_wire_bytes().hex() == vec["proof_bytes_hex"]
+
+
+def test_mono_row_blocks_conformance_proof_bytes(row_blocks):
+    """T = 128 in 16 blocks of 2^6 rows: the conformance vector's bytes."""
+    row_blocks()
+    assert len(mono.row_blocks(1024, 128)) == 16
+    vec, (h, out, proof) = _conformance_proof()
     assert proof.to_wire_bytes().hex() == vec["proof_bytes_hex"]
 
 
@@ -80,6 +112,24 @@ def test_mono_equals_tmode_t256(t256):
     assert proof.to_wire_bytes() == tmode.to_wire_bytes()
 
 
+def test_mono_row_blocks_equal_one_shot_t256(t256, row_blocks):
+    """At T = 256 in blocks of 2^6 rows (32 blocks of the 2^11-row domain):
+    the domain constants, in one process and as rank 1's block of 2, equal
+    the one-shot ones, and the proof is the one-shot proof's bytes."""
+    key, trace, pub, proof = t256
+    cpu = torch.device("cpu")
+    want = [mono._domain_constants(256, 8, cpu), mono._domain_constants(256, 8, cpu, 1, 2)]
+    row_blocks()
+    got = [mono._domain_constants(256, 8, cpu), mono._domain_constants(256, 8, cpu, 1, 2)]
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for k, v in w.items():
+            if isinstance(v, torch.Tensor):
+                assert torch.equal(g[k], v), k
+    blocked = tpl.prove(trace, pub, device="cpu", mode="mono")
+    assert blocked.to_wire_bytes() == proof.to_wire_bytes()
+
+
 def test_prove_takes_the_card_by_default(t256, monkeypatch):
     key, trace, pub, _ = t256
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -112,3 +162,12 @@ def test_mono_bytes_equal_jax_mono_prover(name, n_ops, monkeypatch):
     key = vm.ServerKey(vm.DEMO_PARAMETERS, random.Random(3))
     _, _, proof = vm.prove(*_bench_program(name, n_ops, key, zkvm_torch.isa), device="cpu", mode="mono")
     assert proof.to_wire_bytes() == want
+    if name == "read_add":  # and in row blocks (32 blocks of 2^8 rows)
+        monkeypatch.setattr(limits, "CHUNK_T", 1 << 8)
+        monkeypatch.setattr(limits, "MONO_ROW_BLOCK", 1 << 8)
+        mono._domain_constants.cache_clear()
+        try:
+            _, _, proof = vm.prove(*_bench_program(name, n_ops, key, zkvm_torch.isa), device="cpu", mode="mono")
+        finally:
+            mono._domain_constants.cache_clear()
+        assert proof.to_wire_bytes() == want

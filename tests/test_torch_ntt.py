@@ -108,3 +108,23 @@ def test_ladders_match_golden():
     vals = [[v % f128.P for v in row] for row in _rand_vals(5, 2, 64)]
     got = tnt.scale_by_ladder_t(from_numpy(_t(vals)), from_numpy(tlimbs(11)), 64)
     assert _ints(got) == [[v * pow(11, i, f128.P) % f128.P for i, v in enumerate(r)] for r in vals]
+
+
+@pytest.mark.parametrize("max_axis,t", [(tnt.MAX_AXIS, 16), (4, 16), (8, 128)],
+                         ids=["one_pass", "nested", "recursing"])
+def test_coset_lde_t_fuses_the_offset(monkeypatch, max_axis, t):
+    """``coset_lde_t`` with the offset ladder as K1's premultiplier (also
+    where pass 1 recurses once or more: MAX_AXIS patched down) equals the
+    unfused form (the ladder as plain multiplies, zero-pad, transform) and
+    the JAX ``ntt_jax.coset_lde``."""
+    from zkvm.ntt import ntt_jax as nj
+
+    monkeypatch.setattr(tnt, "MAX_AXIS", max_axis)
+    vals = _rand_vals(31, 3, t)
+    coeffs = from_numpy(_t(vals))
+    scaled = tnt.scale_by_ladder_t(coeffs, from_numpy(tlimbs(f128.DOMAIN_OFFSET)), t)
+    unfused = tnt.ntt_t(torch.nn.functional.pad(scaled, (0, 7 * t)))
+    got = tnt.coset_lde_t(coeffs, 8)
+    np.testing.assert_array_equal(to_numpy(got), to_numpy(unfused))
+    want = nj.coset_lde(jnp.asarray(to_limbs(vals)), 8)  # (3, D, 8)
+    np.testing.assert_array_equal(np.swapaxes(to_numpy(got), -1, -2), np.asarray(want))

@@ -98,6 +98,7 @@ def test_port_imports_neither_zkvm_nor_jax():
     files = sorted(p for p in (REPO / "zkvm_torch").rglob("*.py") if build not in p.parents)
     files += [REPO / "chip_smoke.py", REPO / "kernel_bench.py"]
     assert len(files) > 30
+    assert {REPO / "zkvm_torch" / "utils" / f for f in ("profiler.py", "kernel_health.py")} <= set(files)
     for path in files:
         bad = _imported_modules(path) & {"zkvm", "jax", "jaxlib"}
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
@@ -114,14 +115,19 @@ sys.path.insert(0, sys.argv[1])
 import torch
 torch.set_num_threads(1)
 from zkvm_torch import vm
+from zkvm_torch.config import RuntimeConfig, ZkVmConfig
+from zkvm_torch.utils import kernel_health
+from zkvm_torch.utils.profiler import profiler
 vec = json.load(open(sys.argv[2]))
 key = vm.ServerKey(vm.DEMO_PARAMETERS, random.Random(7))
 program = vm.Program.compile(vec["program_source"])
 inputs = vm.ProgramInputs(tuple(vec["public_inputs_tape"]), (key.encrypt(2),), key)
 for mode in ("tmode", "mono"):
-    h, out, proof = vm.prove(program, inputs, device="cpu", mode=mode)
+    h, out, proof = vm.prove(program, inputs, device="cpu", mode=mode,
+                             config=ZkVmConfig(runtime=RuntimeConfig(profile=True)))
     vm.verify(proof, h, out, key)
     print(proof.to_wire_bytes().hex())
+assert "fri" in profiler.totals() and kernel_health.report()["total"] == 0
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "zkvm") for m in sys.modules)
 """
 

@@ -22,7 +22,9 @@ Layer map (mirrors :mod:`zkvm`):
   dist/      mono sharded by rows over a torch.distributed group: mesh,
              collectives, four-step NTT, ranks spawned on one host
   verifier/  the host verifier
-  isa/, processor/, fhe/, utils/  assembler, golden processor, LWE, serde
+  isa/, processor/, fhe/  assembler, golden processor, LWE
+  utils/     serde, the per-phase profiler and the kernel-health report
+             (each kernel's launches, by shape)
   csrc/      the CUDA C++ sources, built with nvcc at first use
   convert.py build the port's trace, key and public inputs from plain data
   config.py  the typed configuration (a copy of zkvm/config.py)

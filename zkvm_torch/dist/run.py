@@ -29,33 +29,23 @@ from dataclasses import replace
 import torch
 
 from zkvm_torch import kernels, vm
-from zkvm_torch.air import composition as cp
-from zkvm_torch.air import transition as tr
 from zkvm_torch.air.constraints_dist import merged_transition_sharded
 from zkvm_torch.config import ZkVmConfig
-from zkvm_torch.field import f128t as ft
 from zkvm_torch.field.limbs import from_numpy, to_numpy
-from zkvm_torch.hash import blake3_t as b3t
 from zkvm_torch.hash import merkle as mk
-from zkvm_torch.ntt import ntt_t as nt
 from zkvm_torch.prover.pipeline import prove as stark_prove
+from zkvm_torch.utils import kernel_health
 from . import comm, multihost
 from .mesh import make_mesh, row_block
 from .ntt_dist import coset_lde_sharded, intt_sharded, ntt_sharded
 from .sharded import sharded_prove_step  # noqa: F401 (a program ``calls`` runs by name)
 
+
 def reset_launches() -> None:
-    """Every kernel's launch count, and the collectives', to 0."""
-    for mod in (b3t, mk, cp, tr, ft):
-        mod.launches = 0
-    nt.launches.clear()
+    """Every kernel's launch count (:mod:`zkvm_torch.utils.kernel_health`),
+    and the collectives', to 0."""
+    kernel_health.reset()
     comm.reset_counts()
-
-
-def read_launches() -> dict:
-    """Launches per kernel in this process (K1 counts by shape only)."""
-    return {"ntt_stages": sum(nt.launches.values()), "blake3_rows": b3t.launches, "merkle": mk.launches,
-            "composition": cp.launches, "transition": tr.launches, "batch_inverse": ft.launches}
 
 
 # ---------------------------------------------------------------------------
@@ -128,7 +118,7 @@ def _prove(mesh, program, inputs, use_native, via_vm, warmup=False):
     return {
         "rank": mesh.rank, "proof": proof.to_wire_bytes(), "program_hash": program.hash, "outputs": outputs,
         "trace_length": proof.trace_length, "seconds": seconds, "cold_seconds": cold,
-        "stage_seconds": stages, "stage_peaks": peaks or {}, "launches": read_launches(),
+        "stage_seconds": stages, "stage_peaks": peaks or {}, "launches": kernel_health.launches(),
         "comm": comm.read_counts(),
         "peak_bytes": max(peaks.values()) if peaks else None,  # each stage resets the peak
     }

@@ -1,8 +1,8 @@
 """The large-trace linear regression over LWE-encrypted inputs (BASELINE.md
-configuration 5), proved in T-mode (or the class prover) and verified by
-the port.
+configuration 5), proved in T-mode (or the class prover, or mono) and
+verified by the port.
 
-    python -m zkvm_torch.examples.prove_lr_large [log2_rows] [--device cpu] [--mode {tmode,cls}]
+    python -m zkvm_torch.examples.prove_lr_large [log2_rows] [--device cpu] [--mode {tmode,mono,cls}]
 
 Port of ``scripts/prove_lr_large.py``: the same program (the
 ``lr.txt`` block repeated, an n-term dot product of encrypted features with
@@ -10,7 +10,9 @@ public weights plus a bias), sized so that the trace has exactly
 2^log2_rows rows (default 20), with the same key, weights and features
 seeds.  Its steps: encrypt the features, compile, trace with the native
 C++ generator (:mod:`zkvm_torch.runtime`; it fails if g++ cannot build it),
-prove on the card once cold (the per-T constants built) and once steady,
+prove on the card once cold (the per-T constants built) and once steady
+in the layout ``--mode`` names (all three reach log2_rows = 20 and give
+the same bytes; mono keeps the whole (28, 8, 2^23) LDE on the card),
 decrypt the prediction and hold it against the clear one, verify with the
 port's verifier, and expect a one-byte tamper to be rejected.
 
@@ -143,7 +145,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("log2_rows", type=int, nargs="?", default=20)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--mode", default="tmode", choices=["tmode", "cls"], help="the prover's layout")
+    ap.add_argument("--mode", default="tmode", choices=["tmode", "mono", "cls"], help="the prover's layout")
     args = ap.parse_args(argv)
     card = card_name(args.device)
     print(card, flush=True)

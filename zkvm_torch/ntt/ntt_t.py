@@ -455,12 +455,20 @@ def class_ntt_t(coeffs_t: torch.Tensor, base: torch.Tensor, scale=None) -> torch
     return _ntt_t_core(coeffs_t, False, scale_r1=scale)
 
 
+@functools.lru_cache(maxsize=None)
+def _coset_premultiplier(offset: int, d: int, max_axis: int, device):
+    """:func:`premultiplier` of offset^i for a size-d transform; the key
+    holds MAX_AXIS, which shapes the form (tests patch it).  An O(d) table
+    where pass 1 recurses (128 MiB at d = 2^23)."""
+    return premultiplier(ft.const_col(offset, device)[:, 0], d, False)
+
+
 def coset_lde_t(coeffs_t: torch.Tensor, blowup: int, offset: int = f128.DOMAIN_OFFSET) -> torch.Tensor:
     """Evaluate degree-<T polynomials (..., 8, T) on the whole coset
     offset*<w_D>, D = blowup*T: (..., 8, D) in natural order
-    (``ntt_jax.coset_lde``).  Scale by the offset ladder, zero-pad to D and
-    run one size-D transform (pass 1 recurses past MAX_AXIS)."""
-    t = coeffs_t.shape[-1]
-    base = ft.const_col(offset, coeffs_t.device)[:, 0]
-    scaled = scale_by_ladder_t(coeffs_t, base, t)
-    return ntt_t(torch.nn.functional.pad(scaled, (0, (blowup - 1) * t)))
+    (``ntt_jax.coset_lde``).  Zero-pad to D and run one size-D transform
+    with the offset ladder fused into K1 as its premultiplier (pass 1
+    recurses past MAX_AXIS)."""
+    d = blowup * coeffs_t.shape[-1]
+    pre = _coset_premultiplier(offset, d, MAX_AXIS, coeffs_t.device)
+    return _ntt_t_core(torch.nn.functional.pad(coeffs_t, (0, d - coeffs_t.shape[-1])), False, scale_r1=pre)

@@ -8,7 +8,9 @@ memory, and once under ``torch.profiler`` (CPU and CUDA activity).  Prints
 one JSON line: the card, the stage seconds and peaks, the profiled prove's
 wall time, device-busy seconds (the union of kernel intervals) and idle
 share, the number of device kernels per prove, and the kernels with the
-most device time.  ``--tree DIR`` proves with the ``zkvm_torch`` of
+most device time, and the kernel-health report of the synced prove
+(:mod:`zkvm_torch.utils.kernel_health`: each hand-written kernel's
+launches, by shape).  ``--tree DIR`` proves with the ``zkvm_torch`` of
 another checkout (e.g. the parent unpacked with ``git archive`` into
 ``zkvm_torch/build/parent``), so one script measures both.
 """
@@ -54,6 +56,7 @@ def main():
         sys.path.insert(0, str(args.tree.resolve()))
     from zkvm_torch import vm
     from zkvm_torch.prover.pipeline import prove
+    from zkvm_torch.utils import kernel_health
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_prove: no CUDA device")
@@ -70,10 +73,12 @@ def main():
 
     prove(trace, pub, device=dev, mode=mode)  # warm-up: kernel build, device tables
     stages, peaks = {}, {}
+    kernel_health.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     prove(trace, pub, device=dev, stage_seconds=stages, mode=mode, stage_peaks=peaks)
     synced = time.perf_counter() - t0
+    health = kernel_health.report()
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -97,6 +102,7 @@ def main():
         "device_busy_seconds": busy, "device_idle_share": 1.0 - busy / wall,
         "device_kernels": len(kernels),
         "top_kernels": [{"name": k[:90], "ms": us / 1e3, "count": n} for k, (us, n) in top],
+        "kernel_health": health,
     }))
 
 

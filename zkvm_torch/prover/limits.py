@@ -1,24 +1,33 @@
-"""Trace-length limits of the port's provers, and the threshold of the
+"""Trace-length limits of the port's provers, and the thresholds of the
 chunked stage forms.
 
-Each prover raises past its limit rather than run out of device memory:
-T-mode and the class prover hold one class of the LDE at a time and reach
-the 2^20-row linear regression (``zkvm_torch.examples.prove_lr_large``);
-mono keeps the whole LDE resident, and T >= 2^18 in mono is ROADMAP A8.
-Mono over a mesh of P ranks (``prove(..., mesh=...)``) holds D / P rows of
-the LDE a rank, so its limit is per rank: T <= MONO_MAX_TRACE_LENGTH * P.
+Each prover raises past its limit rather than run out of device memory.
+T-mode, the class prover and mono reach the 2^20-row linear regression
+(``zkvm_torch.examples.prove_lr_large``): T-mode and cls hold one class
+of the LDE at a time, mono keeps the whole (28, 8, 8T) LDE resident and
+runs its pointwise work in row blocks.  Mono over a mesh of P ranks
+(``prove(..., mesh=...)``) holds D / P rows of the LDE a rank, and its
+limit is per rank, T <= MONO_RANK_MAX_TRACE_LENGTH * P: measured at P = 2
+only, and past the block every rank still holds O(T) data (the gathered
+coefficients, the whole DEEP witness, FRI).
 
-From ``CHUNK_T`` on, the stages of T-mode and the class prover take the
-reference's chunked forms (``zkvm/prover/pipeline.py:303,339,433``,
-``eval_mxu.py:97``): the trace columns' class NTTs in column blocks (trace
-commit and composition), the DEEP's weighted sums one column at a time,
-and the multi-point evaluation in pairs of points.  They bound the plain-torch transients of the limb
-arithmetic and leave every value unchanged.  The constants are read at
-each call, so tests patch them here to reach the chunked forms at small T.
+From ``CHUNK_T`` on, the stages take the reference's chunked forms
+(``zkvm/prover/pipeline.py:303,339,433``, ``eval_mxu.py:97``): in T-mode
+and cls the trace columns' class NTTs in column blocks (trace commit and
+composition), the DEEP's weighted sums one column at a time, and the
+multi-point evaluation in pairs of points; in mono the domain constants,
+the composition's products and the DEEP in blocks of ``MONO_ROW_BLOCK``
+rows.  They bound the plain-torch transients of the limb arithmetic and
+leave every value unchanged.  The constants are read at each call, so
+tests patch them here to reach the chunked forms at small T.
 """
 
 TMODE_MAX_TRACE_LENGTH = 1 << 20
-MONO_MAX_TRACE_LENGTH = 1 << 17
+MONO_MAX_TRACE_LENGTH = TMODE_MAX_TRACE_LENGTH  # in one process
+MONO_RANK_MAX_TRACE_LENGTH = 1 << 17  # a rank's share over a mesh: T <= this * P
 CLS_MAX_TRACE_LENGTH = TMODE_MAX_TRACE_LENGTH  # the same one class at a time
 CHUNK_T = 1 << 18
 COLUMN_BLOCKS = 4  # the trace columns' class NTTs at T >= CHUNK_T
+# Rows of mono's pointwise blocks at T >= CHUNK_T: a limb product over
+# (4, 8, R) holds ~8 KB of int64 transients a row, ~4 GiB at R = 2^19
+MONO_ROW_BLOCK = 1 << 19

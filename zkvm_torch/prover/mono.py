@@ -18,6 +18,11 @@ query-row gather).  Unlike T-mode, the whole (28, 8, D) trace LDE and the
    denominators;
 5. queries: the rows gathered from the resident LDEs.
 
+From ``limits.CHUNK_T`` on, the domain constants, the composition's
+products and the DEEP run in blocks of ``limits.MONO_ROW_BLOCK`` rows
+(:func:`row_blocks`); K4 stays one launch over the domain, as it reads
+its next row in place.  So one process proves up to T = 2^20 (D = 2^23).
+
 The OOD frame, FRI and the proof assembly are T-mode's (``pipeline.py``).
 :func:`zkvm_torch.prover.pipeline.prove` runs these stages for
 ``mode="mono"``; the proof bytes equal T-mode's.  Given a mesh, it runs
@@ -45,12 +50,30 @@ from zkvm_torch.field.limbs import from_numpy, from_t, tensor, to_numpy
 from zkvm_torch.hash import blake3_t as b3t
 from zkvm_torch.hash.merkle import merkle_flat, merkle_forest_flat
 from zkvm_torch.ntt import ntt_t as nt
+from . import limits
 from .pipeline import comp_columns, weighted_host
 
 # Columns per limb product in the DEEP sums: fmul widens (C, 8, D) limbs to
 # int64 partial products 48x the operand's bytes, so 4 columns at D = 2^19
 # (~3 GB of temporaries) instead of 28 (~22 GB).
 DEEP_COLUMN_BLOCK = 4
+
+
+def row_blocks(n_rows: int, t_len: int) -> list:
+    """Slices of a domain's rows for mono's pointwise work: one slice below
+    ``limits.CHUNK_T``, else blocks of ``limits.MONO_ROW_BLOCK`` rows.
+    Every value is pointwise in the row, so the blocks change none."""
+    step = n_rows if t_len < limits.CHUNK_T else min(limits.MONO_ROW_BLOCK, n_rows)
+    return [slice(i, i + step) for i in range(0, n_rows, step)]
+
+
+def _ladder_blocks(base: int, scale: int, lo: int, blocks, device) -> torch.Tensor:
+    """(8, n) = scale * base^(lo + i) over equal row blocks: one ladder
+    base^i of a block, times each block's host factor (an (8, n) ladder
+    in one piece holds ~12 GiB of limb-product transients at n = 2^23)."""
+    lad = nt.ladder_t_host(base, blocks[0].stop - blocks[0].start, device=device)
+    return torch.cat([ft.fmul(lad, ft.const_col(f128.fmul(scale, pow(base, lo + blk.start, f128.P)), device))
+                      for blk in blocks], dim=-1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -61,7 +84,9 @@ def _domain_constants(t_len: int, blowup: int, device, rank: int = 0, ranks: int
     only), the boundary factors i0 = 1/(x - 1) and i1 = 1/(x - x_last), the
     inverse-offset ladder and the periodic tables.  With ``ranks`` > 1,
     x, ee, i0, i1 and the ladder are rank ``rank``'s block of D / ranks
-    rows (one batch inverse over the block), and the tables are whole."""
+    rows, and the tables are whole.  From ``limits.CHUNK_T`` on, all but
+    the tables are built in row blocks (:func:`row_blocks`); one batch
+    inverse covers every row."""
     d = t_len * blowup
     local = d // ranks
     lo = rank * local
@@ -76,19 +101,25 @@ def _domain_constants(t_len: int, blowup: int, device, rank: int = 0, ranks: int
 
     col = lambda v: ft.const_col(v, device)
     w_d = f128.get_root_of_unity(d)
-    x = nt.ladder_t_host(w_d, local, f128.fmul(offset, pow(w_d, lo, f128.P)), device)  # (8, D / ranks)
-    inv_xt_t = tensor(inv_xt, device).transpose(0, 1).repeat(1, local // blowup)  # (8, D / ranks)
-    ee = ft.fmul(ft.fmul(ft.fsub(x, col(e1)), ft.fsub(x, col(e2))), inv_xt_t)
-    inv = ft.batch_inverse(torch.stack([ft.fsub(x, col(1)), ft.fsub(x, col(x_last))]))
+    blocks = row_blocks(local, t_len)
+    x = _ladder_blocks(w_d, offset, lo, blocks, device)  # (8, D / ranks)
+    inv_xt_t = tensor(inv_xt, device).transpose(0, 1)  # (8, blowup): 1/(x^T - 1) at i mod blowup
+    ee, den = [], []
+    for blk in blocks:
+        xb = x[:, blk]
+        xt = inv_xt_t.repeat(1, (blk.stop - blk.start) // blowup)
+        ee.append(ft.fmul(ft.fmul(ft.fsub(xb, col(e1)), ft.fsub(xb, col(e2))), xt))
+        den.append(torch.stack([ft.fsub(xb, col(1)), ft.fsub(xb, col(x_last))]))
+    inv = ft.batch_inverse(torch.cat(den, dim=-1))
     tab = from_numpy(periodic_table(t_len, blowup), device)  # (9, 8, 16*blowup)
     return dict(
         d=d,
         g_trace=g_trace,
         x=x,
-        ee=ee,
+        ee=torch.cat(ee, dim=-1),
         i0=inv[0],
         i1=inv[1],
-        inv_off_t=nt.ladder_t_host(f128.finv(offset), local, pow(f128.finv(offset), lo, f128.P), device),
+        inv_off_t=_ladder_blocks(f128.finv(offset), 1, lo, blocks, device),
         mask_tab=tab[0],
         ark_tab=tab[1:].contiguous(),
     )
@@ -121,7 +152,7 @@ class MonoStages:
     :meth:`comp_commit`) on the device."""
 
     def __init__(self, t_len, blowup, device, rank=0, ranks=1):
-        self.blowup = blowup
+        self.t_len, self.blowup = t_len, blowup
         self.dc = _domain_constants(t_len, blowup, device, rank, ranks)
         self.d, self.g_trace = self.dc["d"], self.dc["g_trace"]
         self.lde = self.comp_lde = None
@@ -133,11 +164,18 @@ class MonoStages:
         return coeffs_t, _commit_rows(self.lde)
 
     def composition(self, coeffs_t, alphas, bv0, bb0, bv1, bb1, delta, bcols0, bcols1):
-        """(8, D) composition evaluations over the domain."""
+        """(8, D) composition evaluations over the domain: K4 in one launch,
+        its products with the domain factors and the boundary groups by row
+        block (:func:`row_blocks`)."""
         dc = self.dc
-        q = ft.fmul(self._transition(alphas, delta), dc["ee"])
-        q = ft.fadd(q, ft.fmul(cp.boundary_group(self.lde, bcols0, bv0, bb0), dc["i0"]))
-        return ft.fadd(q, ft.fmul(cp.boundary_group(self.lde, bcols1, bv1, bb1), dc["i1"]))
+        trans = self._transition(alphas, delta)
+        q = []
+        for blk in row_blocks(trans.shape[-1], self.t_len):
+            cur = self.lde[..., blk]
+            qb = ft.fmul(trans[:, blk], dc["ee"][:, blk])
+            qb = ft.fadd(qb, ft.fmul(cp.boundary_group(cur, bcols0, bv0, bb0), dc["i0"][:, blk]))
+            q.append(ft.fadd(qb, ft.fmul(cp.boundary_group(cur, bcols1, bv1, bb1), dc["i1"][:, blk])))
+        return torch.cat(q, dim=-1)
 
     def _transition(self, alphas, delta):
         dc = self.dc
@@ -152,26 +190,30 @@ class MonoStages:
 
     def deep(self, coeffs_t, h_t, gammas, deltas, epsilons, points, ood):
         """DEEP witness Y over the domain, (8, D): the three quotients
-        (A(x) - A(z)) / (x - z) pointwise, one batch inverse for all."""
+        (A(x) - A(z)) / (x - z) pointwise, one batch inverse for all, the
+        sums and quotients by row block (:func:`row_blocks`)."""
         dev = self.lde.device
         x = self.dc["x"]
+        blocks = row_blocks(x.shape[-1], self.t_len)
+        weights = [(self.lde, tensor(gammas, dev)), (self.lde, tensor(deltas, dev)),
+                   (self.comp_lde, tensor(epsilons, dev))]
         ood_cur, ood_nxt, ood_comp = ood
-        sums = (
-            _weighted_columns(self.lde, tensor(gammas, dev)),
-            _weighted_columns(self.lde, tensor(deltas, dev)),
-            _weighted_columns(self.comp_lde, tensor(epsilons, dev)),
-        )
-        at_points = (
-            weighted_host(gammas, ood_cur),
-            weighted_host(deltas, ood_nxt),
-            weighted_host(epsilons, ood_comp),
-        )
-        inv = ft.batch_inverse(torch.stack([ft.fsub(x, ft.const_col(p, dev)) for p in points]))
-        y = None
-        for k in range(3):
-            term = ft.fmul(ft.fsub(sums[k], ft.const_col(at_points[k], dev)), inv[k])
-            y = term if y is None else ft.fadd(y, term)
-        return y
+        at_points = [
+            ft.const_col(weighted_host(gammas, ood_cur), dev),
+            ft.const_col(weighted_host(deltas, ood_nxt), dev),
+            ft.const_col(weighted_host(epsilons, ood_comp), dev),
+        ]
+        pts = [ft.const_col(p, dev) for p in points]
+        inv = ft.batch_inverse(torch.cat([torch.stack([ft.fsub(x[:, blk], p) for p in pts]) for blk in blocks],
+                                         dim=-1))  # (3, 8, D)
+        y = []
+        for blk in blocks:
+            yb = None
+            for k, (lde, w) in enumerate(weights):
+                term = ft.fmul(ft.fsub(_weighted_columns(lde[..., blk], w), at_points[k]), inv[k][:, blk])
+                yb = term if yb is None else ft.fadd(yb, term)
+            y.append(yb)
+        return torch.cat(y, dim=-1)
 
     def query_rows(self, coeffs_t, h_t, positions):
         """The trace and composition rows at the query positions."""

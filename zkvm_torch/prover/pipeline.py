@@ -25,7 +25,7 @@ arithmetic).  :func:`prove` also runs the other two layouts, with the same
 bytes: the full-LDE prover (:mod:`.mono`) and the standard-layout class
 prover (:mod:`.cls`, which shares the commitments, the DEEP and the query
 rows of :class:`ClassStages` and inverts per class instead of hoisting
-T-mode's domain factors).  T-mode and cls run up to T = 2^20, mono up to 2^17
+T-mode's domain factors).  All three run up to T = 2^20 in one process
 (:mod:`.limits`); from ``limits.CHUNK_T`` on, the stages take the
 reference's chunked forms, which change no value.  Over a mesh
 (``prove(..., mesh=...)``, :mod:`zkvm_torch.dist`) every rank of a
@@ -57,6 +57,7 @@ from zkvm_torch.field.limbs import from_limbs, from_numpy, tensor, to_limbs, tte
 from zkvm_torch.hash import blake3_t as b3t
 from zkvm_torch.hash.merkle import DeviceMerkleTree, ShardedMerkleTree, merkle_flat
 from zkvm_torch.ntt import ntt_t as nt
+from zkvm_torch.utils.profiler import profiler
 from . import limits
 from . import multi_eval as me
 from . import wire
@@ -273,21 +274,33 @@ def _trace_limbs_t(trace) -> np.ndarray:
     return np.ascontiguousarray(np.swapaxes(np.asarray(trace.limbs), 1, 2))
 
 
+# The reference's profiler phase of each stage (``zkvm/prover/pipeline.py:
+# 1200-1291``); ``stage_seconds`` and ``stage_peaks`` keep the stage names
+PROFILE_PHASES = {"constants": "constants", "trace_commit": "trace_lde_commit", "composition": "constraint_eval",
+                  "comp_commit": "composition_commit", "ood": "ood_eval", "deep": "deep_composition",
+                  "fri": "fri", "queries": "query_assembly"}
+
+
 class _Stages:
-    """Per-stage wall clock, when asked for: the device is synchronised at
-    the end of each stage, so a stage's time includes its kernels.  On a
-    card, ``peaks`` receives each stage's peak allocated device bytes (the
-    allocator's peak is reset at each stage's start)."""
+    """The one stage timer of :func:`prove`, when asked for: the device is
+    synchronised at the end of each stage, so a stage's time includes its
+    kernels.  ``seconds`` receives each stage's wall clock; on a card,
+    ``peaks`` each stage's peak allocated device bytes (the allocator's
+    peak is reset at each stage's start); and while the process-wide
+    profiler is enabled, it records each stage under its
+    :data:`PROFILE_PHASES` name, with ``rows`` where the reference gives
+    them."""
 
     def __init__(self, seconds, device, peaks=None):
         self.seconds = seconds
         self.device = torch.device(device)
         self.sync = self.device.type == "cuda"
         self.peaks = peaks if self.sync else None
+        self.profile = profiler.enabled
 
     @contextlib.contextmanager
-    def __call__(self, name):
-        if self.seconds is None and self.peaks is None:
+    def __call__(self, name, rows=None):
+        if self.seconds is None and self.peaks is None and not self.profile:
             yield
             return
         if self.peaks is not None:
@@ -295,11 +308,14 @@ class _Stages:
         t0 = time.perf_counter()
         yield
         if self.sync:
-            torch.cuda.synchronize()
+            torch.cuda.synchronize(self.device)
+        dt = time.perf_counter() - t0
         if self.seconds is not None:
-            self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+            self.seconds[name] = self.seconds.get(name, 0.0) + dt
         if self.peaks is not None:
             self.peaks[name] = max(self.peaks.get(name, 0), torch.cuda.max_memory_allocated(self.device))
+        if self.profile:
+            profiler.record(PROFILE_PHASES[name], dt, rows, self.device)
 
 
 class ClassStages:
@@ -380,9 +396,11 @@ def prove(trace, pub_inputs: PublicInputs, options: ProofOptions = ProofOptions(
     means mono (another ``mode`` raises) on the mesh's device.
     ``stage_seconds``: a dict to receive each stage's wall-clock seconds,
     ``stage_peaks`` (on a card) each stage's peak allocated device bytes;
-    the device is synchronised per stage only when one is given.  T-mode
-    and cls take T <= 2^20, mono T <= 2^17, and mono over P ranks
-    T <= 2^17 P (:mod:`.limits`)."""
+    the device is synchronised per stage only when one is given or the
+    profiler (:mod:`zkvm_torch.utils.profiler`) is enabled, which then
+    records each stage under the reference's phase name.  T-mode, cls and
+    mono take T <= 2^20, and mono over P ranks T <= 2^17 P
+    (:mod:`.limits`)."""
     t_len = trace.length
     ranks = 1
     if mesh is not None:
@@ -397,10 +415,9 @@ def prove(trace, pub_inputs: PublicInputs, options: ProofOptions = ProofOptions(
     mode = mode or "tmode"
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: expected one of {MODES}")
-    limit = MAX_TRACE_LENGTH[mode] * (ranks if mode == "mono" else 1)
+    limit = MAX_TRACE_LENGTH[mode] if mesh is None else limits.MONO_RANK_MAX_TRACE_LENGTH * ranks
     if t_len > limit:
-        hint = "; mono at T >= 2^18 is ROADMAP A8, prove with mode='tmode'" if mode == "mono" else ""
-        raise ValueError(f"{mode}: trace length {t_len} > {limit} is not supported{hint}")
+        raise ValueError(f"{mode}: trace length {t_len} > {limit} is not supported")
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("prove: no CUDA card here; pass device='cpu' to prove on the CPU")
@@ -431,7 +448,7 @@ def prove(trace, pub_inputs: PublicInputs, options: ProofOptions = ProofOptions(
     bcols1 = tuple(c for (c, s, _) in assertions if s != 0)
 
     # ---- 1. trace LDE + commitment -----------------------------------
-    with stage("trace_commit"):
+    with stage("trace_commit", rows=d):
         cols_t = from_numpy(_trace_limbs_t(trace), device)
         coeffs_t, trace_nodes = stages.trace_commit(cols_t)
         trace_tree = tree(trace_nodes)
@@ -448,14 +465,14 @@ def prove(trace, pub_inputs: PublicInputs, options: ProofOptions = ProofOptions(
     vals1 = [v for (c, s, v) in assertions if s != 0]
     b0 = [b for (c, s, v), b in zip(assertions, betas) if s == 0]
     b1 = [b for (c, s, v), b in zip(assertions, betas) if s != 0]
-    with stage("composition"):
+    with stage("composition", rows=d):
         comp_t = stages.composition(
             coeffs_t, tensor(alphas, device), tensor(vals0, device), tensor(b0, device),
             tensor(vals1, device), tensor(b1, device), delta, bcols0, bcols1,
         )
 
     # ---- 3. composition commitment -----------------------------------
-    with stage("comp_commit"):
+    with stage("comp_commit", rows=d):
         h_t, comp_nodes = stages.comp_commit(comp_t)
         comp_tree = tree(comp_nodes)
         del comp_t
@@ -479,12 +496,12 @@ def prove(trace, pub_inputs: PublicInputs, options: ProofOptions = ProofOptions(
     epsilons = coin.draw_elements(NUM_COMP_COLUMNS)
 
     # ---- 5. DEEP ------------------------------------------------------
-    with stage("deep"):
+    with stage("deep", rows=d):
         y_t = stages.deep(coeffs_t, h_t, gammas, deltas, epsilons, (z, zg, z_m),
                           (ood_cur, ood_nxt, ood_comp))
 
     # ---- 6. FRI -------------------------------------------------------
-    with stage("fri"):
+    with stage("fri", rows=d):
         fri = fri_prove_t(coin, y_t, f128.DOMAIN_OFFSET, options)
 
     nonce = 0

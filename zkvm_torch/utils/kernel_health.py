@@ -1,0 +1,68 @@
+"""Kernel-health report: which hand-written kernels ran, and at what shapes.
+
+Port of :mod:`zkvm.utils.kernel_health`.  The reference probes each Pallas
+family once per shape and can latch an XLA fallback, so its report says
+which families are live.  The port has no probe and no fallback (a CUDA
+tensor launches the kernel or raises), so what it reports is what ran:
+the launch counters that each kernel's wrapper keeps, per family.  This
+module is the one place that reads and resets them (``chip_smoke.py``,
+``zkvm_torch.dist.run`` and ``zkvm_torch.profile_prove`` call it).
+
+Families: K1 ``ntt_stages`` (counted by (M, B, NL, variant) only), K2
+``blake3_rows`` (by (C, N)), ``merkle`` (entry calls, one a tree; by leaf
+count the kernel launches the entry reported and the trees), K3
+``composition`` (by T), K4 ``transition`` (by (N, step)) and
+``batch_inverse`` (by (R, N)).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from zkvm_torch.air import composition as cp
+from zkvm_torch.air import transition as tr
+from zkvm_torch.field import f128t as ft
+from zkvm_torch.hash import blake3_t as b3t
+from zkvm_torch.hash import merkle as mk
+from zkvm_torch.ntt import ntt_t as nt
+
+FAMILIES = ("ntt_stages", "blake3_rows", "merkle", "composition", "transition", "batch_inverse")
+_COUNTED = {"blake3_rows": b3t, "merkle": mk, "composition": cp, "transition": tr, "batch_inverse": ft}
+
+
+def reset() -> None:
+    """Every launch counter of every family to 0."""
+    for mod in _COUNTED.values():
+        mod.launches = 0
+    for counter in (nt.launches, b3t.launches_by_shape, cp.launches_by_shape, tr.launches_by_shape,
+                    ft.launches_by_shape, mk.launches_by_size, mk.trees_by_size):
+        counter.clear()
+
+
+def launches() -> Dict[str, int]:
+    """Launches per family in this process since the last :func:`reset`
+    (the Merkle heap: entry calls, one a tree)."""
+    return {"ntt_stages": sum(nt.launches.values()), **{name: mod.launches for name, mod in _COUNTED.items()}}
+
+
+def launches_by_shape() -> Dict[str, Dict[str, int]]:
+    """Launches per family by shape, keyed as readable strings."""
+    return {
+        "ntt_stages": {f"M={m} B={b} NL={nl} {v}": n for (m, b, nl, v), n in sorted(nt.launches.items())},
+        "blake3_rows": {f"C={c} N={n}": k for (c, n), k in sorted(b3t.launches_by_shape.items())},
+        "merkle": {f"N={n} trees={mk.trees_by_size[n]}": k for n, k in sorted(mk.launches_by_size.items())},
+        "composition": {f"T={t}": k for t, k in sorted(cp.launches_by_shape.items())},
+        "transition": {f"N={n} step={st}": k for (n, st), k in sorted(tr.launches_by_shape.items())},
+        "batch_inverse": {f"R={r} N={n}": k for (r, n), k in sorted(ft.launches_by_shape.items())},
+    }
+
+
+def report() -> Dict:
+    """Snapshot (call after proving): ``backend`` ("cuda" where this
+    process sees a card, else "cpu"), ``launches`` and
+    ``launches_by_shape`` per family, and ``total`` launches."""
+    counts = launches()
+    return {"backend": "cuda" if torch.cuda.is_available() else "cpu", "launches": counts,
+            "launches_by_shape": launches_by_shape(), "total": sum(counts.values())}

@@ -6,8 +6,8 @@ into ``zkvm_torch/build/`` at first use; the golden Python processor where
 it cannot be built, or with ``use_native=False``), builds the 28-column
 trace and proves it on the CUDA card (``device="cpu"`` proves on the
 CPU), with the T-mode pipeline, or for ``mode="mono"`` the full-LDE one,
-or for ``mode="cls"`` the standard-layout class prover (T-mode and cls up
-to T = 2^20, mono up to 2^17); all three give the same bytes.  With a
+or for ``mode="cls"`` the standard-layout class prover (each up to
+T = 2^20); all three give the same bytes.  With a
 ``config`` whose mesh has more than one row, every rank of an initialised
 ``torch.distributed`` group proves mono sharded by rows (:mod:`zkvm_torch.
 dist`), with the same bytes.  It uses the reference parameter preset by
@@ -34,11 +34,11 @@ from zkvm_torch.processor import Processor
 from zkvm_torch.prover import Proof, ProofOptions
 from zkvm_torch.prover.pipeline import prove as stark_prove
 from zkvm_torch.runtime import NativeProcessor, native_available
+from zkvm_torch.utils.profiler import profiler
 from zkvm_torch.verifier import verify as stark_verify
 from zkvm_torch.verifier import verify_bytes as stark_verify_bytes
 
 DEFAULT_SEED = 0xD15EA5E  # randomizer-row seed, as the JAX package's default
-MIN_SECURITY = 95  # AcceptableOptions::MinConjecturedSecurity(95)
 BENCH_N_OPS = 20000  # the bench's primary configuration: T = 2^16
 
 
@@ -74,37 +74,46 @@ def prove(
     generator when it is available (see :func:`run`).  ``config``
     (:class:`zkvm_torch.config.ZkVmConfig`, as ``zkvm/vm.py:29-62`` reads
     it): the options, ``use_native`` and the randomizer seed where they are
-    not given; ``config.mesh.rows > 1`` proves mono sharded over the
-    initialised process group (every rank calls ``prove``; it raises if no
-    group is initialised or its size differs).  The profiler is not ported
-    (ROADMAP A7), so ``config.runtime.profile`` raises."""
+    not given; ``config.runtime.profile`` enables the process-wide
+    profiler (:mod:`zkvm_torch.utils.profiler`), which records
+    ``trace_gen`` here and the prover's phases; ``config.mesh.rows > 1``
+    proves mono sharded over the initialised process group (every rank
+    calls ``prove``; it raises if no group is initialised or its size
+    differs).  T-mode, mono and cls take T <= 2^20 in one process."""
     cfg = config or ZkVmConfig()
-    if cfg.runtime.profile:
-        raise NotImplementedError("config.runtime.profile: the profiler is not ported yet (ROADMAP A7)")
     if options is None:
         options = cfg.proof
     if use_native is None:
         use_native = cfg.runtime.use_native_trace
     seed = cfg.runtime.seed if cfg.runtime.seed is not None else DEFAULT_SEED
+    if cfg.runtime.profile:
+        profiler.enable()
     mesh = None
     if cfg.mesh.rows > 1:
         mesh = make_mesh(cfg.mesh.rows, axis=cfg.mesh.axis_name, device=device)
         device = None
-    trace = run(program, inputs, use_native, seed)
+    with profiler.phase("trace_gen"):
+        trace = run(program, inputs, use_native, seed)
     pub = PublicInputs(program.hash, trace.outputs, inputs.server_key)
     proof = stark_prove(trace, pub, options, device=device, mode=mode, mesh=mesh)
     return program.hash, trace.outputs, proof
 
 
 def verify(proof: Proof, program_hash: tuple, stack_outputs: tuple, server_key,
-           min_security: int = MIN_SECURITY):
-    """Raises VerificationError when the proof does not check out."""
+           min_security: Optional[int] = None, config: Optional[ZkVmConfig] = None):
+    """Raises VerificationError when the proof does not check out;
+    ``min_security`` defaults to the config's (95 bits by default)."""
+    if min_security is None:
+        min_security = (config or ZkVmConfig()).min_security
     pub = PublicInputs(tuple(program_hash), tuple(stack_outputs), server_key)
     stark_verify(proof, pub, min_security)
 
 
 def verify_bytes(proof_bytes: bytes, program_hash: tuple, stack_outputs: tuple, server_key,
-                 min_security: int = MIN_SECURITY):
-    """Verify a proof in the winterfell wire format."""
+                 min_security: Optional[int] = None, config: Optional[ZkVmConfig] = None):
+    """Verify a proof in the winterfell wire format; ``min_security`` as
+    :func:`verify`."""
+    if min_security is None:
+        min_security = (config or ZkVmConfig()).min_security
     pub = PublicInputs(tuple(program_hash), tuple(stack_outputs), server_key)
     stark_verify_bytes(proof_bytes, pub, min_security)
