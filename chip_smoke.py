@@ -36,7 +36,14 @@ Phases, each printing one JSON line:
       (3, 8, 2^23) and (2, 8, 2^23), each over the whole input, its plain
       version on windows of it (K1's first and last batch rows, three
       windows of lanes, K4's first and last 2^16 output rows with the
-      wrap), inputs drawn on the card;
+      wrap), inputs drawn on the card; every yardstick above runs the
+      plain arithmetic (f128t's *_plain) by name, and the field-op kernel
+      must launch no time across them; then the field-op kernel
+      (csrc/field_ops.cu: f128t.fadd / fsub / fmul on a CUDA tensor)
+      against the plain add, sub and mul at kernel_bench.FOP_CASES, the
+      multi-eval's ladders_join broadcast, a transposed operand, and
+      mono's 2^23-lane LDE and a row block of it at T = 2^20 (plain on
+      windows);
   (d) conformance: the T = 128 program of conformance/vectors_e2e.json,
       proved in all three modes (T-mode, mono, cls), whose roots and proof
       bytes must match the vector byte for byte;
@@ -45,7 +52,8 @@ Phases, each printing one JSON line:
       timed, with per-stage seconds and the kernel-health report of the
       timed prove (zkvm_torch.utils.kernel_health: every kernel's launches,
       by shape; so in (f) and (e2)); K1, K2, K3 and the Merkle heap must
-      have launched in the timed prove (K1's launches also by shape), the
+      (and the field-op kernel, as on every path below) have launched in
+      the timed prove (K1's launches also by shape), the
       batch inverse exactly 8 times (the DEEP, once a class), K4 never;
       the proof must verify and fail with one byte flipped;
   (f) the same chain in mono (full-LDE) mode: warm-up, timed prove, verify
@@ -122,7 +130,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 from kernel_bench import (BINV_CASES, BINV_MONO_CASES, K1_CASES, K1_DIST_CASES, K1_LARGE_CASES,  # noqa: E402
                           K1_MONO_CASES, K2_CASES, K2_DIST_CASES, K2_LARGE_CASES, K2_MONO_CASES, K3_LARGE_T,
                           MERKLE_CASES, MERKLE_DIST_CASES, MERKLE_LARGE_CASES, MONO_T, air_calls, air_cases,
-                          binv_name, capture_entry, cuda_ms, ptxas_summary, sass_opcodes)
+                          binv_name, capture_entry, cuda_ms, fop_calls, fop_cases, fop_name, ptxas_summary,
+                          sass_opcodes)
 from zkvm_torch import kernels, vm  # noqa: E402
 from zkvm_torch.dist import multihost  # noqa: E402
 from zkvm_torch.dist import run as dist_run  # noqa: E402
@@ -366,6 +375,10 @@ def k1_plain(y, tw, pre, r1, elems=1 << 22):
 def phase_kernels():
     rng = np.random.default_rng(20261016)
     results = {}
+    # the yardsticks below run the plain arithmetic by name: across them
+    # the field-op kernel must not launch
+    ft.op_launches.clear()
+    ft.op_launches_by_shape.clear()
     # K1 at the main paths' axes: M = 8 (FRI fold, D/8 lanes), 256 (both
     # passes of every T = 2^16 transform, 28 columns), 512 (pass 2 of the
     # size-2^19 transforms: the composition iNTT, and the mono coset LDE of
@@ -393,7 +406,7 @@ def phase_kernels():
     out = torch.empty(1 << 16, 4, dtype=torch.int32, device=DEV)
     kernels.check(kernels.lib().zk_mul32(kernels.ptr(pa), kernels.ptr(pb), kernels.ptr(out), 1 << 16,
                                          kernels.stream_of(out)), "zk_mul32")
-    err = max_abs_err(nt.unpack_t(out), ft.fmul(a, b))
+    err = max_abs_err(nt.unpack_t(out), ft.fmul_plain(a, b))
     emit({"phase": "kernels", "case": "mul32 alone, 2^16 pairs", "max_abs_err": err})
     if err != 0:
         raise AssertionError(f"zk::mul32 differs from the plain multiply (max abs err {err})")
@@ -487,6 +500,11 @@ def phase_kernels():
     # mono's shapes at T = 2^20: the max_abs_err of each kernel covers them
     for name, res in mono_kernels().items():
         results[name]["max_abs_err"] = max([results[name]["max_abs_err"]] + [r["max_abs_err"] for r in res])
+    yard = sum(ft.op_launches.values())
+    emit({"phase": "kernels", "check": "field_ops launches across the yardsticks", "launches": yard})
+    if yard:
+        raise AssertionError(f"the yardsticks of phase (c) launched the field-op kernel {yard} times")
+    results["field_ops"] = field_op_kernels(rng)
     return results
 
 
@@ -575,6 +593,68 @@ def mono_kernels():
     return out
 
 
+def _fop_work(op, a, b, out):
+    """Bytes and operations of one field-op call: each operand's own
+    elements read once (a broadcast one's fewer), the output written once."""
+    return (a.numel() + b.numel() + out.numel()) * 4, out.numel() // 8 * (OPS_MUL if op == "mul" else OPS_ADD)
+
+
+def _fop_patterns():
+    """The broadcast and strided operands of the main paths beside
+    kernel_bench.FOP_CASES, as (op, make) with make(limbs) -> (a, b): the
+    multi-eval's ladders_join at the queries' 32 points over T = 2^16
+    ((Q, N2, 8, 1) x (Q, 1, 8, S), stride 0 along the lanes and along a
+    batch axis), and the class scale of ntt_t.scale_by_ladder_t on a
+    transposed (C, N2, 8, N1) view of 28 columns at T = 2^16."""
+    yield "mul", lambda limbs: (limbs((32, 8, 256)).transpose(-1, -2)[:, :, :, None], limbs((32, 8, 256))[:, None])
+    yield "mul", lambda limbs: (limbs((28, 8, 256, 256)).transpose(-3, -2), limbs((8, 256)))
+
+
+def field_op_kernels(rng):
+    """Phase (c) for the field-op kernel: add, sub and mul against their
+    plain versions, exactly, at kernel_bench.FOP_CASES, the broadcast
+    patterns of _fop_patterns, and mono's 2^23-lane operands at T = 2^20
+    (the kernel over the whole input, the plain version on three windows
+    of lanes): the (28, 8, 2^23) trace LDE times a column of weights, and
+    the (4, 8, 2^19) block of it that the DEEP's column scan weighs (its
+    batch stride 2^26 limbs).  Returns the first case's results, and the
+    largest error of all."""
+    lib = kernels.lib()
+    limbs = lambda shape: rand_limbs(rng, shape, spread=True)
+    cases = list(fop_cases(limbs))
+    for op, make in _fop_patterns():
+        a, b = make(limbs)
+        cases.append((fop_name(op, a, b), op, a, b))
+    out = []
+    for name, op, a, b in cases:
+        wrapper, plain, launch = fop_calls(ft, op)
+        cname, cargs, keep = capture_entry(kernels, launch, a, b)  # keep: a, b and the output
+        out.append(compare(name, lambda: wrapper(a, b), lambda: plain(a, b),
+                           *_fop_work(op, a, b, keep[-1]), plain_reps=1,
+                           entry_fn=lambda: kernels.check(getattr(lib, cname)(*cargs), cname)))
+        sync_free(name, lambda: wrapper(a, b))
+        del a, b, cargs, keep
+    del cases
+    torch.cuda.empty_cache()
+    d, r = 8 * MONO_T, limits.MONO_ROW_BLOCK
+    lde = dev_limbs(2031, (28, 8, d))
+    w = dev_limbs(2032, (28, 8, 1))
+    block = lde[4:8, :, r:2 * r]
+    for op, a, b in (("mul", lde, w), ("add", block, w[4:8]), ("mul", block, w[4:8])):
+        wrapper, plain, launch = fop_calls(ft, op)
+        cname, cargs, keep = capture_entry(kernels, launch, a, b)
+        desc, lanes = lane_windows(a.shape[-1])
+        out.append(compare(fop_name(op, a, b) + (" (a block of the LDE)" if a is block else ""),
+                           lambda: wrapper(a, b), lambda: plain(a.index_select(-1, lanes), b),
+                           *_fop_work(op, a, b, keep[-1]), plain_reps=0,
+                           entry_fn=lambda: kernels.check(getattr(lib, cname)(*cargs), cname),
+                           windows=(desc, lambda o: o.index_select(-1, lanes))))
+        del cargs, keep
+    del lde, w, block
+    torch.cuda.empty_cache()
+    return dict(out[0], max_abs_err=max(r["max_abs_err"] for r in out))
+
+
 def phase_conformance():
     vec = json.loads((Path(__file__).resolve().parent / "conformance" / "vectors_e2e.json").read_text())
     key = vm.ServerKey(vm.DEMO_PARAMETERS, random.Random(7))
@@ -601,12 +681,13 @@ MODES = ("tmode", "mono", "cls")
 # and once more for the constants of a cold prove; the cls path: K4 once a
 # class, the batch inverse twice a class, no K3; cold mono at T = 2^20: K4
 # once over the domain, the batch inverse for the constants and the DEEP)
-MONO_KERNELS = ("ntt_stages", "blake3_rows", "merkle", "transition", "batch_inverse")
-PATH_KERNELS = {"tmode": ("ntt_stages", "blake3_rows", "merkle", "composition", "batch_inverse"),
+MONO_KERNELS = ("ntt_stages", "blake3_rows", "merkle", "transition", "batch_inverse", "field_ops")
+TMODE_KERNELS = ("ntt_stages", "blake3_rows", "merkle", "composition", "batch_inverse", "field_ops")
+PATH_KERNELS = {"tmode": TMODE_KERNELS,
                 "mono": MONO_KERNELS,
                 "cls": MONO_KERNELS,
-                "lr_large_cold": ("batch_inverse",),
-                "lr_large": ("ntt_stages", "blake3_rows", "merkle", "composition", "batch_inverse"),
+                "lr_large_cold": ("batch_inverse", "field_ops"),
+                "lr_large": TMODE_KERNELS,
                 "lr_large_cls": MONO_KERNELS,
                 "lr_large_mono": MONO_KERNELS}
 CLS_EXACT = {"transition": 8, "batch_inverse": 16, "composition": 0}
@@ -861,6 +942,8 @@ SOURCES = {
     "transition": ("zkvm_torch/csrc/transition.cu", "zkvm/air/constraints_pallas.py:378"),
     "batch_inverse": ("zkvm_torch/csrc/batch_inverse.cu",
                       "zkvm/field/jax_f128.py:310 batch_inverse (XLA, no Pallas)"),
+    "field_ops": ("zkvm_torch/csrc/field_ops.cu",
+                  "zkvm/field/jax_f128t.py:142 fadd, :148 fsub, :192 fmul (XLA, no Pallas)"),
 }
 
 

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time the hand-written kernels K1-K4, the Merkle heap and the batch
-inverse on one CUDA card.
+"""Time the hand-written kernels K1-K4, the Merkle heap, the batch
+inverse and the field-op kernel on one CUDA card.
 
-    python3 kernel_bench.py [--tree DIR] [--label NAME] [--only K1 K2 K3 K4 Merkle BINV] [--large]
-    python3 kernel_bench.py --sweep [K1 K2 K3 K4 Merkle BINV] [--tree DIR] [--label NAME]
+    python3 kernel_bench.py [--tree DIR] [--label NAME] [--only K1 K2 K3 K4 Merkle BINV FOPS] [--large]
+    python3 kernel_bench.py --sweep [K1 K2 K3 K4 Merkle BINV FOPS] [--tree DIR] [--label NAME]
     python3 kernel_bench.py --sass [--tree DIR]
 
 The first form times, at the cases of chip_smoke.py's phase (c), the
@@ -27,6 +27,14 @@ from the call the prover makes down to the C entry point:
              tree builds per call, the C call),
     entry    the C entry point alone, with the arguments that one launch
              call passed to it, recorded beforehand (see capture_entry).
+  the field-op kernel (field_ops.cu, FOPS) at FOP_CASES, the provers'
+  operand shapes:
+    wrapper  ``f128t.fadd`` / ``fsub`` / ``fmul``,
+    launch   ``f128t.launch_field_op`` (the checks, the geometry, the C
+             call),
+    entry    the C entry alone, as above;
+  a tree without the field-op kernel (the parent of its port) times its
+  plain-torch ops on the card at the wrapper level alone.
   A tree without the Merkle kernel (the parent of its port) times its
   ``merkle_flat``, plain torch on the card, at the wrapper level alone.
   ``--large`` takes the cases of the 2^20-row path instead: T-mode's and
@@ -156,6 +164,23 @@ BINV_CASES = [(3, 8, 1 << 19), (16, 8, 1 << 16), (16, 8, 1 << 20), (3, 8, 1 << 1
 # its shapes: elements a thread (K), threads a block (a block's product
 # tree has that many leaves); the first is the shipped default
 BINV_SHAPES = [(8, 128), (4, 256), (4, 128), (16, 64), (8, 64), (2, 512), (8, 256)]
+# The field-op kernel's cases, (op, a's shape, b's shape), at the provers'
+# shapes: the DEEP's weighted columns (T-mode at T = 2^16, C = 28, times a
+# weight column) and quotients ((3, 8, T) and the OOD values), FRI's Horner
+# step and constants and cls's boundary groups ((8, 2^16)), the
+# composition's inverse-offset ladder over D = 2^19, the 2^20 DEEP's
+# composition columns (8 columns, a column of weights); then the shapes
+# the 2^16 proves launch most (their launches_by_shape): a ladder's
+# squarings of one element and doubling steps (8, 32) x (8, 1), and mono's
+# DEEP sums over D = 2^19, a block of 4 weighted columns and their adds
+FOP_CASES = [("mul", (28, 8, 1 << 16), (28, 8, 1)), ("mul", (3, 8, 1 << 16), (3, 8, 1 << 16)),
+             ("sub", (3, 8, 1 << 16), (3, 8, 1)), ("add", (8, 1 << 16), (8, 1 << 16)),
+             ("mul", (8, 1 << 16), (8, 1 << 16)), ("mul", (8, 1 << 16), (8, 1)),
+             ("mul", (8, 1 << 19), (8, 1 << 19)), ("mul", (8, 8, 1 << 20), (8, 8, 1)),
+             ("mul", (8, 1), (8, 1)), ("mul", (8, 32), (8, 1)), ("mul", (4, 8, 1 << 19), (4, 8, 1)),
+             ("add", (8, 1 << 19), (8, 1 << 19))]
+# its threads a block; the first is the shipped default
+FOP_THREADS = [256, 128, 512, 64]
 SWEEPS = {
     "K1": ("ntt_stages.cu", "zk_ntt_stages", [
         {"ZK_K1_TILE": tile, "ZK_K1_LANES": lanes, "ZK_K1_PER_THREAD": k}
@@ -174,6 +199,7 @@ SWEEPS = {
         for th, mb, sp in [K4_SHAPE] + [x for x in AIR_SHAPES if x != K4_SHAPE]]),
     "BINV": ("batch_inverse.cu", "zk_batch_inverse", [
         {"ZK_BINV_K": k, "ZK_BINV_THREADS": th} for k, th in BINV_SHAPES]),
+    "FOPS": ("field_ops.cu", "zk_field_op", [{"ZK_FOP_THREADS": th} for th in FOP_THREADS]),
 }
 
 
@@ -298,6 +324,32 @@ def air_cases(limbs, dev, t=1 << 16, k4=("mono", "class"), k3=True):
 
 def binv_name(shape):
     return "BINV " + "x".join(str(n) for n in shape)
+
+
+def _dims(shape):
+    return "(" + ", ".join(f"2^{n.bit_length() - 1}" if n >= 1 << 10 else str(n) for n in shape) + ")"
+
+
+def fop_name(op, a, b):
+    return f"FOPS {op} {_dims(a.shape)} x {_dims(b.shape)}"
+
+
+def fop_cases(limbs, cases=FOP_CASES):
+    """The field-op kernel's cases, one at a time: (name, op, a, b), the
+    operands made by ``limbs(shape)``."""
+    for op, sa, sb in cases:
+        a, b = limbs(sa), limbs(sb)
+        yield fop_name(op, a, b), op, a, b
+
+
+def fop_calls(ft, op):
+    """(wrapper, plain version, launch function) of one field op, each
+    taking (a, b); a tree without the field-op kernel has no plain names
+    and no launch function, and its wrapper is plain torch."""
+    wrapper = getattr(ft, f"f{op}")
+    if not hasattr(ft, "launch_field_op"):
+        return wrapper, wrapper, None
+    return wrapper, getattr(ft, f"f{op}_plain"), lambda lib, stream, a, b: ft.launch_field_op(lib, stream, op, a, b)
 
 
 def air_calls(kind):
@@ -444,6 +496,18 @@ def bench_tree(tree, label, only, reps=20, large=False):
             _emit({"tree": label, "case": binv_name(shape), "level": level, "ms": ms, "host_ms": host_ms})
         del x, cargs, keep
         torch.cuda.empty_cache()
+    for name, op, a, b in fop_cases(limbs) if "FOPS" in only else []:
+        wrapper, _, launch = fop_calls(ft, op)
+        calls = {"wrapper": lambda: wrapper(a, b)}
+        if launch is not None:
+            cname, cargs, keep = capture_entry(kernels, launch, a, b)
+            calls["launch"] = lambda: launch(lib, stream, a, b)
+            calls["entry"] = lambda: kernels.check(getattr(lib, cname)(*cargs), cname)
+        for level, fn in calls.items():
+            ms, host_ms = cuda_ms(fn, reps)
+            _emit({"tree": label, "case": name, "level": level, "ms": ms, "host_ms": host_ms})
+        del a, b, calls
+        torch.cuda.empty_cache()
     for name, kind, args, host in airs:
         if name.split()[0] not in only:
             continue
@@ -535,6 +599,13 @@ def sweep(tree, label, kernels_to_sweep, reps=20):
                 x = _limbs(rng, shape, dev)
                 cases.append((binv_name(shape), ft.batch_inverse_plain(x),
                               lambda lib, x=x: ft.launch_batch_inverse(lib, stream, x)))
+        elif kernel == "FOPS":
+            from zkvm_torch.field import f128t as ft
+
+            cases = []
+            for name, op, a, b in fop_cases(lambda shape: _limbs(rng, shape, dev)):
+                _, plain, launch = fop_calls(ft, op)
+                cases.append((name, plain(a, b), lambda lib, a=a, b=b, f=launch: f(lib, stream, a, b)))
         else:
             cases = []
             for name, kind, args, host in air_cases(lambda shape: _limbs(rng, shape, dev), dev):
@@ -597,8 +668,8 @@ def main(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", type=Path, default=ROOT, help="checkout whose zkvm_torch is timed")
     ap.add_argument("--label", default="this", help="name of the tree in the output")
-    ap.add_argument("--only", nargs="+", default=["K1", "K2", "K3", "K4", "Merkle", "BINV"],
-                    choices=["K1", "K2", "K3", "K4", "Merkle", "BINV"],
+    ap.add_argument("--only", nargs="+", default=["K1", "K2", "K3", "K4", "Merkle", "BINV", "FOPS"],
+                    choices=["K1", "K2", "K3", "K4", "Merkle", "BINV", "FOPS"],
                     help="kernels to time")
     ap.add_argument("--large", action="store_true", help="the cases of the 2^20-row path")
     ap.add_argument("--sweep", nargs="*", choices=list(SWEEPS), help="time these kernels at each shape of SWEEPS")

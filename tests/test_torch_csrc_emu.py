@@ -20,7 +20,7 @@ import torch
 from zkvm.field import f128
 from zkvm_torch import kernels
 from zkvm_torch.field import f128t as tft
-from zkvm_torch.field.limbs import from_numpy, from_t, to_limbs, to_numpy
+from zkvm_torch.field.limbs import from_numpy, from_t, tlimbs, to_limbs, to_numpy
 from zkvm.hash import blake3_jax as b3j
 from zkvm.hash import blake3_t as jb3t
 from zkvm_torch.hash import blake3_t as tb3t
@@ -397,3 +397,55 @@ def test_batch_inverse_launch_takes_leading_dims_and_builds_nothing(emu, monkeyp
     for empty in (x[..., :0], x[:0]):
         with pytest.raises(ValueError, match="not empty"):
             tft.launch_batch_inverse(emu, 0, empty)
+
+
+@pytest.mark.parametrize("op", ["add", "sub", "mul"])
+def test_field_ops_edge_pairs_emulated(emu, op):
+    """The field-op kernel on every pair of the edge values 0, 1, p - 1 and
+    eps, and on random pairs: exact against the plain version and the
+    golden model."""
+    from test_torch_field import _pairs
+
+    a, b = _pairs()
+    xa, xb = from_numpy(tlimbs(a)), from_numpy(tlimbs(b))
+    got = tft.launch_field_op(emu, 0, op, xa, xb)
+    plain = {"add": tft.fadd_plain, "sub": tft.fsub_plain, "mul": tft.fmul_plain}[op]
+    np.testing.assert_array_equal(to_numpy(got), to_numpy(plain(xa, xb)))
+    golden = {"add": f128.fadd, "sub": f128.fsub, "mul": f128.fmul}[op]
+    assert [int(v) for v in from_t(to_numpy(got))] == [golden(x, y) for x, y in zip(a, b)]
+
+
+def _fop_operands(rng, case):
+    """The operands of one broadcast or strided pattern of the provers."""
+    limbs = lambda shape: from_numpy(rand_limbs(rng, shape))
+    if case == "columns x column weights":  # (C, 8, T) x (C, 8, 1): a stride-0 lane axis
+        return limbs((5, 8, 64)), limbs((5, 8, 1))
+    if case == "ladders_join":  # (Q, N2, 8, 1) x (Q, 1, 8, S): stride 0 on lanes and on a batch axis
+        return limbs((3, 8, 4)).transpose(-1, -2)[:, :, :, None], limbs((3, 8, 16))[:, None]
+    if case == "an (8, 1) constant":
+        return limbs((8, 96)), limbs((8, 1))
+    if case == "a transposed operand":  # (N2, 8, N1) views of (8, N1, N2) limbs
+        return limbs((8, 8, 4)).permute(2, 0, 1), limbs((4, 8, 8))
+    if case == "narrowed halves":  # fsum's pairwise step, along a batch axis
+        x = limbs((6, 8, 40))
+        return x.narrow(0, 0, 3), x.narrow(0, 3, 3)
+    if case == "odd lengths":  # axes that are not powers of two: the kernel divides
+        return limbs((3, 1, 8, 7)), limbs((5, 8, 1))
+    if case == "one element":
+        return limbs((8, 1)), limbs((8, 1))
+    return limbs((4, 8, 0)), limbs((8, 1))  # empty: no launch
+
+
+@pytest.mark.parametrize("case", ["columns x column weights", "ladders_join", "an (8, 1) constant",
+                                  "a transposed operand", "narrowed halves", "odd lengths", "one element",
+                                  "empty"])
+def test_field_ops_broadcast_emulated(emu, case):
+    """The field-op kernel on the provers' broadcast and strided operands
+    (read through their strides, nothing copied): exact against the plain
+    version for add, sub and mul."""
+    a, b = _fop_operands(np.random.default_rng(len(case)), case)
+    for op, plain in (("add", tft.fadd_plain), ("sub", tft.fsub_plain), ("mul", tft.fmul_plain)):
+        got = tft.launch_field_op(emu, 0, op, a, b)
+        want = plain(a, b)
+        assert got.shape == want.shape and got.is_contiguous()
+        np.testing.assert_array_equal(to_numpy(got), to_numpy(want))

@@ -146,15 +146,18 @@ def test_kernel_health_reset_zeroes_the_counters():
     ft.launches_by_shape[(3, 1 << 16)] += 4
     mk.launches_by_size[1 << 19] += 2
     mk.trees_by_size[1 << 19] += 1
+    ft.op_launches["mul"] += 6
+    ft.op_launches_by_shape[("mul", 1 << 16)] += 6
     try:
         rep = kernel_health.report()
         assert rep["launches"] == {"ntt_stages": 3, "blake3_rows": 2, "merkle": 5, "composition": 1,
-                                   "transition": 1, "batch_inverse": 4}
-        assert rep["total"] == 16
+                                   "transition": 1, "batch_inverse": 4, "field_ops": 6}
+        assert rep["total"] == 22
         assert rep["launches_by_shape"]["ntt_stages"] == {"M=256 B=28 NL=256 r1": 3}
         assert rep["launches_by_shape"]["merkle"] == {"N=524288 trees=1": 2}
         assert rep["launches_by_shape"]["transition"] == {"N=524288 step=8": 1}
         assert rep["launches_by_shape"]["batch_inverse"] == {"R=3 N=65536": 4}
+        assert rep["launches_by_shape"]["field_ops"] == {"mul n=65536": 6}
     finally:
         kernel_health.reset()
     assert kernel_health.launches() == dict.fromkeys(kernel_health.FAMILIES, 0)

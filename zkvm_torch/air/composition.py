@@ -46,27 +46,28 @@ _SEL = {
 
 
 def _selectors(bits, one):
-    nb = [ft.fsub(one, b) for b in bits]
+    nb = [ft.fsub_plain(one, b) for b in bits]
     out = {}
     for name, pattern in _SEL.items():
         ops = [bits[i] if pattern[i] else nb[i] for i in range(5)]
-        out[name] = ft.fmul(ft.fmul(ft.fmul(ops[0], ops[1]), ft.fmul(ops[2], ops[3])), ops[4])
+        pair01, pair23 = ft.fmul_plain(ops[0], ops[1]), ft.fmul_plain(ops[2], ops[3])
+        out[name] = ft.fmul_plain(ft.fmul_plain(pair01, pair23), ops[4])
     return out
 
 
 def _sbox(state):
-    return ft.fmul(ft.fmul(state, state), state)
+    return ft.fmul_plain(ft.fmul_plain(state, state), state)
 
 
 def _mds(mat, state):
     """(4, 4, 8) matrix x (4, 8, N) state -> (4, 8, N)."""
-    return ft.fsum(ft.fmul(mat[..., None], state[None]), axis=1)
+    return ft.fsum_plain(ft.fmul_plain(mat[..., None], state[None]), axis=1)
 
 
 def merged_transition_t(cur, nxt, mask, ark, mds, inv_mds, alphas, delta):
     """sum_k alpha_k * gate_k * C_k as (8, N); cur/nxt (28, 8, N), mask
     (8, N), ark (8, 8, N), mds/inv_mds (4, 4, 8), alphas (20, 8), delta a
-    host int."""
+    host int.  The yardstick of K3 and K4, so in the plain arithmetic."""
     n = cur.shape[-1]
     dev = cur.device
     one = ft.ones(n, dev)
@@ -78,58 +79,58 @@ def merged_transition_t(cur, nxt, mask, ark, mds, inv_mds, alphas, delta):
     shr, shl = bits[0], bits[1]
 
     exprs, gates = [None] * 20, [None] * 20
-    exprs[0] = ft.fsub(nxt[Columns.CLK], ft.fadd(cur[Columns.CLK], one))
+    exprs[0] = ft.fsub_plain(nxt[Columns.CLK], ft.fadd_plain(cur[Columns.CLK], one))
     gates[0] = one
     four = const(4)
-    depth = ft.fadd(ft.fsub(ft.fsub(nxt[Columns.DEPTH], cur[Columns.DEPTH]), shr), shl)
-    depth = ft.fsub(depth, ft.fmul(f["read2"], four))
-    exprs[1] = ft.fadd(depth, ft.fmul(f["add2"], four))
+    depth = ft.fadd_plain(ft.fsub_plain(ft.fsub_plain(nxt[Columns.DEPTH], cur[Columns.DEPTH]), shr), shl)
+    depth = ft.fsub_plain(depth, ft.fmul_plain(f["read2"], four))
+    exprs[1] = ft.fadd_plain(depth, ft.fmul_plain(f["add2"], four))
     gates[1] = one
-    exprs[2] = ft.fmul(shr, shl)
+    exprs[2] = ft.fmul_plain(shr, shl)
     gates[2] = one
-    exprs[3] = ft.fsub(sn(0), ft.fadd(s(0), s(1)))
+    exprs[3] = ft.fsub_plain(sn(0), ft.fadd_plain(s(0), s(1)))
     gates[3] = f["add"]
     stack = Columns.STACK
-    sn04 = ft.fsum(nxt[stack : stack + LWE_SIZE], axis=0)
-    s15 = ft.fsum(cur[stack + 1 : stack + 1 + LWE_SIZE], axis=0)
-    exprs[4] = ft.fsub(ft.fsub(sn04, s15), ft.fmul(const(delta), s(0)))
+    sn04 = ft.fsum_plain(nxt[stack : stack + LWE_SIZE], axis=0)
+    s15 = ft.fsum_plain(cur[stack + 1 : stack + 1 + LWE_SIZE], axis=0)
+    exprs[4] = ft.fsub_plain(ft.fsub_plain(sn04, s15), ft.fmul_plain(const(delta), s(0)))
     gates[4] = f["sadd"]
-    s04 = ft.fsum(cur[stack : stack + LWE_SIZE], axis=0)
-    s59 = ft.fsum(cur[stack + LWE_SIZE : stack + 2 * LWE_SIZE], axis=0)
-    exprs[5] = ft.fsub(ft.fsub(sn04, s04), s59)
+    s04 = ft.fsum_plain(cur[stack : stack + LWE_SIZE], axis=0)
+    s59 = ft.fsum_plain(cur[stack + LWE_SIZE : stack + 2 * LWE_SIZE], axis=0)
+    exprs[5] = ft.fsub_plain(ft.fsub_plain(sn04, s04), s59)
     gates[5] = f["add2"]
-    exprs[6] = ft.fsub(sn(0), ft.fmul(s(0), s(1)))
+    exprs[6] = ft.fsub_plain(sn(0), ft.fmul_plain(s(0), s(1)))
     gates[6] = f["mul"]
-    exprs[7] = ft.fsub(sn04, ft.fmul(s(0), s15))
+    exprs[7] = ft.fsub_plain(sn04, ft.fmul_plain(s(0), s15))
     gates[7] = f["smul"]
     for k, (name, tgt) in enumerate(
         [("push", sn(1)), ("read", sn(1)), ("read2", sn(LWE_SIZE)), ("noop", sn(0))]
     ):
-        exprs[8 + k] = ft.fsub(tgt, s(0))
+        exprs[8 + k] = ft.fsub_plain(tgt, s(0))
         gates[8 + k] = f[name]
 
     # 12-15: hash round, meeting in the middle
     h0 = cur[Columns.HFLAG]
     state = torch.stack([cur[c] for c in Columns.HASH], dim=0)  # (4, 8, N)
-    step0 = ft.fadd(_mds(mds, _sbox(state)), ark[0:4])
+    step0 = ft.fadd_plain(_mds(mds, _sbox(state)), ark[0:4])
     opcode = None
     for w, b in zip([16, 8, 4, 2, 1], bits):
-        term = ft.fmul(const(w), b)
-        opcode = term if opcode is None else ft.fadd(opcode, term)
-    inj0 = ft.fadd(step0[0], opcode)
-    inj1 = ft.fadd(step0[1], ft.fmul(sn(0), f["push"]))
+        term = ft.fmul_plain(const(w), b)
+        opcode = term if opcode is None else ft.fadd_plain(opcode, term)
+    inj0 = ft.fadd_plain(step0[0], opcode)
+    inj1 = ft.fadd_plain(step0[1], ft.fmul_plain(sn(0), f["push"]))
     step0 = torch.cat([inj0[None], inj1[None], step0[2:]], dim=0)
     state_n = torch.stack([nxt[c] for c in Columns.HASH], dim=0)
-    step1 = _sbox(_mds(inv_mds, ft.fsub(state_n, ark[4:8])))
-    diff = ft.fsub(step1, step0)
-    gate = ft.fmul(mask, h0)
+    step1 = _sbox(_mds(inv_mds, ft.fsub_plain(state_n, ark[4:8])))
+    diff = ft.fsub_plain(step1, step0)
+    gate = ft.fmul_plain(mask, h0)
     for i in range(4):
         exprs[12 + i] = diff[i]
         gates[12 + i] = gate
     # 16-19: hash copy / capacity reset
-    ngate = ft.fmul(ft.fsub(one, mask), h0)
-    exprs[16] = ft.fsub(nxt[Columns.HASH[0]], cur[Columns.HASH[0]])
-    exprs[17] = ft.fsub(nxt[Columns.HASH[1]], cur[Columns.HASH[1]])
+    ngate = ft.fmul_plain(ft.fsub_plain(one, mask), h0)
+    exprs[16] = ft.fsub_plain(nxt[Columns.HASH[0]], cur[Columns.HASH[0]])
+    exprs[17] = ft.fsub_plain(nxt[Columns.HASH[1]], cur[Columns.HASH[1]])
     exprs[18] = nxt[Columns.HASH[2]]
     exprs[19] = nxt[Columns.HASH[3]]
     for i in range(4):
@@ -137,19 +138,20 @@ def merged_transition_t(cur, nxt, mask, ark, mds, inv_mds, alphas, delta):
 
     acc = None
     for e, g, al in zip(exprs, gates, alphas):
-        term = ft.fmul(ft.fmul(e, g), al[:, None])
-        acc = term if acc is None else ft.fadd(acc, term)
+        term = ft.fmul_plain(ft.fmul_plain(e, g), al[:, None])
+        acc = term if acc is None else ft.fadd_plain(acc, term)
     return acc
 
 
-def boundary_group(cur, cols, bvals, bbetas):
+def boundary_group(cur, cols, bvals, bbetas, arith=ft.DISPATCH):
     """sum_j (cur[cols_j] - bvals_j) * bbetas_j as (8, N); cur (28, 8, N),
     bvals/bbetas (k, 8).  One column at a time, so the limb products never
-    span more than one (8, N) column."""
+    span more than one (8, N) column.  ``arith``: the plain operations in
+    K3's plain version, the dispatching ones on the provers' paths."""
     acc = torch.zeros_like(cur[0])
     for slot, c in enumerate(cols):
-        term = ft.fmul(ft.fsub(cur[c], bvals[slot][:, None]), bbetas[slot][:, None])
-        acc = ft.fadd(acc, term)
+        term = arith.fmul(arith.fsub(cur[c], bvals[slot][:, None]), bbetas[slot][:, None])
+        acc = arith.fadd(acc, term)
     return acc
 
 
@@ -157,9 +159,9 @@ def composition_body_t(cur, nxt, mask, ark, ee, i0, i1, mds, inv_mds, alphas,
                        bvals0, bbetas0, bvals1, bbetas1, delta, bcols0, bcols1):
     """Per-class composition value (8, N), plain PyTorch: the merged
     transition value x ee, plus boundary group 0 x i0 and group 1 x i1."""
-    q = ft.fmul(merged_transition_t(cur, nxt, mask, ark, mds, inv_mds, alphas, delta), ee)
-    q = ft.fadd(q, ft.fmul(boundary_group(cur, bcols0, bvals0, bbetas0), i0))
-    return ft.fadd(q, ft.fmul(boundary_group(cur, bcols1, bvals1, bbetas1), i1))
+    q = ft.fmul_plain(merged_transition_t(cur, nxt, mask, ark, mds, inv_mds, alphas, delta), ee)
+    q = ft.fadd_plain(q, ft.fmul_plain(boundary_group(cur, bcols0, bvals0, bbetas0, ft.PLAIN), i0))
+    return ft.fadd_plain(q, ft.fmul_plain(boundary_group(cur, bcols1, bvals1, bbetas1, ft.PLAIN), i1))
 
 
 # ---------------------------------------------------------------------------

@@ -18,8 +18,9 @@ and an output row k = k1 + P k2,
    recurses, L > 2^18, the inner transform's and pass 2's).  The reference
    multiplies them in before exchange 2, from P host starts
    (``zkvm/dist/ntt_dist.py:48-66``); after it they are one geometric
-   ladder a rank, and a plain limb multiply over the whole block would hold
-   ~50 bytes of int64 transients an input byte;
+   ladder a rank, and fused they cost no launch of their own (a plain
+   limb multiply over the whole block would hold ~50 bytes of int64
+   transients an input byte on the CPU);
 5. exchange 3 and a local transpose, back to natural row blocks.
 
 The inverse transform's 1/N is 1/L from K1's mid twiddles times 1/P folded

@@ -28,6 +28,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
 SOURCES = (
     "ntt_stages.cu", "blake3_rows.cu", "merkle.cu", "composition.cu", "transition.cu", "batch_inverse.cu",
+    "field_ops.cu",
 )
 HEADERS = ("zk_common.cuh", "f128.cuh", "transition.cuh", "blake3.cuh", "host_emu.h")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -38,6 +39,7 @@ _I = ctypes.c_int
 _L = ctypes.c_long
 _U64 = ctypes.c_uint64
 _IP = ctypes.POINTER(ctypes.c_int)  # a host array of ints
+_LP = ctypes.POINTER(ctypes.c_long)  # a host array of longs
 # C signatures: every device pointer and the stream are void*, sizes are
 # int/long; delta goes as two uint64 words, boundary columns as host ints
 SIGNATURES = {
@@ -58,6 +60,9 @@ SIGNATURES = {
     "zk_batch_inverse": (_P, _P, _L, _L, _P),
     # a, out (packed elements), n, stream: the batch inverse's a^(p-2) alone (a check)
     "zk_binv_power": (_P, _P, _I, _P),
+    # op, nd, sizes (host), strides (host: a, b, out, each the limb axis's
+    # then the nd element axes'), a, b, out, stream
+    "zk_field_op": (_I, _I, _LP, _LP, _P, _P, _P, _P),
 }
 
 build_seconds = 0.0  # wall time of the last nvcc build in this process

@@ -235,24 +235,28 @@ def unpack_t(w: torch.Tensor) -> torch.Tensor:
     return limbs.reshape(w.shape[:-2] + (8, w.shape[-1])).to(torch.int32)
 
 
-def _apply_pre(y, pre, r1):
+def _apply_pre(y, pre, r1, fmul):
+    """y times ``pre`` (limbs) or the rank-1 ``r1``, by ``fmul``: the plain
+    multiply in K1's plain version, the dispatching one where an axis of
+    one row needs no stage network."""
     if pre is not None:
-        y = ft.fmul(y, pre)
+        y = fmul(y, pre)
     elif r1 is not None:
         rs, ls = r1
-        y = ft.fmul(ft.fmul(y, rs.transpose(0, 1)[:, :, None]), ls[None])
+        y = fmul(fmul(y, rs.transpose(0, 1)[:, :, None]), ls[None])
     return y
 
 
 def pease_stages_plain(y: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
-    """The bare stage network; y (..., M, 8, L) pre-permuted, tw
-    (S, M/2, 8) limbs.  Counterpart of ntt_t._pease_stages_batched."""
+    """The bare stage network, in the plain arithmetic; y (..., M, 8, L)
+    pre-permuted, tw (S, M/2, 8) limbs.  Counterpart of
+    ntt_t._pease_stages_batched."""
     m = y.shape[-3]
     h = m // 2
     for s in range(tw.shape[0]):
         a = y[..., :h, :, :]
-        b = ft.fmul(y[..., h:, :, :], tw[s][:, :, None])
-        y = torch.cat([ft.fadd(a, b), ft.fsub(a, b)], dim=-3)
+        b = ft.fmul_plain(y[..., h:, :, :], tw[s][:, :, None])
+        y = torch.cat([ft.fadd_plain(a, b), ft.fsub_plain(a, b)], dim=-3)
         z = y.reshape(y.shape[:-3] + (h, 2, 8, y.shape[-1]))
         y = torch.cat([z[..., 0, :, :], z[..., 1, :, :]], dim=-3)
     return y
@@ -265,7 +269,7 @@ def stages_plain(yb, tw, pre=None, r1=None) -> torch.Tensor:
     order), run the stages (``tw`` packed (S, M/2, 4)), gather by the final
     indices.  The JAX ``ntt_t._axis_ntt``'s contract."""
     initial, final = _layout_dev(yb.shape[-3], yb.device)
-    y = _apply_pre(yb.index_select(-3, initial), None if pre is None else unpack_t(pre), r1)
+    y = _apply_pre(yb.index_select(-3, initial), None if pre is None else unpack_t(pre), r1, ft.fmul_plain)
     return pease_stages_plain(y, unpack_t(tw).transpose(-1, -2)).index_select(-3, final)
 
 
@@ -328,7 +332,7 @@ def _axis_ntt(y, m, inverse, pre=None, r1=None):
     ``pre`` (packed (M, L, 4)) or ``r1`` premultiply the INPUT, given in
     permuted row order."""
     if m == 1:
-        return _apply_pre(y, None if pre is None else unpack_t(pre), r1)
+        return _apply_pre(y, None if pre is None else unpack_t(pre), r1, ft.fmul)
     batch = y.shape[:-3]
     yb = y.reshape((-1,) + tuple(y.shape[-3:]))
     out = pease_stages(yb, _stage_twiddles_dev(m, inverse, y.device), pre=pre, r1=r1)

@@ -53,9 +53,10 @@ from zkvm_torch.ntt import ntt_t as nt
 from . import limits
 from .pipeline import comp_columns, weighted_host
 
-# Columns per limb product in the DEEP sums: fmul widens (C, 8, D) limbs to
-# int64 partial products 48x the operand's bytes, so 4 columns at D = 2^19
-# (~3 GB of temporaries) instead of 28 (~22 GB).
+# Columns per limb product in the DEEP sums: the plain fmul (the CPU's)
+# widens (C, 8, D) limbs to int64 partial products 48x the operand's bytes,
+# so 4 columns at D = 2^19 (~3 GB of temporaries) instead of 28 (~22 GB);
+# the card's field-op kernel allocates its output alone.
 DEEP_COLUMN_BLOCK = 4
 
 
@@ -70,7 +71,8 @@ def row_blocks(n_rows: int, t_len: int) -> list:
 def _ladder_blocks(base: int, scale: int, lo: int, blocks, device) -> torch.Tensor:
     """(8, n) = scale * base^(lo + i) over equal row blocks: one ladder
     base^i of a block, times each block's host factor (an (8, n) ladder
-    in one piece holds ~12 GiB of limb-product transients at n = 2^23)."""
+    in one piece holds ~12 GiB of plain limb-product transients at n =
+    2^23 on the CPU; a ladder a block is also fewer launches)."""
     lad = nt.ladder_t_host(base, blocks[0].stop - blocks[0].start, device=device)
     return torch.cat([ft.fmul(lad, ft.const_col(f128.fmul(scale, pow(base, lo + blk.start, f128.P)), device))
                       for blk in blocks], dim=-1)

@@ -57,8 +57,11 @@ def multi_eval_rows(coeffs_t: torch.Tensor, points: Sequence[int]) -> List[List[
     if t >= limits.CHUNK_T and len(points) > 2:
         # points in pairs from CHUNK_T on (the reference's, eval_mxu.py:97):
         # the ladders of Q points build (Q, 8, T) through one broadcast limb
-        # multiply whose int64 transients are ~50 bytes an output byte
-        # (~51 GB at Q = 32, T = 2^20); a pair is the OOD frame's shape.
+        # multiply, whose plain (CPU) int64 transients are ~50 bytes an
+        # output byte (~51 GB at Q = 32, T = 2^20); a pair is the OOD
+        # frame's shape.  On a card the field-op kernel has none: the
+        # queries stage at T = 2^18 peaked at 3.89 GiB in pairs, 6.25 GiB
+        # in one piece (chip_smoke.py phase g, NVIDIA H100 80GB HBM3).
         # The two O(sqrt T) ladder factors are built once for every point
         # (the reference rebuilds them a pair; here each build is thousands
         # of kernel launches).  Values unchanged.

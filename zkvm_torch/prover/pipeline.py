@@ -145,8 +145,11 @@ def _class_ntt_blocked(coeffs_t, dct, r):
     ``lax.map`` over 4 blocks, pipeline.py:303, :339).  Columns transform
     independently, so the values are the same.  From T = 2^19 the coset
     scale is not fused into K1 (``ntt_t.class_ntt_t`` recurses), and one
-    limb multiply over all 28 columns allocates ~28 GiB at once at T =
-    2^20; a block needs a quarter of that."""
+    plain limb multiply over all 28 columns allocates ~28 GiB at once at T
+    = 2^20; a block needs a quarter of that.  That is the CPU's multiply:
+    on a card the field-op kernel allocates its output alone, and the
+    trace commit at T = 2^18 peaked at 1.46 GiB in blocks, 1.71 in one
+    piece (``chip_smoke.py`` phase g, NVIDIA H100 80GB HBM3)."""
     n_cols, t = coeffs_t.shape[0], coeffs_t.shape[-1]
     blocks = limits.COLUMN_BLOCKS
     if t < limits.CHUNK_T or n_cols % blocks:
@@ -202,9 +205,12 @@ def _stage_comp_commit_t(comp_t, dct):
 def _weighted_sum(cols_t, w_t):
     """sum_c w[c] * cols[c] of (C, 8, T) columns and (C, 8) weights.  From
     ``limits.CHUNK_T`` on, a scan over the columns (the reference's,
-    pipeline.py:433-452): the one-shot product over all C columns holds
-    ~50 bytes of int64 transients an input byte (``f128t._product_cols``).
-    Field addition is exact and commutative, so the value is the same."""
+    pipeline.py:433-452): the one-shot plain product over all C columns
+    holds ~50 bytes of int64 transients an input byte
+    (``f128t._product_cols``); on a card the field-op kernel holds none,
+    and the DEEP at T = 2^18 peaked at 1.29 GiB scanned, 1.49 in one
+    product (``chip_smoke.py`` phase g, NVIDIA H100 80GB HBM3).  Field
+    addition is exact and commutative, so the value is the same."""
     if cols_t.shape[-1] < limits.CHUNK_T:
         return ft.fsum(ft.fmul(cols_t, w_t[:, :, None]), axis=0)
     acc = torch.zeros_like(cols_t[0])

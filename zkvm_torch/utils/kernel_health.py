@@ -11,8 +11,9 @@ module is the one place that reads and resets them (``chip_smoke.py``,
 Families: K1 ``ntt_stages`` (counted by (M, B, NL, variant) only), K2
 ``blake3_rows`` (by (C, N)), ``merkle`` (entry calls, one a tree; by leaf
 count the kernel launches the entry reported and the trees), K3
-``composition`` (by T), K4 ``transition`` (by (N, step)) and
-``batch_inverse`` (by (R, N)).
+``composition`` (by T), K4 ``transition`` (by (N, step)),
+``batch_inverse`` (by (R, N)) and ``field_ops``, the elementwise add, sub
+and mul of ``f128t`` (by operation and output elements).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from zkvm_torch.hash import blake3_t as b3t
 from zkvm_torch.hash import merkle as mk
 from zkvm_torch.ntt import ntt_t as nt
 
-FAMILIES = ("ntt_stages", "blake3_rows", "merkle", "composition", "transition", "batch_inverse")
+FAMILIES = ("ntt_stages", "blake3_rows", "merkle", "composition", "transition", "batch_inverse", "field_ops")
 _COUNTED = {"blake3_rows": b3t, "merkle": mk, "composition": cp, "transition": tr, "batch_inverse": ft}
 
 
@@ -37,14 +38,16 @@ def reset() -> None:
     for mod in _COUNTED.values():
         mod.launches = 0
     for counter in (nt.launches, b3t.launches_by_shape, cp.launches_by_shape, tr.launches_by_shape,
-                    ft.launches_by_shape, mk.launches_by_size, mk.trees_by_size):
+                    ft.launches_by_shape, mk.launches_by_size, mk.trees_by_size, ft.op_launches,
+                    ft.op_launches_by_shape):
         counter.clear()
 
 
 def launches() -> Dict[str, int]:
     """Launches per family in this process since the last :func:`reset`
     (the Merkle heap: entry calls, one a tree)."""
-    return {"ntt_stages": sum(nt.launches.values()), **{name: mod.launches for name, mod in _COUNTED.items()}}
+    return {"ntt_stages": sum(nt.launches.values()), **{name: mod.launches for name, mod in _COUNTED.items()},
+            "field_ops": sum(ft.op_launches.values())}
 
 
 def launches_by_shape() -> Dict[str, Dict[str, int]]:
@@ -56,6 +59,7 @@ def launches_by_shape() -> Dict[str, Dict[str, int]]:
         "composition": {f"T={t}": k for t, k in sorted(cp.launches_by_shape.items())},
         "transition": {f"N={n} step={st}": k for (n, st), k in sorted(tr.launches_by_shape.items())},
         "batch_inverse": {f"R={r} N={n}": k for (r, n), k in sorted(ft.launches_by_shape.items())},
+        "field_ops": {f"{op} n={n}": k for (op, n), k in sorted(ft.op_launches_by_shape.items())},
     }
 
 
