@@ -43,7 +43,19 @@ Phases, each printing one JSON line:
       against the plain add, sub and mul at kernel_bench.FOP_CASES, the
       multi-eval's ladders_join broadcast, a transposed operand, and
       mono's 2^23-lane LDE and a row block of it at T = 2^20 (plain on
-      windows);
+      windows); then the multi-eval kernel (csrc/multi_eval.cu:
+      multi_eval_rows on a CUDA tensor) against multi_eval_rows_plain at
+      kernel_bench.MEVAL_CASES (the OOD frame's and the query rows'
+      shapes at T = 2^16 and 2^20), exactly, its ms at the C entry and at
+      the wrapper (the ladders and the kernel), the rows' host ms (the
+      copy of the result and its ints included), its bound (the larger of
+      (C + Q) T 32 bytes and the nibble contraction's 2 (32 C)(32 Q) T
+      int8 operations at 1,979 T/s) beside the direct dot's int32 time,
+      one wrapper call under the sync check (the copy of the result
+      apart), torch._int_mm on the two nibble matrices at the 2^20 query
+      shape (the contraction alone: the yardstick of a tensor-core
+      redesign), and a failing launch that must raise without a fall back
+      to the plain version;
   (d) conformance: the T = 128 program of conformance/vectors_e2e.json,
       proved in all three modes (T-mode, mono, cls), whose roots and proof
       bytes must match the vector byte for byte;
@@ -54,7 +66,10 @@ Phases, each printing one JSON line:
       by shape; so in (f) and (e2)); K1, K2, K3 and the Merkle heap must
       (and the field-op kernel, as on every path below) have launched in
       the timed prove (K1's launches also by shape), the
-      batch inverse exactly 8 times (the DEEP, once a class), K4 never;
+      batch inverse exactly 8 times (the DEEP, once a class), K4 never,
+      the multi-eval kernel exactly 4 times (the OOD frame twice, the
+      query rows twice; mono and each rank of (h) twice, the OOD frame's)
+      and its plain version never (so in every timed prove below);
       the proof must verify and fail with one byte flipped;
   (f) the same chain in mono (full-LDE) mode: warm-up, timed prove, verify
       and tamper check; K1, K2, K4 and the Merkle heap must have launched
@@ -129,9 +144,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from kernel_bench import (BINV_CASES, BINV_MONO_CASES, K1_CASES, K1_DIST_CASES, K1_LARGE_CASES,  # noqa: E402
                           K1_MONO_CASES, K2_CASES, K2_DIST_CASES, K2_LARGE_CASES, K2_MONO_CASES, K3_LARGE_T,
-                          MERKLE_CASES, MERKLE_DIST_CASES, MERKLE_LARGE_CASES, MONO_T, air_calls, air_cases,
-                          binv_name, capture_entry, cuda_ms, fop_calls, fop_cases, fop_name, ptxas_summary,
-                          sass_opcodes)
+                          MERKLE_CASES, MERKLE_DIST_CASES, MERKLE_LARGE_CASES, MEVAL_CASES, MONO_T, air_calls,
+                          air_cases, binv_name, capture_entry, clock_ms, cuda_ms, fop_calls, fop_cases, fop_name,
+                          meval_factors, meval_name, meval_plain_t, meval_points, ptxas_summary, sass_opcodes)
 from zkvm_torch import kernels, vm  # noqa: E402
 from zkvm_torch.dist import multihost  # noqa: E402
 from zkvm_torch.dist import run as dist_run  # noqa: E402
@@ -156,6 +171,9 @@ DEV = torch.device("cuda", 0)
 # HBM3, and 32-bit integer work at 132 SMs x 64 INT32 lanes x 1.98 GHz.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# int8 tensor-core operations (dense): the rate of the multi-eval's nibble
+# contraction, the least work that computes it
+INT8_OPS_PER_S = 1.979e15
 # 32-bit operations per f128 operation, a lower count: an add or sub is four
 # 32-bit adds with carries and the four of its correction by eps; a multiply
 # is the 16 32x32-bit partial products of the 256-bit product (low and high
@@ -232,9 +250,9 @@ def dev_limbs(seed, shape):
     return x
 
 
-def bound_ms(nbytes, ops):
+def bound_ms(nbytes, ops, ops_rate=INT32_OPS_PER_S):
     """The larger of the memory and the integer-operation time, in ms."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -242,9 +260,11 @@ def max_abs_err(a, b):
     return int((a.long() - b.long()).abs().max().item())
 
 
-def compare(name, kernel_fn, plain_fn, nbytes, ops, reps=20, plain_reps=2, entry_fn=None, windows=None):
+def compare(name, kernel_fn, plain_fn, nbytes, ops, reps=20, plain_reps=2, entry_fn=None, windows=None,
+            ops_rate=INT32_OPS_PER_S):
     """Kernel vs plain on the card: exact equality, both times and the
-    bound of the work (``nbytes`` moved, ``ops`` 32-bit operations).  With
+    bound of the work (``nbytes`` moved, ``ops`` operations at
+    ``ops_rate``, by default 32-bit integer ones).  With
     ``entry_fn`` (the C entry alone), ``ms`` is its time and the wrapper's
     is ``wrapper_ms``.  With ``plain_reps=0`` the plain time is that of the
     one call that the check makes (for a plain version that takes
@@ -266,7 +286,7 @@ def compare(name, kernel_fn, plain_fn, nbytes, ops, reps=20, plain_reps=2, entry
         extra = {"wrapper_ms": ms, "wrapper_host_ms": host_ms}
         ms, host_ms = cuda_ms(entry_fn, reps)
     plain_ms = cuda_ms(plain_fn, plain_reps)[0] if plain_reps else plain_once_ms
-    bound, bound_by = bound_ms(nbytes, ops)
+    bound, bound_by = bound_ms(nbytes, ops, ops_rate)
     if windows is not None:
         extra["plain_on"] = windows[0]
     emit({"phase": "kernels", "case": name, "max_abs_err": err, "ms": ms, "host_ms": host_ms, **extra,
@@ -505,6 +525,7 @@ def phase_kernels():
     if yard:
         raise AssertionError(f"the yardsticks of phase (c) launched the field-op kernel {yard} times")
     results["field_ops"] = field_op_kernels(rng)
+    results["multi_eval"] = meval_kernels(rng)
     return results
 
 
@@ -655,6 +676,79 @@ def field_op_kernels(rng):
     return dict(out[0], max_abs_err=max(r["max_abs_err"] for r in out))
 
 
+class _FailingLib:
+    """A kernel library whose multi-eval entry reports a failed launch."""
+
+    def __init__(self, real):
+        self.real = real
+
+    def __getattr__(self, name):  # every other entry (the ladders' field ops) is the real one
+        return getattr(self.real, name)
+
+    def zk_multi_eval(self, *args):
+        return 700  # cudaErrorIllegalAddress
+
+
+def int_mm_ms(coeffs, factors, reps=5):
+    """torch._int_mm of the nibble matrices of coeffs (C 32, T) and the
+    points' ladders (T, Q 32), int8 -> int32: the contraction that the
+    reference runs on its matrix unit, without the buckets and the sum
+    mod p."""
+    lads = nt.ladders_join(*factors)
+    a = me._nibbles(coeffs).reshape(-1, coeffs.shape[-1]).to(torch.int8)
+    b = me._nibbles(lads).reshape(-1, lads.shape[-1]).to(torch.int8).t()
+    return cuda_ms(lambda: torch._int_mm(a, b), reps)[0]
+
+
+def meval_kernels(rng):
+    """Phase (c) for the multi-eval kernel at kernel_bench.MEVAL_CASES:
+    multi_eval_t (the ladders and the kernel) against the plain version
+    (as (Q, C, 8) limbs), exactly; the C entry's ms, the wrapper's and the
+    rows' host ms; one wrapper call under the sync check; at the 2^20 query
+    shape torch._int_mm of the nibble matrices; then a launch that fails
+    must raise from multi_eval_rows on a CUDA tensor and leave the plain
+    version uncalled.  The ladders on both sides come from the field-op
+    kernel, checked above; phase (g) holds the kernel against a host
+    Horner evaluation.  Returns the 2^20 query shape's results, with the
+    largest error of all."""
+    lib, out = kernels.lib(), {}
+    for c, q, t in MEVAL_CASES:
+        name = meval_name(c, q, t)
+        coeffs, points = rand_limbs(rng, (c, 8, t), spread=True), meval_points(rng, q)
+        factors = meval_factors(me, coeffs, points)
+        cname, cargs, keep = capture_entry(kernels, me.launch_multi_eval, coeffs, *factors)
+        res = compare(name, lambda: me.multi_eval_t(coeffs, points), lambda: meval_plain_t(me, coeffs, points),
+                      (c + q) * t * LIMB_BYTES, 2 * (32 * c) * (32 * q) * t, plain_reps=int(t < 1 << 20),
+                      entry_fn=lambda: kernels.check(getattr(lib, cname)(*cargs), cname), ops_rate=INT8_OPS_PER_S)
+        sync_free(name, lambda: me.multi_eval_t(coeffs, points))
+        res["rows_host_ms"] = clock_ms(lambda: me.multi_eval_rows(coeffs, points), 3)
+        res["dot_int32_ms"] = c * q * t * (OPS_MUL + OPS_ADD) / INT32_OPS_PER_S * 1e3
+        if (c, q, t) == (28, 32, 1 << 20):
+            res["library_ms"] = int_mm_ms(coeffs, factors)
+            res["library_call"] = "torch._int_mm of the int8 nibble matrices (the contraction alone)"
+        emit({"phase": "kernels", "case": name, **{k: res[k] for k in ("rows_host_ms", "dot_int32_ms")},
+              **({"library_ms": res["library_ms"]} if "library_ms" in res else {})})
+        out[(c, q, t)] = res
+        del coeffs, factors, cargs, keep
+        torch.cuda.empty_cache()
+    coeffs, points = rand_limbs(rng, (8, 8, 1 << 10)), meval_points(rng, 4)
+    plain_before = me.plain_calls
+    real_lib, failing = kernels.lib, _FailingLib(kernels.lib())
+    kernels.lib = lambda: failing
+    try:
+        me.multi_eval_rows(coeffs, points)
+        raised = None
+    except RuntimeError as err:
+        raised = str(err)
+    finally:
+        kernels.lib = real_lib
+    emit({"phase": "kernels", "check": "a failing multi-eval launch raises, no fall back", "raised": raised,
+          "plain_calls": me.plain_calls - plain_before})
+    if raised is None or "error 700" not in raised or me.plain_calls != plain_before:
+        raise AssertionError("multi_eval_rows did not raise on a failing launch, or fell back to the plain version")
+    return dict(out[(28, 32, 1 << 20)], max_abs_err=max(r["max_abs_err"] for r in out.values()))
+
+
 def phase_conformance():
     vec = json.loads((Path(__file__).resolve().parent / "conformance" / "vectors_e2e.json").read_text())
     key = vm.ServerKey(vm.DEMO_PARAMETERS, random.Random(7))
@@ -681,24 +775,37 @@ MODES = ("tmode", "mono", "cls")
 # and once more for the constants of a cold prove; the cls path: K4 once a
 # class, the batch inverse twice a class, no K3; cold mono at T = 2^20: K4
 # once over the domain, the batch inverse for the constants and the DEEP)
-MONO_KERNELS = ("ntt_stages", "blake3_rows", "merkle", "transition", "batch_inverse", "field_ops")
-TMODE_KERNELS = ("ntt_stages", "blake3_rows", "merkle", "composition", "batch_inverse", "field_ops")
+MONO_KERNELS = ("ntt_stages", "blake3_rows", "merkle", "transition", "batch_inverse", "field_ops", "multi_eval")
+TMODE_KERNELS = ("ntt_stages", "blake3_rows", "merkle", "composition", "batch_inverse", "field_ops", "multi_eval")
 PATH_KERNELS = {"tmode": TMODE_KERNELS,
                 "mono": MONO_KERNELS,
                 "cls": MONO_KERNELS,
-                "lr_large_cold": ("batch_inverse", "field_ops"),
+                "lr_large_cold": ("batch_inverse", "field_ops", "multi_eval"),
                 "lr_large": TMODE_KERNELS,
                 "lr_large_cls": MONO_KERNELS,
                 "lr_large_mono": MONO_KERNELS}
-CLS_EXACT = {"transition": 8, "batch_inverse": 16, "composition": 0}
-PATH_EXACT = {"tmode": {"transition": 0, "batch_inverse": 8}, "mono": {"composition": 0}, "cls": CLS_EXACT,
-              "lr_large_cold": {"batch_inverse": 9}, "lr_large": {"batch_inverse": 8, "transition": 0},
-              "lr_large_cls": CLS_EXACT, "lr_large_mono": {"composition": 0, "transition": 1, "batch_inverse": 2}}
+# the multi-eval: the OOD frame's two calls and the query rows' two in
+# T-mode and cls, the OOD frame's alone in mono (and on each rank of h)
+CLS_EXACT = {"transition": 8, "batch_inverse": 16, "composition": 0, "multi_eval": 4}
+PATH_EXACT = {"tmode": {"transition": 0, "batch_inverse": 8, "multi_eval": 4},
+              "mono": {"composition": 0, "multi_eval": 2}, "cls": CLS_EXACT,
+              "lr_large_cold": {"batch_inverse": 9, "multi_eval": 4},
+              "lr_large": {"batch_inverse": 8, "transition": 0, "multi_eval": 4},
+              "lr_large_cls": CLS_EXACT,
+              "lr_large_mono": {"composition": 0, "transition": 1, "batch_inverse": 2, "multi_eval": 2}}
 
 
-def check_path(path, launches, by_shape):
+def check_plain(where, plain):
+    """No plain version that stands in for a kernel ran in a prove."""
+    if any(plain.values()):
+        raise AssertionError(f"plain versions ran {plain} times in {where}")
+
+
+def check_path(path, launches, by_shape, plain):
     """The kernels ``path`` must have launched, the counts it must have
-    made exactly, and for the cls paths K4 at step 1 alone."""
+    made exactly, for the cls paths K4 at step 1 alone, and no plain
+    version in place of a kernel."""
+    check_plain(f"the {path} prove", plain)
     for name in PATH_KERNELS[path]:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the {path} path")
@@ -760,7 +867,7 @@ def phase_bench(mode):
           **health, "k1_launches_by_shape": by_shape["ntt_stages"], "peak_mem_gib": peak / 2**30, **extra})
     if not rejected:
         raise AssertionError(f"{mode}: the verifier accepted a tampered proof")
-    check_path(mode, launches, by_shape)
+    check_path(mode, launches, by_shape, health["plain_calls"])
     return launches, data
 
 
@@ -844,11 +951,13 @@ def phase_lr_large(card):
         kernel_health.reset()
         proofs[path], seconds, stages, peaks, peak = run.prove(DEV, mode)
         counts[path] = kernel_health.launches(), kernel_health.launches_by_shape()
+        plain = kernel_health.plain_calls()
         emit({"phase": "lr_large", "prove": name, "mode": mode, "seconds": seconds,
               "rows_per_sec": run.trace.length / seconds, "stage_seconds": stages,
               "stage_peak_gib": {k: gib(v) for k, v in peaks.items()}, "peak_gib": gib(peak),
-              "launches": counts[path][0], "launches_by_shape": counts[path][1], "card": card})
-        check_path(path, *counts[path])
+              "launches": counts[path][0], "launches_by_shape": counts[path][1], "plain_calls": plain,
+              "card": card})
+        check_path(path, *counts[path], plain)
         if path == "lr_large":
             # the trace and the composition trees have 2^23 leaves each:
             # the launches the Merkle entry reported for them, a tree
@@ -915,7 +1024,8 @@ def phase_dist(card, want):
               "ranks": [{"rank": r["rank"], "cold_prove_seconds": r["cold_seconds"], "prove_seconds": r["seconds"],
                          "stage_seconds": r["stage_seconds"],
                          "stage_peak_gib": {k: gib(v) for k, v in r["stage_peaks"].items()},
-                         "peak_gib": gib(r["peak_bytes"]), "launches": r["launches"], "comm": r["comm"]}
+                         "peak_gib": gib(r["peak_bytes"]), "launches": r["launches"],
+                         "plain_calls": r["plain_calls"], "comm": r["comm"]}
                         for r in ranks]})
         if not same:
             raise AssertionError(f"dist: a proof over {world} {backend} ranks differs from phase (e)'s")
@@ -926,6 +1036,10 @@ def phase_dist(card, want):
                                          f"{world}-rank {backend} run")
             if r["launches"]["composition"] != 0:
                 raise AssertionError("K3 launched on the sharded mono path")
+            if r["launches"]["multi_eval"] != 2:
+                raise AssertionError(f"the multi-eval kernel launched {r['launches']['multi_eval']} times on "
+                                     f"rank {r['rank']}, expected 2 (the OOD frame)")
+            check_plain(f"rank {r['rank']} of the {world}-rank {backend} run", r["plain_calls"])
             staged = r["comm"]["host_staged_bytes"]
             if (backend == "gloo") != (staged > 0):
                 raise AssertionError(f"dist: {staged} bytes staged through the host under {backend}")
@@ -944,6 +1058,8 @@ SOURCES = {
                       "zkvm/field/jax_f128.py:310 batch_inverse (XLA, no Pallas)"),
     "field_ops": ("zkvm_torch/csrc/field_ops.cu",
                   "zkvm/field/jax_f128t.py:142 fadd, :148 fsub, :192 fmul (XLA, no Pallas)"),
+    "multi_eval": ("zkvm_torch/csrc/multi_eval.cu",
+                   "zkvm/prover/eval_mxu.py:45 _contract, :80 multi_eval_rows (XLA, no Pallas)"),
 }
 
 
@@ -969,7 +1085,8 @@ def main():
         {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],
          "launches": sum(n[name] for n in by_path.values()),
          "launches_by_path": {mode: n[name] for mode, n in by_path.items()},
-         **{k: results[name][k] for k in keys}, "library_ms": None}
+         **{k: results[name][k] for k in keys}, "library_ms": results[name].get("library_ms"),
+         **({"library_call": results[name]["library_call"]} if "library_call" in results[name] else {})}
         for name in SOURCES
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Time the hand-written kernels K1-K4, the Merkle heap, the batch
-inverse and the field-op kernel on one CUDA card.
+inverse, the field-op kernel and the multi-eval kernel on one CUDA card.
 
-    python3 kernel_bench.py [--tree DIR] [--label NAME] [--only K1 K2 K3 K4 Merkle BINV FOPS] [--large]
-    python3 kernel_bench.py --sweep [K1 K2 K3 K4 Merkle BINV FOPS] [--tree DIR] [--label NAME]
+    python3 kernel_bench.py [--tree DIR] [--label NAME] [--only K1 K2 K3 K4 Merkle BINV FOPS MEVAL] [--large]
+    python3 kernel_bench.py --sweep [K1 K2 K3 K4 Merkle BINV FOPS MEVAL] [--tree DIR] [--label NAME]
     python3 kernel_bench.py --sass [--tree DIR]
 
 The first form times, at the cases of chip_smoke.py's phase (c), the
@@ -34,7 +34,17 @@ from the call the prover makes down to the C entry point:
              call),
     entry    the C entry alone, as above;
   a tree without the field-op kernel (the parent of its port) times its
-  plain-torch ops on the card at the wrapper level alone.
+  plain-torch ops on the card at the wrapper level alone;
+  the multi-eval kernel (multi_eval.cu, MEVAL) at MEVAL_CASES, the OOD
+  frame's and the query rows' shapes at T = 2^16 and 2^20:
+    rows     ``multi_eval.multi_eval_rows`` (the ladders, the kernel, the
+             copy of the result and its ints; host clock, the card
+             synchronised at both ends),
+    wrapper  ``multi_eval.multi_eval_t`` (the ladders and the kernel),
+    launch   ``multi_eval.launch_multi_eval``,
+    entry    the C entry alone, as above;
+  a tree without the multi-eval kernel (the parent of its port) times its
+  ``multi_eval_rows`` (the float64 product) at the rows level alone.
   A tree without the Merkle kernel (the parent of its port) times its
   ``merkle_flat``, plain torch on the card, at the wrapper level alone.
   ``--large`` takes the cases of the 2^20-row path instead: T-mode's and
@@ -181,6 +191,15 @@ FOP_CASES = [("mul", (28, 8, 1 << 16), (28, 8, 1)), ("mul", (3, 8, 1 << 16), (3,
              ("add", (8, 1 << 19), (8, 1 << 19))]
 # its threads a block; the first is the shipped default
 FOP_THREADS = [256, 128, 512, 64]
+# The multi-eval kernel's cases, (C, Q, T): the OOD frame (28 trace columns
+# at z and z g, 8 composition columns at z^8) and the query rows (28 and 8
+# columns at 32 points) at T = 2^16 (the bench's chain) and 2^20 (the LR)
+MEVAL_CASES = [(28, 2, 1 << 16), (8, 1, 1 << 16), (28, 32, 1 << 16), (8, 32, 1 << 16),
+               (28, 2, 1 << 20), (8, 1, 1 << 20), (28, 32, 1 << 20), (8, 32, 1 << 20)]
+# its threads a block and the blocks a launch aims at; the first is the
+# shipped default (the block's tree of 16 sums a thread fills 48 KB of
+# static shared memory at 192 threads, so at most 128)
+MEVAL_SHAPES = [(128, 2048), (128, 1024), (128, 4096), (128, 8192), (64, 2048), (64, 4096), (64, 8192)]
 SWEEPS = {
     "K1": ("ntt_stages.cu", "zk_ntt_stages", [
         {"ZK_K1_TILE": tile, "ZK_K1_LANES": lanes, "ZK_K1_PER_THREAD": k}
@@ -200,6 +219,8 @@ SWEEPS = {
     "BINV": ("batch_inverse.cu", "zk_batch_inverse", [
         {"ZK_BINV_K": k, "ZK_BINV_THREADS": th} for k, th in BINV_SHAPES]),
     "FOPS": ("field_ops.cu", "zk_field_op", [{"ZK_FOP_THREADS": th} for th in FOP_THREADS]),
+    "MEVAL": ("multi_eval.cu", "zk_multi_eval", [
+        {"ZK_MEVAL_THREADS": th, "ZK_MEVAL_BLOCKS": b} for th, b in MEVAL_SHAPES]),
 }
 
 
@@ -352,6 +373,47 @@ def fop_calls(ft, op):
     return wrapper, getattr(ft, f"f{op}_plain"), lambda lib, stream, a, b: ft.launch_field_op(lib, stream, op, a, b)
 
 
+def meval_name(c, q, t):
+    return f"MEVAL C={c} Q={q} T=2^{t.bit_length() - 1}"
+
+
+def meval_points(rng, q):
+    """q random points, with 0, 1 and p - 1 among them from q = 4 on."""
+    from zkvm_torch.field import f128
+
+    points = [int(rng.integers(0, 2**62)) << 66 | int(rng.integers(0, 2**62)) for _ in range(q)]
+    if q >= 4:
+        points[1:4] = [0, 1, f128.P - 1]
+    return [p % f128.P for p in points]
+
+
+def meval_plain_t(me, coeffs, points):
+    """The plain version's rows as (Q, C, 8) limbs on coeffs' device."""
+    from zkvm_torch.field.limbs import from_numpy, to_limbs
+
+    return from_numpy(to_limbs(me.multi_eval_rows_plain(coeffs, points)), coeffs.device)
+
+
+def meval_factors(me, coeffs, points):
+    """The ladder factors (l1, l2) of the points, as the wrapper builds
+    them."""
+    from zkvm_torch.field.limbs import from_numpy, to_limbs
+
+    return me.ladder_factors(from_numpy(to_limbs(points), coeffs.device), coeffs.shape[-1])
+
+
+def clock_ms(fn, reps):
+    """Host milliseconds a call, the card synchronised before and after
+    the ``reps`` calls (for a call that copies its result to the host)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
 def air_calls(kind):
     """(wrapper, plain version, launch function) of K3 or K4."""
     from zkvm_torch.air import composition as cp
@@ -392,12 +454,16 @@ def hash_calls(kind):
 
 
 class _Recorder:
-    """A stand-in kernel library whose entry points record their arguments."""
+    """A stand-in kernel library whose entry points record their arguments;
+    a size query (``*_slices``, which the wrapper allocates by) answers
+    from the real library."""
 
-    def __init__(self):
-        self.calls = []
+    def __init__(self, real):
+        self.calls, self.real = [], real
 
     def __getattr__(self, name):
+        if name.endswith("_slices"):
+            return getattr(self.real, name)
         return lambda *args: self.calls.append((name, args)) or 0
 
 
@@ -412,7 +478,7 @@ def capture_entry(kernels, launch, *args):
         keep.append(t)
         return real_ptr(t)
 
-    rec = _Recorder()
+    rec = _Recorder(kernels.lib())
     kernels.ptr = ptr
     try:
         launch(rec, kernels.stream_of(args[0]), *args)
@@ -508,6 +574,27 @@ def bench_tree(tree, label, only, reps=20, large=False):
             _emit({"tree": label, "case": name, "level": level, "ms": ms, "host_ms": host_ms})
         del a, b, calls
         torch.cuda.empty_cache()
+    for c, q, t in MEVAL_CASES if "MEVAL" in only else []:
+        from zkvm_torch.prover import multi_eval as me
+
+        coeffs, points = _limbs(rng, (c, 8, t), dev), meval_points(rng, q)
+        name = meval_name(c, q, t)
+        rows_ms = clock_ms(lambda: me.multi_eval_rows(coeffs, points), 3)
+        _emit({"tree": label, "case": name, "level": "rows", "ms": rows_ms})
+        if hasattr(me, "launch_multi_eval"):
+            factors = meval_factors(me, coeffs, points)
+            cname, cargs, keep = capture_entry(kernels, me.launch_multi_eval, coeffs, *factors)
+            calls = {
+                "wrapper": lambda: me.multi_eval_t(coeffs, points),
+                "launch": lambda: me.launch_multi_eval(lib, stream, coeffs, *factors),
+                "entry": lambda: kernels.check(getattr(lib, cname)(*cargs), cname),
+            }
+            for level, fn in calls.items():
+                ms, host_ms = cuda_ms(fn, reps)
+                _emit({"tree": label, "case": name, "level": level, "ms": ms, "host_ms": host_ms})
+            del factors, cargs, keep, calls
+        del coeffs
+        torch.cuda.empty_cache()
     for name, kind, args, host in airs:
         if name.split()[0] not in only:
             continue
@@ -541,7 +628,7 @@ def _k1_inputs(nt, rng, m, b, nl, variant, dev):
 
 def _build_sweep(kernels, kernel):
     """One library of the kernel's source per launch shape of SWEEPS."""
-    source, entry, shapes = SWEEPS[kernel]
+    source, _, shapes = SWEEPS[kernel]
     out = kernels.BUILD / "sweep"
     out.mkdir(parents=True, exist_ok=True)
     nvcc = kernels._nvcc()
@@ -561,9 +648,11 @@ def _build_sweep(kernels, kernel):
         _emit({"sweep_build": kernel, "tree": str(kernels.CSRC.parent.parent), "defines": defs,
                "ptxas": ptxas_summary(log)})
         lib = ctypes.CDLL(str(so))
-        fn = getattr(lib, entry)
-        fn.argtypes = list(kernels.SIGNATURES[entry])
-        fn.restype = ctypes.c_int
+        for name, args in kernels.SIGNATURES.items():  # the source's entry points
+            fn = getattr(lib, name, None)
+            if fn is not None:
+                fn.argtypes = list(args)
+                fn.restype = ctypes.c_int
         libs.append(lib)
     return libs
 
@@ -606,6 +695,15 @@ def sweep(tree, label, kernels_to_sweep, reps=20):
             for name, op, a, b in fop_cases(lambda shape: _limbs(rng, shape, dev)):
                 _, plain, launch = fop_calls(ft, op)
                 cases.append((name, plain(a, b), lambda lib, a=a, b=b, f=launch: f(lib, stream, a, b)))
+        elif kernel == "MEVAL":
+            from zkvm_torch.prover import multi_eval as me
+
+            cases = []
+            for c, q, t in MEVAL_CASES:
+                coeffs, points = _limbs(rng, (c, 8, t), dev), meval_points(rng, q)
+                factors = meval_factors(me, coeffs, points)
+                cases.append((meval_name(c, q, t), meval_plain_t(me, coeffs, points),
+                              lambda lib, a=coeffs, f=factors: me.launch_multi_eval(lib, stream, a, *f)))
         else:
             cases = []
             for name, kind, args, host in air_cases(lambda shape: _limbs(rng, shape, dev), dev):
@@ -668,8 +766,8 @@ def main(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", type=Path, default=ROOT, help="checkout whose zkvm_torch is timed")
     ap.add_argument("--label", default="this", help="name of the tree in the output")
-    ap.add_argument("--only", nargs="+", default=["K1", "K2", "K3", "K4", "Merkle", "BINV", "FOPS"],
-                    choices=["K1", "K2", "K3", "K4", "Merkle", "BINV", "FOPS"],
+    ap.add_argument("--only", nargs="+", default=["K1", "K2", "K3", "K4", "Merkle", "BINV", "FOPS", "MEVAL"],
+                    choices=["K1", "K2", "K3", "K4", "Merkle", "BINV", "FOPS", "MEVAL"],
                     help="kernels to time")
     ap.add_argument("--large", action="store_true", help="the cases of the 2^20-row path")
     ap.add_argument("--sweep", nargs="*", choices=list(SWEEPS), help="time these kernels at each shape of SWEEPS")

@@ -129,6 +129,7 @@ def test_kernel_health_on_the_cpu():
     assert set(rep["launches"]) == set(rep["launches_by_shape"]) == set(kernel_health.FAMILIES)
     assert rep["launches"] == dict.fromkeys(kernel_health.FAMILIES, 0) and rep["total"] == 0
     assert all(v == {} for v in rep["launches_by_shape"].values())
+    assert rep["plain_calls"] == {"multi_eval": 2}  # mono's OOD frame, in the plain version on the CPU
 
 
 def test_kernel_health_reset_zeroes_the_counters():
@@ -138,6 +139,7 @@ def test_kernel_health_reset_zeroes_the_counters():
     from zkvm_torch.hash import blake3_t as b3t
     from zkvm_torch.hash import merkle as mk
     from zkvm_torch.ntt import ntt_t as nt
+    from zkvm_torch.prover import multi_eval as me
 
     nt.launches[(256, 28, 256, "r1")] += 3
     b3t.launches, cp.launches, tr.launches, ft.launches, mk.launches = 2, 1, 1, 4, 5
@@ -148,20 +150,24 @@ def test_kernel_health_reset_zeroes_the_counters():
     mk.trees_by_size[1 << 19] += 1
     ft.op_launches["mul"] += 6
     ft.op_launches_by_shape[("mul", 1 << 16)] += 6
+    me.launches, me.plain_calls = 4, 2
+    me.launches_by_shape[(28, 32, 1 << 16)] += 4
     try:
         rep = kernel_health.report()
         assert rep["launches"] == {"ntt_stages": 3, "blake3_rows": 2, "merkle": 5, "composition": 1,
-                                   "transition": 1, "batch_inverse": 4, "field_ops": 6}
-        assert rep["total"] == 22
+                                   "transition": 1, "batch_inverse": 4, "field_ops": 6, "multi_eval": 4}
+        assert rep["total"] == 26 and rep["plain_calls"] == {"multi_eval": 2}
         assert rep["launches_by_shape"]["ntt_stages"] == {"M=256 B=28 NL=256 r1": 3}
         assert rep["launches_by_shape"]["merkle"] == {"N=524288 trees=1": 2}
         assert rep["launches_by_shape"]["transition"] == {"N=524288 step=8": 1}
         assert rep["launches_by_shape"]["batch_inverse"] == {"R=3 N=65536": 4}
         assert rep["launches_by_shape"]["field_ops"] == {"mul n=65536": 6}
+        assert rep["launches_by_shape"]["multi_eval"] == {"C=28 Q=32 T=65536": 4}
     finally:
         kernel_health.reset()
     assert kernel_health.launches() == dict.fromkeys(kernel_health.FAMILIES, 0)
     assert all(v == {} for v in kernel_health.launches_by_shape().values())
+    assert kernel_health.plain_calls() == {"multi_eval": 0}
 
 
 def test_verify_reads_min_security_from_the_config():

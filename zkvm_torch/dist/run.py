@@ -119,7 +119,7 @@ def _prove(mesh, program, inputs, use_native, via_vm, warmup=False):
         "rank": mesh.rank, "proof": proof.to_wire_bytes(), "program_hash": program.hash, "outputs": outputs,
         "trace_length": proof.trace_length, "seconds": seconds, "cold_seconds": cold,
         "stage_seconds": stages, "stage_peaks": peaks or {}, "launches": kernel_health.launches(),
-        "comm": comm.read_counts(),
+        "plain_calls": kernel_health.plain_calls(), "comm": comm.read_counts(),
         "peak_bytes": max(peaks.values()) if peaks else None,  # each stage resets the peak
     }
 

@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
 SOURCES = (
     "ntt_stages.cu", "blake3_rows.cu", "merkle.cu", "composition.cu", "transition.cu", "batch_inverse.cu",
-    "field_ops.cu",
+    "field_ops.cu", "multi_eval.cu",
 )
 HEADERS = ("zk_common.cuh", "f128.cuh", "transition.cuh", "blake3.cuh", "host_emu.h")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -63,6 +63,10 @@ SIGNATURES = {
     # op, nd, sizes (host), strides (host: a, b, out, each the limb axis's
     # then the nd element axes'), a, b, out, stream
     "zk_field_op": (_I, _I, _LP, _LP, _P, _P, _P, _P),
+    # C, Q, T: the slices of the multi-eval's work buffer
+    "zk_multi_eval_slices": (_I, _I, _L),
+    # coeffs, l1, l2, work, work_slices, out, C, Q, T, S, N2, stream
+    "zk_multi_eval": (_P, _P, _P, _P, _L, _P, _I, _I, _L, _L, _L, _P),
 }
 
 build_seconds = 0.0  # wall time of the last nvcc build in this process

@@ -113,8 +113,16 @@ def _stage_twiddles_dev(m: int, inverse: bool, device):
 # power ladders
 # ---------------------------------------------------------------------------
 
-def _one(device) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _one_dev(device) -> torch.Tensor:
     return ft.const_col(1, device)[:, 0]
+
+
+def _one(device) -> torch.Tensor:
+    """The (8,) limbs of 1 on ``device``: a copy of one made once per
+    device (a card's copy from the host waits for the stream; a copy on
+    the card does not)."""
+    return _one_dev(torch.device(device)).clone()
 
 
 def _ladder_impl(base: torch.Tensor, scale: torch.Tensor, n: int) -> torch.Tensor:

@@ -15,7 +15,9 @@ From ``CHUNK_T`` on, the stages take the reference's chunked forms
 (``zkvm/prover/pipeline.py:303,339,433``, ``eval_mxu.py:97``): in T-mode
 and cls the trace columns' class NTTs in column blocks (trace commit and
 composition), the DEEP's weighted sums one column at a time, and the
-multi-point evaluation in pairs of points; in mono the domain constants,
+plain (CPU) multi-point evaluation in pairs of points (on a card the
+multi-eval kernel takes all points at once and holds no (Q, 8, T)
+ladder); in mono the domain constants,
 the composition's products and the DEEP in blocks of ``MONO_ROW_BLOCK``
 rows.  They bound the int64 transients of the plain limb arithmetic and
 leave every value unchanged.  Those transients exist only on the CPU now:

@@ -12,7 +12,7 @@ the full (28, 8, D) LDE.  Stages, in proof order:
 2. composition: per class, coset NTT (K1) and the fused composition (K3);
 3. composition commit: size-D iNTT, split into 8 columns, per class coset
    NTT (K1) and row hashes (K2); Merkle heap;
-4. OOD frame: multi-point evaluation (float64 matrix product);
+4. OOD frame: multi-point evaluation (the kernel ``csrc/multi_eval.cu``);
 5. DEEP, the reference's class form (``_stage_deep_cls``; it gives the
    values of its T-mode suffix scan): the weighted column sums in
    coefficient space, then per class one coset NTT of the three combined

@@ -12,8 +12,11 @@ Families: K1 ``ntt_stages`` (counted by (M, B, NL, variant) only), K2
 ``blake3_rows`` (by (C, N)), ``merkle`` (entry calls, one a tree; by leaf
 count the kernel launches the entry reported and the trees), K3
 ``composition`` (by T), K4 ``transition`` (by (N, step)),
-``batch_inverse`` (by (R, N)) and ``field_ops``, the elementwise add, sub
-and mul of ``f128t`` (by operation and output elements).
+``batch_inverse`` (by (R, N)), ``field_ops``, the elementwise add, sub
+and mul of ``f128t`` (by operation and output elements), and
+``multi_eval`` (entry calls, two launches each; by (C, Q, T)).  Beside
+them, :func:`plain_calls` counts the calls of the plain versions that a
+prove on a card must never take (the multi-eval's float64 product).
 """
 
 from __future__ import annotations
@@ -28,18 +31,22 @@ from zkvm_torch.field import f128t as ft
 from zkvm_torch.hash import blake3_t as b3t
 from zkvm_torch.hash import merkle as mk
 from zkvm_torch.ntt import ntt_t as nt
+from zkvm_torch.prover import multi_eval as me
 
-FAMILIES = ("ntt_stages", "blake3_rows", "merkle", "composition", "transition", "batch_inverse", "field_ops")
-_COUNTED = {"blake3_rows": b3t, "merkle": mk, "composition": cp, "transition": tr, "batch_inverse": ft}
+FAMILIES = ("ntt_stages", "blake3_rows", "merkle", "composition", "transition", "batch_inverse", "field_ops",
+            "multi_eval")
+_COUNTED = {"blake3_rows": b3t, "merkle": mk, "composition": cp, "transition": tr, "batch_inverse": ft,
+            "multi_eval": me}
 
 
 def reset() -> None:
     """Every launch counter of every family to 0."""
     for mod in _COUNTED.values():
         mod.launches = 0
+    me.plain_calls = 0
     for counter in (nt.launches, b3t.launches_by_shape, cp.launches_by_shape, tr.launches_by_shape,
                     ft.launches_by_shape, mk.launches_by_size, mk.trees_by_size, ft.op_launches,
-                    ft.op_launches_by_shape):
+                    ft.op_launches_by_shape, me.launches_by_shape):
         counter.clear()
 
 
@@ -60,13 +67,21 @@ def launches_by_shape() -> Dict[str, Dict[str, int]]:
         "transition": {f"N={n} step={st}": k for (n, st), k in sorted(tr.launches_by_shape.items())},
         "batch_inverse": {f"R={r} N={n}": k for (r, n), k in sorted(ft.launches_by_shape.items())},
         "field_ops": {f"{op} n={n}": k for (op, n), k in sorted(ft.op_launches_by_shape.items())},
+        "multi_eval": {f"C={c} Q={q} T={t}": k for (c, q, t), k in sorted(me.launches_by_shape.items())},
     }
+
+
+def plain_calls() -> Dict[str, int]:
+    """Calls of the plain versions that stand in for a kernel, since the
+    last :func:`reset`: on a card only a yardstick takes them."""
+    return {"multi_eval": me.plain_calls}
 
 
 def report() -> Dict:
     """Snapshot (call after proving): ``backend`` ("cuda" where this
     process sees a card, else "cpu"), ``launches`` and
-    ``launches_by_shape`` per family, and ``total`` launches."""
+    ``launches_by_shape`` per family, ``total`` launches, and
+    ``plain_calls``."""
     counts = launches()
     return {"backend": "cuda" if torch.cuda.is_available() else "cpu", "launches": counts,
-            "launches_by_shape": launches_by_shape(), "total": sum(counts.values())}
+            "launches_by_shape": launches_by_shape(), "total": sum(counts.values()), "plain_calls": plain_calls()}
