@@ -44,13 +44,16 @@ Phases, each printing one JSON line:
       multi-eval's ladders_join broadcast, a transposed operand, and
       mono's 2^23-lane LDE and a row block of it at T = 2^20 (plain on
       windows); then the multi-eval kernel (csrc/multi_eval.cu:
-      multi_eval_rows on a CUDA tensor) against multi_eval_rows_plain at
-      kernel_bench.MEVAL_CASES (the OOD frame's and the query rows'
+      multi_eval_rows on a CUDA tensor) against multi_eval_rows_plain
+      (whose ladders take the plain arithmetic: the field-op kernel must
+      launch no time in it) at kernel_bench.MEVAL_CASES (the OOD frame's and the query rows'
       shapes at T = 2^16 and 2^20), exactly, its ms at the C entry and at
       the wrapper (the ladders and the kernel), the rows' host ms (the
       copy of the result and its ints included), its bound (the larger of
-      (C + Q) T 32 bytes and the nibble contraction's 2 (32 C)(32 Q) T
-      int8 operations at 1,979 T/s) beside the direct dot's int32 time,
+      the bytes the kernel reads and writes, (C T + Q (S + N2) + Q C) 32
+      for the coefficients, the ladders' two factors and the rows, and
+      the nibble contraction's 2 (32 C)(32 Q) T int8 operations at 1,979
+      T/s) beside the direct dot's int32 time,
       one wrapper call under the sync check (the copy of the result
       apart), torch._int_mm on the two nibble matrices at the 2^20 query
       shape (the contraction alone: the yardstick of a tensor-core
@@ -707,18 +710,29 @@ def meval_kernels(rng):
     rows' host ms; one wrapper call under the sync check; at the 2^20 query
     shape torch._int_mm of the nibble matrices; then a launch that fails
     must raise from multi_eval_rows on a CUDA tensor and leave the plain
-    version uncalled.  The ladders on both sides come from the field-op
-    kernel, checked above; phase (g) holds the kernel against a host
-    Horner evaluation.  Returns the 2^20 query shape's results, with the
-    largest error of all."""
-    lib, out = kernels.lib(), {}
+    version uncalled.  The plain version's ladders take the plain
+    arithmetic, so the field-op kernel must launch no time across its
+    calls; phase (g) holds the kernel against a host Horner evaluation.
+    Returns the 2^20 query shape's results, with the largest error of
+    all."""
+    lib, out, plain_op_launches = kernels.lib(), {}, 0
+
+    def plain(coeffs, points):
+        nonlocal plain_op_launches
+        before = sum(ft.op_launches.values())
+        rows = meval_plain_t(me, coeffs, points)
+        plain_op_launches += sum(ft.op_launches.values()) - before
+        return rows
+
     for c, q, t in MEVAL_CASES:
         name = meval_name(c, q, t)
         coeffs, points = rand_limbs(rng, (c, 8, t), spread=True), meval_points(rng, q)
         factors = meval_factors(me, coeffs, points)
         cname, cargs, keep = capture_entry(kernels, me.launch_multi_eval, coeffs, *factors)
-        res = compare(name, lambda: me.multi_eval_t(coeffs, points), lambda: meval_plain_t(me, coeffs, points),
-                      (c + q) * t * LIMB_BYTES, 2 * (32 * c) * (32 * q) * t, plain_reps=int(t < 1 << 20),
+        # the kernel reads the coefficients and the two factors and writes the rows
+        nbytes = (c * t + q * (factors[0].shape[-1] + factors[1].shape[-1]) + q * c) * LIMB_BYTES
+        res = compare(name, lambda: me.multi_eval_t(coeffs, points), lambda: plain(coeffs, points),
+                      nbytes, 2 * (32 * c) * (32 * q) * t, plain_reps=int(t < 1 << 20),
                       entry_fn=lambda: kernels.check(getattr(lib, cname)(*cargs), cname), ops_rate=INT8_OPS_PER_S)
         sync_free(name, lambda: me.multi_eval_t(coeffs, points))
         res["rows_host_ms"] = clock_ms(lambda: me.multi_eval_rows(coeffs, points), 3)
@@ -731,6 +745,10 @@ def meval_kernels(rng):
         out[(c, q, t)] = res
         del coeffs, factors, cargs, keep
         torch.cuda.empty_cache()
+    emit({"phase": "kernels", "check": "field_ops launches across the multi-eval's plain version",
+          "launches": plain_op_launches})
+    if plain_op_launches:
+        raise AssertionError(f"multi_eval_rows_plain launched the field-op kernel {plain_op_launches} times")
     coeffs, points = rand_limbs(rng, (8, 8, 1 << 10)), meval_points(rng, 4)
     plain_before = me.plain_calls
     real_lib, failing = kernels.lib, _FailingLib(kernels.lib())

@@ -26,7 +26,9 @@ import torch
 from zkvm.field import f128
 from zkvm.prover import eval_mxu as jme
 from zkvm_torch import kernels, vm
+from zkvm_torch.field import f128t as ft
 from zkvm_torch.field.limbs import from_limbs, from_numpy, to_limbs, to_numpy
+from zkvm_torch.prover import limits
 from zkvm_torch.prover import multi_eval as me
 
 torch.set_num_threads(1)
@@ -120,6 +122,26 @@ def test_multi_eval_kernel_emulated(emu, jax_rows, c, q, t):
     np.testing.assert_array_equal(want, to_limbs([row[:c] for row in jax_rows(t)[:q]]))
     for name, lib in emu.items():
         np.testing.assert_array_equal(to_numpy(_launch(lib, coeffs_t, points[:q])), want, err_msg=name)
+
+
+@pytest.mark.parametrize("pairs", [False, True])
+def test_multi_eval_plain_version_needs_no_dispatching_op(monkeypatch, jax_rows, pairs):
+    """The kernel's yardstick reaches no kernel: with the dispatching field
+    ops patched to raise, ``multi_eval_rows_plain`` (its ladders in the
+    plain arithmetic, in one piece and, with ``CHUNK_T`` patched below T,
+    in point pairs) still equals JAX's rows at 28 columns, 31 points and
+    T = 1024."""
+    if pairs:
+        monkeypatch.setattr(limits, "CHUNK_T", 128)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain multi-eval called a dispatching field op")
+
+    for name in ("fadd", "fsub", "fmul", "_dispatch"):
+        monkeypatch.setattr(ft, name, refuse)
+    vals, points = _inputs(1024)
+    got = me.multi_eval_rows_plain(_t(vals), points[:31])
+    assert got == [list(row) for row in jax_rows(1024)[:31]]
 
 
 @pytest.mark.parametrize("c,q,t,s,n2", [(3, 5, 1, 1, 1), (2, 3, 5, 2, 3), (5, 2, 100, 8, 13), (9, 1, 300, 16, 19),

@@ -114,15 +114,10 @@ def _stage_twiddles_dev(m: int, inverse: bool, device):
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
-def _one_dev(device) -> torch.Tensor:
+def _one(device: torch.device) -> torch.Tensor:
+    """The (8,) limbs of 1 on ``device``, made once per device (a card's
+    copy from the host waits for the stream).  Shared: never written."""
     return ft.const_col(1, device)[:, 0]
-
-
-def _one(device) -> torch.Tensor:
-    """The (8,) limbs of 1 on ``device``: a copy of one made once per
-    device (a card's copy from the host waits for the stream; a copy on
-    the card does not)."""
-    return _one_dev(torch.device(device)).clone()
 
 
 def _ladder_impl(base: torch.Tensor, scale: torch.Tensor, n: int) -> torch.Tensor:
@@ -159,41 +154,42 @@ def ladder_t_host(base: int, n: int, scale: int = 1, device="cpu") -> torch.Tens
     )
 
 
-def ladders_split(bases: torch.Tensor, n: int):
+def ladders_split(bases: torch.Tensor, n: int, arith: ft.Arith = ft.DISPATCH):
     """The two factors of the ladders of n > 256 lanes, bases^i =
-    l1[i mod S] * l2[i div S]: (l1 (Q, 8, S), l2 (Q, 8, n / S))."""
+    l1[i mod S] * l2[i div S]: (l1 (Q, 8, S), l2 (Q, 8, n / S)).  ``arith``
+    is the multiply's (``f128t.PLAIN`` for a yardstick)."""
     s = 1 << ((n.bit_length() - 1 + 1) // 2)
-    l1 = _ladders_impl(bases, s)  # (Q, 8, S)
+    l1 = _ladders_impl(bases, s, arith)  # (Q, 8, S)
     base_s = bases
     for _ in range(s.bit_length() - 1):
-        base_s = ft.fsquare(base_s[:, :, None])[:, :, 0]
-    return l1, _ladders_impl(base_s, n // s)
+        base_s = arith.fmul(base_s[:, :, None], base_s[:, :, None])[:, :, 0]
+    return l1, _ladders_impl(base_s, n // s, arith)
 
 
-def ladders_join(l1: torch.Tensor, l2: torch.Tensor) -> torch.Tensor:
+def ladders_join(l1: torch.Tensor, l2: torch.Tensor, arith: ft.Arith = ft.DISPATCH) -> torch.Tensor:
     """(Q, 8, S) x (Q, 8, N2) factors -> the (Q, 8, S N2) ladders: one
     outer-product multiply."""
     q, _, s = l1.shape
-    prod = ft.fmul(l2.transpose(-1, -2)[:, :, :, None], l1[:, None])  # (Q, N2, 8, S)
+    prod = arith.fmul(l2.transpose(-1, -2)[:, :, :, None], l1[:, None])  # (Q, N2, 8, S)
     return prod.transpose(-3, -2).reshape(q, 8, s * l2.shape[-1])
 
 
-def _ladders_impl(bases: torch.Tensor, n: int) -> torch.Tensor:
+def _ladders_impl(bases: torch.Tensor, n: int, arith: ft.Arith) -> torch.Tensor:
     q = bases.shape[0]
     if n <= 256:
         cur = _one(bases.device)[None, :, None].expand(q, 8, 1)
         step = bases[:, :, None]
         while cur.shape[-1] < n:
-            cur = torch.cat([cur, ft.fmul(cur, step)], dim=-1)
-            step = ft.fsquare(step)
+            cur = torch.cat([cur, arith.fmul(cur, step)], dim=-1)
+            step = arith.fmul(step, step)
         return cur
-    return ladders_join(*ladders_split(bases, n))
+    return ladders_join(*ladders_split(bases, n, arith), arith)
 
 
-def ladders_t(bases: torch.Tensor, n: int) -> torch.Tensor:
+def ladders_t(bases: torch.Tensor, n: int, arith: ft.Arith = ft.DISPATCH) -> torch.Tensor:
     """(Q, 8, n): bases[q]^i for i < n, bases (Q, 8)."""
     assert n & (n - 1) == 0
-    return _ladders_impl(bases, n)
+    return _ladders_impl(bases, n, arith)
 
 
 @functools.lru_cache(maxsize=None)

@@ -17,9 +17,11 @@ The reference runs it as an int8 dot; here it is ``torch.matmul`` on
 float64, which is exact: every partial sum is at most 15*15*T < 2^53
 (float32 would not be past T = 2^16, and CUDA has no int64 matmul).  The
 anti-diagonal buckets over i + j and the base-2^4 recombination mod p
-happen on the host.  On the card it runs only as the kernel's yardstick
-(``chip_smoke.py``, ``kernel_bench.py``); ``plain_calls`` counts its
-calls, so a run can show that no prove took it.
+happen on the host, and its ladders take the plain arithmetic
+(``f128t.PLAIN``) by name.  On the card it runs only as the kernel's
+yardstick (``chip_smoke.py``, ``kernel_bench.py``), and then launches no
+kernel; ``plain_calls`` counts its calls, so a run can show that no prove
+took it.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch
 
 from zkvm_torch import kernels
 from zkvm_torch.field import f128
+from zkvm_torch.field import f128t as ft
 from zkvm_torch.field.limbs import NLIMBS, from_limbs, from_numpy, to_limbs, to_numpy
 from zkvm_torch.ntt import ntt_t as nt
 from . import limits
@@ -80,8 +83,9 @@ def _checked(coeffs_t: torch.Tensor, points: Sequence[int]):
 
 
 def multi_eval_rows_plain(coeffs_t: torch.Tensor, points: Sequence[int]) -> List[List[int]]:
-    """The plain version: the nibble contraction as a float64 product, the
-    buckets and the recombination on the host; host ints as rows[q][c]."""
+    """The plain version: the ladders by the plain arithmetic, the nibble
+    contraction as a float64 product, the buckets and the recombination
+    on the host; host ints as rows[q][c]."""
     global plain_calls
     plain_calls += 1
     t = coeffs_t.shape[-1]
@@ -96,11 +100,11 @@ def multi_eval_rows_plain(coeffs_t: torch.Tensor, points: Sequence[int]) -> List
         # matrices of Q points are 2 KB a t; a pair is the OOD frame's
         # shape.  The two O(sqrt T) ladder factors are built once for every
         # point.  Values unchanged.
-        l1, l2 = nt.ladders_split(bases, t)
-        vals = np.concatenate([_contract(coeffs_t, nt.ladders_join(l1[i : i + 2], l2[i : i + 2]))
+        l1, l2 = nt.ladders_split(bases, t, ft.PLAIN)
+        vals = np.concatenate([_contract(coeffs_t, nt.ladders_join(l1[i : i + 2], l2[i : i + 2], ft.PLAIN))
                                for i in range(0, len(points), 2)], axis=-1)
     else:
-        vals = _contract(coeffs_t, nt.ladders_t(bases, t))
+        vals = _contract(coeffs_t, nt.ladders_t(bases, t, ft.PLAIN))
     c = coeffs_t.shape[0]
     rows: List[List[int]] = []
     for qi in range(len(points)):
