@@ -43,22 +43,25 @@ Phases, each printing one JSON line:
       against the plain add, sub and mul at kernel_bench.FOP_CASES, the
       multi-eval's ladders_join broadcast, a transposed operand, and
       mono's 2^23-lane LDE and a row block of it at T = 2^20 (plain on
-      windows); then the multi-eval kernel (csrc/multi_eval.cu:
-      multi_eval_rows on a CUDA tensor) against multi_eval_rows_plain
-      (whose ladders take the plain arithmetic: the field-op kernel must
-      launch no time in it) at kernel_bench.MEVAL_CASES (the OOD frame's and the query rows'
-      shapes at T = 2^16 and 2^20), exactly, its ms at the C entry and at
-      the wrapper (the ladders and the kernel), the rows' host ms (the
-      copy of the result and its ints included), its bound (the larger of
-      the bytes the kernel reads and writes, (C T + Q (S + N2) + Q C) 32
-      for the coefficients, the ladders' two factors and the rows, and
-      the nibble contraction's 2 (32 C)(32 Q) T int8 operations at 1,979
-      T/s) beside the direct dot's int32 time,
-      one wrapper call under the sync check (the copy of the result
-      apart), torch._int_mm on the two nibble matrices at the 2^20 query
-      shape (the contraction alone: the yardstick of a tensor-core
-      redesign), and a failing launch that must raise without a fall back
-      to the plain version;
+      windows); then the multi-eval's two kernels (csrc/multi_eval.cu:
+      multi_eval_rows on a CUDA tensor): the ladder kernel
+      (launch_ladders) against ladders_plain, and the u8 mma contraction
+      (multi_eval_t: the ladders and the kernel) against
+      multi_eval_rows_plain (both plain versions in the plain arithmetic:
+      the field-op kernel must launch no time in them) at
+      kernel_bench.MEVAL_CASES (the OOD frame's and the query rows' shapes
+      at T = 2^16 and 2^20), exactly; the contraction's ms at the C entry
+      and at the wrapper, the rows' host ms (the copy of the result and
+      its ints included), its bound (the larger of the bytes it reads and
+      writes, C T 32 + Q (16 S + 16 N2 + 32 C) for the coefficients, the
+      ladder bytes and cells and the rows, and its 2 (16 C)(16 Q) T int8
+      operations at 1,979 T/s), its dynamic shared memory; the ladder
+      kernel's ms and bound (the bytes it writes, and one multiply an
+      element); one wrapper call under the sync check (the copy of the
+      result apart); torch._int_mm on the reference's two nibble
+      matrices at the 2^20 query shape (the contraction alone, the
+      yardstick); and a failing launch of either kernel that must raise
+      without a fall back to the plain version;
   (d) conformance: the T = 128 program of conformance/vectors_e2e.json,
       proved in all three modes (T-mode, mono, cls), whose roots and proof
       bytes must match the vector byte for byte;
@@ -71,8 +74,10 @@ Phases, each printing one JSON line:
       the timed prove (K1's launches also by shape), the
       batch inverse exactly 8 times (the DEEP, once a class), K4 never,
       the multi-eval kernel exactly 4 times (the OOD frame twice, the
-      query rows twice; mono and each rank of (h) twice, the OOD frame's)
-      and its plain version never (so in every timed prove below);
+      query rows twice; mono and each rank of (h) twice, the OOD frame's),
+      its ladder kernel exactly 3 times (once a point set: z and z g, z^8,
+      the query points; mono and each rank twice) and its plain version
+      never (so in every timed prove below);
       the proof must verify and fail with one byte flipped;
   (f) the same chain in mono (full-LDE) mode: warm-up, timed prove, verify
       and tamper check; K1, K2, K4 and the Merkle heap must have launched
@@ -149,7 +154,7 @@ from kernel_bench import (BINV_CASES, BINV_MONO_CASES, K1_CASES, K1_DIST_CASES, 
                           K1_MONO_CASES, K2_CASES, K2_DIST_CASES, K2_LARGE_CASES, K2_MONO_CASES, K3_LARGE_T,
                           MERKLE_CASES, MERKLE_DIST_CASES, MERKLE_LARGE_CASES, MEVAL_CASES, MONO_T, air_calls,
                           air_cases, binv_name, capture_entry, clock_ms, cuda_ms, fop_calls, fop_cases, fop_name,
-                          meval_factors, meval_name, meval_plain_t, meval_points, ptxas_summary, sass_opcodes)
+                          meval_name, meval_operands, meval_plain_t, meval_points, ptxas_summary, sass_opcodes)
 from zkvm_torch import kernels, vm  # noqa: E402
 from zkvm_torch.dist import multihost  # noqa: E402
 from zkvm_torch.dist import run as dist_run  # noqa: E402
@@ -158,7 +163,7 @@ from zkvm_torch.air import transition as tr  # noqa: E402
 from zkvm_torch.field import f128  # noqa: E402
 from zkvm_torch.field import f128t as ft  # noqa: E402
 from zkvm_torch.examples.prove_lr_large import LrRun  # noqa: E402
-from zkvm_torch.field.limbs import from_numpy, from_t, to_numpy, ttensor  # noqa: E402
+from zkvm_torch.field.limbs import from_numpy, from_t, to_limbs, to_numpy, ttensor  # noqa: E402
 from zkvm_torch.hash import blake3_t as b3t  # noqa: E402
 from zkvm_torch.hash import merkle as mk  # noqa: E402
 from zkvm_torch.ntt import ntt_t as nt  # noqa: E402
@@ -174,8 +179,8 @@ DEV = torch.device("cuda", 0)
 # HBM3, and 32-bit integer work at 132 SMs x 64 INT32 lanes x 1.98 GHz.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# int8 tensor-core operations (dense): the rate of the multi-eval's nibble
-# contraction, the least work that computes it
+# int8 tensor-core operations (dense): the rate of the multi-eval's byte
+# contraction, 2 (16 C)(16 Q) T operations
 INT8_OPS_PER_S = 1.979e15
 # 32-bit operations per f128 operation, a lower count: an add or sub is four
 # 32-bit adds with carries and the four of its correction by eps; a multiply
@@ -528,7 +533,7 @@ def phase_kernels():
     if yard:
         raise AssertionError(f"the yardsticks of phase (c) launched the field-op kernel {yard} times")
     results["field_ops"] = field_op_kernels(rng)
-    results["multi_eval"] = meval_kernels(rng)
+    results["multi_eval"], results["meval_ladders"] = meval_kernels(rng)
     return results
 
 
@@ -680,91 +685,112 @@ def field_op_kernels(rng):
 
 
 class _FailingLib:
-    """A kernel library whose multi-eval entry reports a failed launch."""
+    """A kernel library whose entries named in ``failing`` report a failed
+    launch; every other entry (the ladders', the field ops') is the real
+    one."""
 
-    def __init__(self, real):
-        self.real = real
+    def __init__(self, real, failing):
+        self.real, self.failing = real, failing
 
-    def __getattr__(self, name):  # every other entry (the ladders' field ops) is the real one
+    def __getattr__(self, name):
+        if name in self.failing:
+            return lambda *args: 700  # cudaErrorIllegalAddress
         return getattr(self.real, name)
 
-    def zk_multi_eval(self, *args):
-        return 700  # cudaErrorIllegalAddress
 
-
-def int_mm_ms(coeffs, factors, reps=5):
-    """torch._int_mm of the nibble matrices of coeffs (C 32, T) and the
-    points' ladders (T, Q 32), int8 -> int32: the contraction that the
-    reference runs on its matrix unit, without the buckets and the sum
+def int_mm_ms(coeffs, points, reps=5):
+    """torch._int_mm of the reference's nibble matrices of coeffs (C 32, T)
+    and the points' ladders (T, Q 32), int8 -> int32: the contraction that
+    the reference runs on its matrix unit, without the buckets and the sum
     mod p."""
-    lads = nt.ladders_join(*factors)
+    lads = nt.ladders_t(from_numpy(to_limbs(points), DEV), coeffs.shape[-1])
     a = me._nibbles(coeffs).reshape(-1, coeffs.shape[-1]).to(torch.int8)
     b = me._nibbles(lads).reshape(-1, lads.shape[-1]).to(torch.int8).t()
+    del lads
     return cuda_ms(lambda: torch._int_mm(a, b), reps)[0]
 
 
-def meval_kernels(rng):
-    """Phase (c) for the multi-eval kernel at kernel_bench.MEVAL_CASES:
-    multi_eval_t (the ladders and the kernel) against the plain version
-    (as (Q, C, 8) limbs), exactly; the C entry's ms, the wrapper's and the
-    rows' host ms; one wrapper call under the sync check; at the 2^20 query
-    shape torch._int_mm of the nibble matrices; then a launch that fails
-    must raise from multi_eval_rows on a CUDA tensor and leave the plain
-    version uncalled.  The plain version's ladders take the plain
-    arithmetic, so the field-op kernel must launch no time across its
-    calls; phase (g) holds the kernel against a host Horner evaluation.
-    Returns the 2^20 query shape's results, with the largest error of
-    all."""
-    lib, out, plain_op_launches = kernels.lib(), {}, 0
+def ladders_flat(lad):
+    """A Ladders' bytes and cells as one int tensor (for the comparison)."""
+    return torch.cat([lad.digits.flatten().int(), lad.cells.flatten()])
 
-    def plain(coeffs, points):
+
+def meval_kernels(rng):
+    """Phase (c) for the multi-eval's kernels at kernel_bench.MEVAL_CASES:
+    the ladder kernel (launch_ladders) against ladders_plain and the
+    contraction (multi_eval_t: the ladders and the kernel) against the
+    plain version (as (Q, C, 8) limbs), exactly; the C entry's ms, the
+    wrapper's and the rows' host ms; one wrapper call under the sync
+    check; at the 2^20 query shape torch._int_mm of the nibble matrices;
+    then a launch of either kernel that fails must raise from
+    multi_eval_rows on a CUDA tensor and leave the plain version uncalled.
+    The plain versions take the plain arithmetic, so the field-op kernel
+    must launch no time across their calls; phase (g) holds the kernel
+    against a host Horner evaluation.  Returns the 2^20 query shape's
+    results of each kernel, with the largest error of all."""
+    lib, stream, out, lad_out, plain_op_launches = kernels.lib(), kernels.stream_of(torch.empty(1, device=DEV)), {}, {}, 0
+
+    def plain(fn, *args):
         nonlocal plain_op_launches
         before = sum(ft.op_launches.values())
-        rows = meval_plain_t(me, coeffs, points)
+        res = fn(*args)
         plain_op_launches += sum(ft.op_launches.values()) - before
-        return rows
+        return res
 
+    big = max(MEVAL_CASES, key=lambda cqt: cqt[0] * cqt[1] * cqt[2])  # the 2^20 query shape
+    emit({"phase": "kernels", "case": "multi-eval dynamic shared memory, bytes",
+          **{f"Q={q}": lib.zk_multi_eval_smem(q) for q in (1, 2, 32)}})
     for c, q, t in MEVAL_CASES:
         name = meval_name(c, q, t)
         coeffs, points = rand_limbs(rng, (c, 8, t), spread=True), meval_points(rng, q)
-        factors = meval_factors(me, coeffs, points)
-        cname, cargs, keep = capture_entry(kernels, me.launch_multi_eval, coeffs, *factors)
-        # the kernel reads the coefficients and the two factors and writes the rows
-        nbytes = (c * t + q * (factors[0].shape[-1] + factors[1].shape[-1]) + q * c) * LIMB_BYTES
-        res = compare(name, lambda: me.multi_eval_t(coeffs, points), lambda: plain(coeffs, points),
-                      nbytes, 2 * (32 * c) * (32 * q) * t, plain_reps=int(t < 1 << 20),
+        bases = from_numpy(to_limbs(points), DEV)
+        s, n2 = me.split(t)
+        ldb = -(-s // me.LADDER_ALIGN) * me.LADDER_ALIGN
+        lad_bytes = q * (16 * ldb + n2 * PACKED_BYTES)
+        lad_out[(c, q, t)] = compare(f"{name} ladders", lambda: ladders_flat(me.launch_ladders(lib, stream, bases, t)),
+                                     lambda: plain(lambda: ladders_flat(me.ladders_plain(bases, t))),
+                                     lad_bytes, q * (s + n2) * OPS_MUL)
+        (lad,) = meval_operands(me, coeffs, points)
+        cname, cargs, keep = capture_entry(kernels, me.launch_multi_eval, coeffs, lad)
+        # the kernel reads the coefficients, the ladder bytes and cells, and writes the rows
+        nbytes = c * t * LIMB_BYTES + q * (16 * s + n2 * PACKED_BYTES) + q * c * LIMB_BYTES
+        res = compare(name, lambda: me.multi_eval_t(coeffs, points), lambda: plain(meval_plain_t, me, coeffs, points),
+                      nbytes, 2 * (16 * c) * (16 * q) * t, plain_reps=int(t < 1 << 20),
                       entry_fn=lambda: kernels.check(getattr(lib, cname)(*cargs), cname), ops_rate=INT8_OPS_PER_S)
         sync_free(name, lambda: me.multi_eval_t(coeffs, points))
         res["rows_host_ms"] = clock_ms(lambda: me.multi_eval_rows(coeffs, points), 3)
-        res["dot_int32_ms"] = c * q * t * (OPS_MUL + OPS_ADD) / INT32_OPS_PER_S * 1e3
-        if (c, q, t) == (28, 32, 1 << 20):
-            res["library_ms"] = int_mm_ms(coeffs, factors)
+        if (c, q, t) == big:
+            res["library_ms"] = int_mm_ms(coeffs, points)
             res["library_call"] = "torch._int_mm of the int8 nibble matrices (the contraction alone)"
-        emit({"phase": "kernels", "case": name, **{k: res[k] for k in ("rows_host_ms", "dot_int32_ms")},
+        emit({"phase": "kernels", "case": name, "rows_host_ms": res["rows_host_ms"],
               **({"library_ms": res["library_ms"]} if "library_ms" in res else {})})
         out[(c, q, t)] = res
-        del coeffs, factors, cargs, keep
+        del coeffs, bases, lad, cargs, keep
         torch.cuda.empty_cache()
-    emit({"phase": "kernels", "check": "field_ops launches across the multi-eval's plain version",
+    emit({"phase": "kernels", "check": "field_ops launches across the multi-eval's plain versions",
           "launches": plain_op_launches})
     if plain_op_launches:
-        raise AssertionError(f"multi_eval_rows_plain launched the field-op kernel {plain_op_launches} times")
+        raise AssertionError(f"the multi-eval's plain versions launched the field-op kernel {plain_op_launches} times")
     coeffs, points = rand_limbs(rng, (8, 8, 1 << 10)), meval_points(rng, 4)
-    plain_before = me.plain_calls
-    real_lib, failing = kernels.lib, _FailingLib(kernels.lib())
-    kernels.lib = lambda: failing
-    try:
-        me.multi_eval_rows(coeffs, points)
-        raised = None
-    except RuntimeError as err:
-        raised = str(err)
-    finally:
-        kernels.lib = real_lib
-    emit({"phase": "kernels", "check": "a failing multi-eval launch raises, no fall back", "raised": raised,
-          "plain_calls": me.plain_calls - plain_before})
-    if raised is None or "error 700" not in raised or me.plain_calls != plain_before:
-        raise AssertionError("multi_eval_rows did not raise on a failing launch, or fell back to the plain version")
-    return dict(out[(28, 32, 1 << 20)], max_abs_err=max(r["max_abs_err"] for r in out.values()))
+    real_lib = kernels.lib
+    for entry in ("zk_meval_ladders", "zk_multi_eval"):
+        plain_before = me.plain_calls
+        failing = _FailingLib(real_lib(), {entry})
+        kernels.lib = lambda: failing
+        try:
+            me.multi_eval_rows(coeffs, points)
+            raised = None
+        except RuntimeError as err:
+            raised = str(err)
+        finally:
+            kernels.lib = real_lib
+        emit({"phase": "kernels", "check": f"a failing {entry} launch raises, no fall back", "raised": raised,
+              "plain_calls": me.plain_calls - plain_before})
+        if raised is None or f"{entry}: CUDA launch failed with error 700" not in raised or me.plain_calls != plain_before:
+            raise AssertionError(f"multi_eval_rows did not raise on a failing {entry} launch, or fell back to the "
+                                 "plain version")
+    return (dict(out[big], max_abs_err=max(r["max_abs_err"] for r in out.values())),
+            dict(lad_out[big], max_abs_err=max(r["max_abs_err"] for r in lad_out.values())))
 
 
 def phase_conformance():
@@ -793,24 +819,28 @@ MODES = ("tmode", "mono", "cls")
 # and once more for the constants of a cold prove; the cls path: K4 once a
 # class, the batch inverse twice a class, no K3; cold mono at T = 2^20: K4
 # once over the domain, the batch inverse for the constants and the DEEP)
-MONO_KERNELS = ("ntt_stages", "blake3_rows", "merkle", "transition", "batch_inverse", "field_ops", "multi_eval")
-TMODE_KERNELS = ("ntt_stages", "blake3_rows", "merkle", "composition", "batch_inverse", "field_ops", "multi_eval")
+MONO_KERNELS = ("ntt_stages", "blake3_rows", "merkle", "transition", "batch_inverse", "field_ops", "multi_eval",
+                "meval_ladders")
+TMODE_KERNELS = ("ntt_stages", "blake3_rows", "merkle", "composition", "batch_inverse", "field_ops", "multi_eval",
+                 "meval_ladders")
 PATH_KERNELS = {"tmode": TMODE_KERNELS,
                 "mono": MONO_KERNELS,
                 "cls": MONO_KERNELS,
-                "lr_large_cold": ("batch_inverse", "field_ops", "multi_eval"),
+                "lr_large_cold": ("batch_inverse", "field_ops", "multi_eval", "meval_ladders"),
                 "lr_large": TMODE_KERNELS,
                 "lr_large_cls": MONO_KERNELS,
                 "lr_large_mono": MONO_KERNELS}
 # the multi-eval: the OOD frame's two calls and the query rows' two in
-# T-mode and cls, the OOD frame's alone in mono (and on each rank of h)
-CLS_EXACT = {"transition": 8, "batch_inverse": 16, "composition": 0, "multi_eval": 4}
-PATH_EXACT = {"tmode": {"transition": 0, "batch_inverse": 8, "multi_eval": 4},
-              "mono": {"composition": 0, "multi_eval": 2}, "cls": CLS_EXACT,
-              "lr_large_cold": {"batch_inverse": 9, "multi_eval": 4},
-              "lr_large": {"batch_inverse": 8, "transition": 0, "multi_eval": 4},
+# T-mode and cls, the OOD frame's alone in mono (and on each rank of h);
+# its ladder kernel once a point set (z and z g, z^8, the query points)
+CLS_EXACT = {"transition": 8, "batch_inverse": 16, "composition": 0, "multi_eval": 4, "meval_ladders": 3}
+PATH_EXACT = {"tmode": {"transition": 0, "batch_inverse": 8, "multi_eval": 4, "meval_ladders": 3},
+              "mono": {"composition": 0, "multi_eval": 2, "meval_ladders": 2}, "cls": CLS_EXACT,
+              "lr_large_cold": {"batch_inverse": 9, "multi_eval": 4, "meval_ladders": 3},
+              "lr_large": {"batch_inverse": 8, "transition": 0, "multi_eval": 4, "meval_ladders": 3},
               "lr_large_cls": CLS_EXACT,
-              "lr_large_mono": {"composition": 0, "transition": 1, "batch_inverse": 2, "multi_eval": 2}}
+              "lr_large_mono": {"composition": 0, "transition": 1, "batch_inverse": 2, "multi_eval": 2,
+                                "meval_ladders": 2}}
 
 
 def check_plain(where, plain):
@@ -1054,9 +1084,10 @@ def phase_dist(card, want):
                                          f"{world}-rank {backend} run")
             if r["launches"]["composition"] != 0:
                 raise AssertionError("K3 launched on the sharded mono path")
-            if r["launches"]["multi_eval"] != 2:
-                raise AssertionError(f"the multi-eval kernel launched {r['launches']['multi_eval']} times on "
-                                     f"rank {r['rank']}, expected 2 (the OOD frame)")
+            for name in ("multi_eval", "meval_ladders"):
+                if r["launches"][name] != 2:
+                    raise AssertionError(f"kernel {name} launched {r['launches'][name]} times on rank {r['rank']}, "
+                                         "expected 2 (the OOD frame)")
             check_plain(f"rank {r['rank']} of the {world}-rank {backend} run", r["plain_calls"])
             staged = r["comm"]["host_staged_bytes"]
             if (backend == "gloo") != (staged > 0):
@@ -1078,6 +1109,8 @@ SOURCES = {
                   "zkvm/field/jax_f128t.py:142 fadd, :148 fsub, :192 fmul (XLA, no Pallas)"),
     "multi_eval": ("zkvm_torch/csrc/multi_eval.cu",
                    "zkvm/prover/eval_mxu.py:45 _contract, :80 multi_eval_rows (XLA, no Pallas)"),
+    "meval_ladders": ("zkvm_torch/csrc/multi_eval.cu",
+                      "zkvm/prover/eval_mxu.py:72 _ladders (ntt_t.ladders_t; XLA, no Pallas)"),
 }
 
 

@@ -41,10 +41,15 @@ from the call the prover makes down to the C entry point:
              copy of the result and its ints; host clock, the card
              synchronised at both ends),
     wrapper  ``multi_eval.multi_eval_t`` (the ladders and the kernel),
+    ladders  ``multi_eval.launch_ladders`` (the ladder kernel, where the
+             tree has it),
     launch   ``multi_eval.launch_multi_eval``,
-    entry    the C entry alone, as above;
+    entry    the C entry alone, as above,
+    plain    ``multi_eval.multi_eval_rows_plain`` (one call);
   a tree without the multi-eval kernel (the parent of its port) times its
-  ``multi_eval_rows`` (the float64 product) at the rows level alone.
+  ``multi_eval_rows`` (the float64 product) at the rows level alone; a
+  tree whose kernel takes the ladders' limb factors (its parent) builds
+  them as its wrapper does (``ladder_factors``).
   A tree without the Merkle kernel (the parent of its port) times its
   ``merkle_flat``, plain torch on the card, at the wrapper level alone.
   ``--large`` takes the cases of the 2^20-row path instead: T-mode's and
@@ -196,10 +201,11 @@ FOP_THREADS = [256, 128, 512, 64]
 # columns at 32 points) at T = 2^16 (the bench's chain) and 2^20 (the LR)
 MEVAL_CASES = [(28, 2, 1 << 16), (8, 1, 1 << 16), (28, 32, 1 << 16), (8, 32, 1 << 16),
                (28, 2, 1 << 20), (8, 1, 1 << 20), (28, 32, 1 << 20), (8, 32, 1 << 20)]
-# its threads a block and the blocks a launch aims at; the first is the
-# shipped default (the block's tree of 16 sums a thread fills 48 KB of
-# static shared memory at 192 threads, so at most 128)
-MEVAL_SHAPES = [(128, 2048), (128, 1024), (128, 4096), (128, 8192), (64, 2048), (64, 4096), (64, 8192)]
+# its tile for 3 points or more: groups (m16 tiles) a warp, warps along the
+# groups, points a warp, warps along the points, t a chunk; the first is
+# the shipped default (8 groups x 16 points over 8 warps, chunks of 64)
+MEVAL_SHAPES = [(2, 4, 8, 2, 64), (2, 4, 8, 2, 32), (4, 2, 4, 2, 64), (2, 4, 8, 1, 64), (2, 4, 4, 2, 64),
+                (1, 4, 8, 2, 64)]
 SWEEPS = {
     "K1": ("ntt_stages.cu", "zk_ntt_stages", [
         {"ZK_K1_TILE": tile, "ZK_K1_LANES": lanes, "ZK_K1_PER_THREAD": k}
@@ -220,7 +226,8 @@ SWEEPS = {
         {"ZK_BINV_K": k, "ZK_BINV_THREADS": th} for k, th in BINV_SHAPES]),
     "FOPS": ("field_ops.cu", "zk_field_op", [{"ZK_FOP_THREADS": th} for th in FOP_THREADS]),
     "MEVAL": ("multi_eval.cu", "zk_multi_eval", [
-        {"ZK_MEVAL_THREADS": th, "ZK_MEVAL_BLOCKS": b} for th, b in MEVAL_SHAPES]),
+        {"ZK_MEVAL_WM": wm, "ZK_MEVAL_BM": bm, "ZK_MEVAL_WQ": wq, "ZK_MEVAL_BN": bn, "ZK_MEVAL_KC": kc}
+        for wm, bm, wq, bn, kc in MEVAL_SHAPES]),
 }
 
 
@@ -273,8 +280,9 @@ def _kernel_name(mangled):
 
 
 def ptxas_summary(log):
-    """{kernel: {"registers", "spill_stores", "spill_loads"}} from an
-    ``nvcc -Xptxas -v`` log (spills in bytes)."""
+    """{kernel: {"registers", "spill_stores", "spill_loads", "smem"}} from
+    an ``nvcc -Xptxas -v`` log (spills and static shared memory in
+    bytes)."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -290,6 +298,9 @@ def ptxas_summary(log):
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out[cur]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            out[cur]["smem"] = int(m.group(1))
     return out
 
 
@@ -394,12 +405,17 @@ def meval_plain_t(me, coeffs, points):
     return from_numpy(to_limbs(me.multi_eval_rows_plain(coeffs, points)), coeffs.device)
 
 
-def meval_factors(me, coeffs, points):
-    """The ladder factors (l1, l2) of the points, as the wrapper builds
-    them."""
+def meval_operands(me, coeffs, points):
+    """The ladder operands of the points as the tree's wrapper makes them,
+    the arguments of its ``launch_multi_eval`` after the coefficients: the
+    ladder kernel's ``Ladders``, or the parent's limb factors (l1, l2)."""
+    from zkvm_torch import kernels
     from zkvm_torch.field.limbs import from_numpy, to_limbs
 
-    return me.ladder_factors(from_numpy(to_limbs(points), coeffs.device), coeffs.shape[-1])
+    bases = from_numpy(to_limbs(points), coeffs.device)
+    if hasattr(me, "launch_ladders"):
+        return (me.launch_ladders(kernels.lib(), kernels.stream_of(coeffs), bases, coeffs.shape[-1]),)
+    return me.ladder_factors(bases, coeffs.shape[-1])
 
 
 def clock_ms(fn, reps):
@@ -575,6 +591,7 @@ def bench_tree(tree, label, only, reps=20, large=False):
         del a, b, calls
         torch.cuda.empty_cache()
     for c, q, t in MEVAL_CASES if "MEVAL" in only else []:
+        from zkvm_torch.field.limbs import from_numpy, to_limbs
         from zkvm_torch.prover import multi_eval as me
 
         coeffs, points = _limbs(rng, (c, 8, t), dev), meval_points(rng, q)
@@ -582,17 +599,20 @@ def bench_tree(tree, label, only, reps=20, large=False):
         rows_ms = clock_ms(lambda: me.multi_eval_rows(coeffs, points), 3)
         _emit({"tree": label, "case": name, "level": "rows", "ms": rows_ms})
         if hasattr(me, "launch_multi_eval"):
-            factors = meval_factors(me, coeffs, points)
-            cname, cargs, keep = capture_entry(kernels, me.launch_multi_eval, coeffs, *factors)
-            calls = {
-                "wrapper": lambda: me.multi_eval_t(coeffs, points),
-                "launch": lambda: me.launch_multi_eval(lib, stream, coeffs, *factors),
-                "entry": lambda: kernels.check(getattr(lib, cname)(*cargs), cname),
-            }
+            ops = meval_operands(me, coeffs, points)
+            cname, cargs, keep = capture_entry(kernels, me.launch_multi_eval, coeffs, *ops)
+            calls = {"wrapper": lambda: me.multi_eval_t(coeffs, points)}
+            if hasattr(me, "launch_ladders"):
+                bases = from_numpy(to_limbs(points), dev)
+                calls["ladders"] = lambda: me.launch_ladders(lib, stream, bases, t)
+            calls["launch"] = lambda: me.launch_multi_eval(lib, stream, coeffs, *ops)
+            calls["entry"] = lambda: kernels.check(getattr(lib, cname)(*cargs), cname)
             for level, fn in calls.items():
                 ms, host_ms = cuda_ms(fn, reps)
                 _emit({"tree": label, "case": name, "level": level, "ms": ms, "host_ms": host_ms})
-            del factors, cargs, keep, calls
+            del ops, cargs, keep, calls
+        _emit({"tree": label, "case": name, "level": "plain",
+               "ms": cuda_ms(lambda: me.multi_eval_rows_plain(coeffs, points), 1)[0]})
         del coeffs
         torch.cuda.empty_cache()
     for name, kind, args, host in airs:
@@ -701,9 +721,9 @@ def sweep(tree, label, kernels_to_sweep, reps=20):
             cases = []
             for c, q, t in MEVAL_CASES:
                 coeffs, points = _limbs(rng, (c, 8, t), dev), meval_points(rng, q)
-                factors = meval_factors(me, coeffs, points)
+                ops = meval_operands(me, coeffs, points)
                 cases.append((meval_name(c, q, t), meval_plain_t(me, coeffs, points),
-                              lambda lib, a=coeffs, f=factors: me.launch_multi_eval(lib, stream, a, *f)))
+                              lambda lib, a=coeffs, f=ops: me.launch_multi_eval(lib, stream, a, *f)))
         else:
             cases = []
             for name, kind, args, host in air_cases(lambda shape: _limbs(rng, shape, dev), dev):

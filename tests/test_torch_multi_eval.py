@@ -1,16 +1,20 @@
-"""The multi-eval kernel ``csrc/multi_eval.cu``, run on the CPU through its
-host emulation (``csrc/host_emu.h``), against the plain version
-``multi_eval_rows_plain`` and the JAX ``zkvm.prover.eval_mxu.
-multi_eval_rows``, limb for limb.
+"""The multi-eval kernels ``csrc/multi_eval.cu`` (the u8 ``mma``
+contraction and the ladder operands), run on the CPU through their host
+emulation (``csrc/host_emu.h``, which emulates the m16n8k32 u8
+``mma.sync`` in the PTX ISA's fragment layout), against the plain versions
+``multi_eval_rows_plain`` / ``ladders_plain`` and the JAX
+``zkvm.prover.eval_mxu.multi_eval_rows``, limb for limb.
 
-The kernel is built twice: at its shipped launch shape (128 threads a
-block, one slice of t up to T = 128, eight at T = 1024) and with 4
-threads and 24 blocks a launch (``-DZK_MEVAL_THREADS=4
--DZK_MEVAL_BLOCKS=24``), so that tiles and slices cross at every
-shape and the last slice of t is short.  The T = 128 conformance proves
-in T-mode and cls run with every multi-eval call through the emulated
-kernel.  On the card, ``chip_smoke.py`` phase (c) holds the nvcc build
-against the plain version at the provers' shapes.
+The kernel is built twice: at its shipped tile (8 groups of one column a
+block; 16 points for Q >= 3 over 8 warps, 1 or 2 points for the OOD's Q;
+chunks of 64 t, 3 in flight) and at a small one (``SMALL``: one group a block, 2
+points over 2 warps, chunks of 32 t), so that point tiles and slices
+cross and S < 32 leaves the one chunk partial; the contract cases add
+odd T, S of 1-256 (several chunks, T ending inside a chunk) and S = 2^12
+with every digit 0xFF where the byte products are largest.  The T = 128
+conformance proves in T-mode and cls run with every multi-eval call
+through the emulated kernels.  On the card, ``chip_smoke.py`` phase (c)
+holds the nvcc build against the plain versions at the provers' shapes.
 """
 
 import ctypes
@@ -34,7 +38,7 @@ from zkvm_torch.prover import multi_eval as me
 torch.set_num_threads(1)
 
 VECTORS = Path(__file__).resolve().parent.parent / "conformance" / "vectors_e2e.json"
-SMALL = ("ZK_MEVAL_THREADS=4", "ZK_MEVAL_BLOCKS=24")  # the second build's launch shape
+SMALL = ("ZK_MEVAL_WM=1", "ZK_MEVAL_BM=1", "ZK_MEVAL_WQ=1", "ZK_MEVAL_BN=2", "ZK_MEVAL_KC=32")  # the second tile
 # coefficient edge values: 0, 1, p - 1, low limbs all 0xFFFF (4 and 7 of
 # them), eps; the points' edge values 0, 1, p - 1 sit among random ones
 EDGES = (0, 1, f128.P - 1, 2**64 - 1, 2**112 - 1, 45 * 2**40 - 1)
@@ -51,7 +55,7 @@ def emu(tmp_path_factory):
     out, libs = tmp_path_factory.mktemp("meval"), {}
     for name, defines in (("shipped", ()), ("small", SMALL)):
         lib = ctypes.CDLL(str(_build_emu(out, ["multi_eval.cu"], defines)))
-        for entry in ("zk_multi_eval", "zk_multi_eval_slices"):
+        for entry in ("zk_multi_eval", "zk_multi_eval_slices", "zk_meval_ladders", "zk_multi_eval_smem"):
             getattr(lib, entry).argtypes = list(kernels.SIGNATURES[entry])
             getattr(lib, entry).restype = ctypes.c_int
         libs[name] = lib
@@ -102,11 +106,10 @@ def jax_rows():
 
 
 def _launch(lib, coeffs_t, points):
-    """The kernel on the CPU: the points' ladder factors as the wrapper
-    builds them on a card (``ladder_factors``, here in the plain
-    arithmetic), then one call of the emulated entry; (Q, C, 8) limbs."""
-    factors = me.ladder_factors(from_numpy(to_limbs(list(points))), coeffs_t.shape[-1])
-    return me.launch_multi_eval(lib, None, coeffs_t, *factors)
+    """The kernels on the CPU as the wrapper runs them on a card
+    (``evaluate``): the emulated ladder entry for the points, then the
+    emulated multi-eval entry; (Q, C, 8) limbs."""
+    return me.evaluate(lib, None, [coeffs_t], from_numpy(to_limbs(list(points))))[0]
 
 
 @pytest.mark.parametrize("t", [16, 128, 1024])
@@ -145,12 +148,14 @@ def test_multi_eval_plain_version_needs_no_dispatching_op(monkeypatch, jax_rows,
 
 
 @pytest.mark.parametrize("c,q,t,s,n2", [(3, 5, 1, 1, 1), (2, 3, 5, 2, 3), (5, 2, 100, 8, 13), (9, 1, 300, 16, 19),
-                                        (4, 4, 515, 32, 17)])
+                                        (4, 4, 515, 32, 17), (2, 3, 1000, 256, 4)])
 def test_multi_eval_kernel_takes_any_length_and_factors(emu, c, q, t, s, n2):
     """The kernel's contract: sum_t a[c][t] l1[q][t mod S] l2[q][t div S]
-    for any factors (Q, 8, S) and (Q, 8, N2) with S N2 >= T, T not a
-    power of two included: random rows with p - 1 and the edge values
-    everywhere, against the sums in host ints."""
+    for any factors (Q, 8, S) and (Q, 8, N2) with S N2 >= T (as the
+    operands ``ladders_from`` makes of them), T not a power of two
+    included, and S = 256 over several chunks with T ending inside one:
+    random rows with p - 1 and the edge values everywhere, against the
+    sums in host ints."""
     rng = np.random.default_rng(100 * c + t)
     a, l1, l2 = _rand(rng, (c, t)), _rand(rng, (q, s)), _rand(rng, (q, n2))
     a[:, ::3], l1[:, 1::3], l2[:, ::4] = f128.P - 1, f128.P - 1, f128.P - 1
@@ -159,30 +164,92 @@ def test_multi_eval_kernel_takes_any_length_and_factors(emu, c, q, t, s, n2):
     want = to_limbs([[sum(a[ci, i] * l1[qi, i % s] * l2[qi, i // s] for i in range(t)) % f128.P for ci in range(c)]
                      for qi in range(q)])
     for name, lib in emu.items():
-        got = me.launch_multi_eval(lib, None, _t(a), _t(l1), _t(l2))
+        got = me.launch_multi_eval(lib, None, _t(a), me.ladders_from(_t(l1), _t(l2)))
         np.testing.assert_array_equal(to_numpy(got), want, err_msg=name)
+
+
+@pytest.mark.parametrize("c,q", [(1, 1), (2, 3)])
+def test_multi_eval_kernel_holds_all_ones_digits_at_s_4096(emu, c, q):
+    """The largest sums: S = 2^12 (4,096 products of two bytes a sum, past
+    2^31 once 16 of them share a bucket, so the buckets take 64 bits),
+    every coefficient and l1 element 2^112 - 1 (14 bytes 0xFF) or p - 1,
+    l2 p - 1 or 2^112 - 1; T = 2 S, so two groups of one slice."""
+    s, n2 = 1 << 12, 2
+    t = s * n2
+    top = EDGES[4]  # 2^112 - 1
+    a = np.full((c, t), top, dtype=object)
+    a[-1, ::2] = f128.P - 1
+    l1 = np.full((q, s), top, dtype=object)
+    l1[0, 1::2] = f128.P - 1
+    l2 = np.full((q, n2), f128.P - 1, dtype=object)
+    l2[-1, -1] = top
+    want = to_limbs([[sum(l2[qi, hi] * sum(a[ci, hi * s + lo] * l1[qi, lo] for lo in range(s)) for hi in range(n2))
+                      % f128.P for ci in range(c)] for qi in range(q)])
+    for name, lib in emu.items():
+        got = me.launch_multi_eval(lib, None, _t(a), me.ladders_from(_t(l1), _t(l2)))
+        np.testing.assert_array_equal(to_numpy(got), want, err_msg=name)
+
+
+@pytest.mark.parametrize("q,t", [(1, 1), (2, 16), (3, 128), (32, 1024), (2, 1 << 14)])
+def test_ladder_kernel_equals_ladders_split(emu, q, t):
+    """The ladder entry (``launch_ladders``) equals ``ladders_split`` in the
+    plain arithmetic taken to bytes (``ladders_plain``), byte for byte and
+    limb for limb, with the points 0, 1 and p - 1 among random ones."""
+    rng = np.random.default_rng(q + t)
+    points = [int(v) for v in _rand(rng, (q,))]
+    points[: min(q, 3)] = [0, f128.P - 1, 1][: min(q, 3)]
+    bases = from_numpy(to_limbs(points))
+    want = me.ladders_plain(bases, t)
+    assert want.s == me.split(t)[0] and want.digits.shape[-1] % me.LADDER_ALIGN == 0
+    for name, lib in emu.items():
+        got = me.launch_ladders(lib, None, bases, t)
+        assert got.s == want.s, name
+        assert torch.equal(got.digits, want.digits), name
+        assert torch.equal(got.cells, want.cells), name
+
+
+def test_multi_eval_evaluates_tensors_at_one_point_set(emu):
+    """One ``evaluate`` of two coefficient tensors (28 and 8 columns, the
+    query rows' trace and composition columns) at one point set makes one
+    ladder launch and equals two calls of one tensor each."""
+    vals, points = _inputs(128)
+    a, b = _t(vals), _t(vals[3:11][::-1].copy())
+    bases = from_numpy(to_limbs(points))
+    before = (me.ladder_launches, me.launches)
+    both = me.evaluate(emu["shipped"], None, [a, b], bases)
+    assert (me.ladder_launches - before[0], me.launches - before[1]) == (1, 2)
+    for got, x in zip(both, (a, b)):
+        assert torch.equal(got, me.evaluate(emu["shipped"], None, [x], bases)[0])
+    rows_a, rows_b = me.multi_eval_rows_many([a, b], points)  # the plain version, on the CPU
+    assert rows_a == me.multi_eval_rows_plain(a, points) and rows_b == me.multi_eval_rows_plain(b, points)
+    assert [[int(v) for v in row] for row in from_limbs(to_numpy(both[1]))] == rows_b
 
 
 @pytest.mark.parametrize("c,q,t", [(28, 32, 1 << 20), (28, 2, 1 << 20), (8, 1, 1 << 16), (28, 32, 16),
                                    (1, 1, 1), (3, 3, 100)])
 def test_multi_eval_slices_cover_t(emu, c, q, t):
-    """The work buffer's slices: at least one, at most one a block's width
-    of t and at most the launch's target blocks; the entry refuses a
-    buffer of fewer slices before any launch.  The shipped shape splits
-    the provers' 2^20 shapes into many slices (fills the card) and takes
-    T = 16 in one."""
+    """The work buffer's slices: one a block's groups (8 hi in the shipped
+    tile, 1 in the small one) of the ceil(T / S) groups that hold a t; the
+    entry refuses a buffer of fewer slices, factors that do not cover T,
+    an S that is not a power of two or above 2^15, and ladder rows that
+    are not a multiple of 64 bytes or shorter than S, all before any
+    launch."""
+    s, n2 = me.split(t)
     for name, lib in emu.items():
-        threads, blocks = (4, 24) if name == "small" else (128, 4096)
-        s = lib.zk_multi_eval_slices(c, q, t)
-        assert 1 <= s <= min(blocks, -(-t // threads)), (name, s)
-        assert lib.zk_multi_eval(None, None, None, None, s - 1, None, c, q, t, 1 << 20, 1, None) == -1
-    # ladder factors that do not cover T, or an S not a power of two
-    assert emu["shipped"].zk_multi_eval(None, None, None, None, 8, None, 2, 2, 16, 4, 3, None) == -1
-    assert emu["shipped"].zk_multi_eval(None, None, None, None, 8, None, 2, 2, 16, 6, 4, None) == -1
-    assert emu["shipped"].zk_multi_eval_slices(28, 32, 1 << 20) >= 64
-    assert emu["shipped"].zk_multi_eval_slices(8, 1, 1 << 20) >= 1024
-    assert emu["shipped"].zk_multi_eval_slices(28, 32, 16) == 1
-    assert emu["shipped"].zk_multi_eval_slices(0, 1, 16) == 0
+        groups = 1 if name == "small" else 8
+        k = lib.zk_multi_eval_slices(c, q, t, s)
+        assert k == -(-(-(-t // s)) // groups), (name, k)
+        ldb = -(-s // 64) * 64
+        assert lib.zk_multi_eval(None, None, ldb, None, None, k - 1, None, c, q, t, s, n2, None) == -1
+    lib = emu["shipped"]
+    refused = [(16, 4, 3, 64), (16, 6, 4, 64), (1 << 17, 1 << 16, 2, 1 << 16), (16, 4, 4, 32), (128, 128, 1, 64)]
+    for t, s, n2, ldb in refused:
+        assert lib.zk_multi_eval(None, None, ldb, None, None, 1 << 20, None, 2, 2, t, s, n2, None) == -1, (t, s)
+    assert lib.zk_meval_ladders(None, None, 32, None, 2, 16, 4, None) == -1
+    assert lib.zk_meval_ladders(None, None, 64, None, 2, 12, 4, None) == -1
+    assert lib.zk_multi_eval_slices(28, 32, 1 << 20, 1 << 10) == 128
+    assert lib.zk_multi_eval_slices(0, 1, 16, 4) == 0
+    assert lib.zk_multi_eval_smem(32) >= lib.zk_multi_eval_smem(2) > 0
 
 
 @pytest.mark.parametrize("mode", ["tmode", "cls"])
@@ -192,44 +259,62 @@ def test_provers_through_the_emulated_multi_eval_kernel(emu, monkeypatch, mode):
     shape: the proof equals the conformance vector's bytes."""
     calls = []
 
-    def through_kernel(coeffs_t, points):
-        calls.append((coeffs_t.shape[0], len(points)))
-        me._checked(coeffs_t, points)
-        return [[int(v) for v in row] for row in from_limbs(to_numpy(_launch(emu["small"], coeffs_t, points)))]
+    def through_kernel(coeffs_ts, points):
+        calls.append((tuple(x.shape[0] for x in coeffs_ts), len(points)))
+        for x in coeffs_ts:
+            me._checked(x, points)
+        outs = me.evaluate(emu["small"], None, coeffs_ts, from_numpy(to_limbs(list(points))))
+        return [[[int(v) for v in row] for row in from_limbs(to_numpy(out))] for out in outs]
 
-    monkeypatch.setattr(me, "multi_eval_rows", through_kernel)
-    before = me.plain_calls
+    monkeypatch.setattr(me, "multi_eval_rows_many", through_kernel)
+    before = me.plain_calls, me.ladder_launches
     vec = json.loads(VECTORS.read_text())
     key = vm.ServerKey(vm.DEMO_PARAMETERS, random.Random(7))
     program = vm.Program.compile(vec["program_source"])
     inputs = vm.ProgramInputs(tuple(vec["public_inputs_tape"]), (key.encrypt(2),), key)
     _, _, proof = vm.prove(program, inputs, device="cpu", mode=mode)
     assert proof.to_wire_bytes().hex() == vec["proof_bytes_hex"]
-    assert [cq[:1] + (cq[1] > 1,) for cq in calls] == [(28, True), (8, False), (28, True), (8, True)], calls
-    assert me.plain_calls == before
+    # the OOD frame's two point sets, then the query rows' one for both tensors
+    assert [(cs, q > 1) for cs, q in calls] == [((28,), True), ((8,), False), ((28, 8), True)], calls
+    assert (me.plain_calls, me.ladder_launches - before[1]) == (before[0], 3)
 
 
 class _FailingLib:
-    """A kernel library whose multi-eval entry reports a failed launch."""
+    """A kernel library whose multi-eval and ladder entries report a failed
+    launch; it counts the entry calls."""
 
-    def zk_multi_eval_slices(self, c, q, t):
+    def __init__(self):
+        self.calls = 0
+
+    def zk_multi_eval_slices(self, c, q, t, s):
         return 1
 
     def zk_multi_eval(self, *args):
+        self.calls += 1
         return 700  # cudaErrorIllegalAddress
+
+    zk_meval_ladders = zk_multi_eval
 
 
 def test_multi_eval_refuses_and_never_falls_back(monkeypatch):
-    """A launch that fails raises; a device with no kernel raises before
-    any launch; coefficients that are not contiguous int32 (C, 8, T), or no
-    points, raise on the CPU too (as the card would refuse them).  None of
+    """A launch of either kernel that fails raises; a device with no kernel
+    raises before any launch; coefficients that are not contiguous int32
+    (C, 8, T), or no points, raise on the CPU too (as the card would refuse
+    them), and so do ladder operands that do not cover T, an S above
+    2^15 and ladder rows that are not bytes of a multiple of 64.  None of
     these reaches the plain version or counts a launch."""
     coeffs = torch.zeros((2, 8, 16), dtype=torch.int32)
-    l1, l2 = torch.zeros((3, 8, 4), dtype=torch.int32), torch.zeros((3, 8, 4), dtype=torch.int32)
-    before = (me.plain_calls, me.launches)
+    lad = me.ladders_from(torch.zeros((3, 8, 4), dtype=torch.int32), torch.zeros((3, 8, 4), dtype=torch.int32))
+    before = (me.plain_calls, me.launches, me.ladder_launches)
+    failing = _FailingLib()
     with pytest.raises(RuntimeError, match="zk_multi_eval: CUDA launch failed with error 700"):
-        me.launch_multi_eval(_FailingLib(), None, coeffs, l1, l2)
-    monkeypatch.setattr(kernels, "lib", lambda: _FailingLib())
+        me.launch_multi_eval(failing, None, coeffs, lad)
+    with pytest.raises(RuntimeError, match="zk_meval_ladders: CUDA launch failed with error 700"):
+        me.launch_ladders(failing, None, torch.zeros((3, 8), dtype=torch.int32), 16)
+    with pytest.raises(RuntimeError, match="zk_meval_ladders: CUDA launch failed with error 700"):
+        me.evaluate(failing, None, [coeffs], torch.zeros((3, 8), dtype=torch.int32))
+    assert failing.calls == 3
+    monkeypatch.setattr(kernels, "lib", lambda: failing)
     with pytest.raises(ValueError, match="no kernel for device meta"):
         me.multi_eval_rows(coeffs.to("meta"), [1, 2])
     with pytest.raises(ValueError, match="contiguous"):
@@ -240,13 +325,26 @@ def test_multi_eval_refuses_and_never_falls_back(monkeypatch):
         me.multi_eval_rows(coeffs[0], [1])
     with pytest.raises(ValueError, match="no points"):
         me.multi_eval_rows(coeffs, [])
+    with pytest.raises(ValueError, match="one length on one device"):
+        me.multi_eval_rows_many([coeffs, torch.zeros((2, 8, 32), dtype=torch.int32).to("meta")], [1])
     with pytest.raises(ValueError, match="ladder factors of 4 x 2 lanes for T = 16"):
-        me.launch_multi_eval(_FailingLib(), None, coeffs, l1, l2[:, :, :2].contiguous())
-    with pytest.raises(ValueError, match="ladder factors of 3 x 8 lanes"):
-        me.launch_multi_eval(_FailingLib(), None, coeffs, l1[:, :, :3].contiguous(), torch.zeros((3, 8, 8),
-                                                                                             dtype=torch.int32))
-    with pytest.raises(ValueError, match="l2: shape"):
-        me.launch_multi_eval(_FailingLib(), None, coeffs, l1, l2[:2].contiguous())
+        me.launch_multi_eval(failing, None, coeffs, lad._replace(cells=lad.cells[:, :2].contiguous()))
+    with pytest.raises(ValueError, match="ladder factors of 3 x 4 lanes"):
+        me.launch_multi_eval(failing, None, coeffs, lad._replace(s=3))
+    with pytest.raises(ValueError, match="digits: shape"):
+        me.launch_multi_eval(failing, None, coeffs, lad._replace(digits=lad.digits[:32].contiguous()))
+    with pytest.raises(TypeError, match="digits: expected torch.uint8"):
+        me.launch_multi_eval(failing, None, coeffs, lad._replace(digits=lad.digits.int()))
+    with pytest.raises(ValueError, match="ladder rows of 48 bytes"):
+        me.launch_multi_eval(failing, None, coeffs, lad._replace(digits=lad.digits[:, :48].contiguous()))
+    wide = torch.zeros((16, 1 << 16), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="above 32768 the s32 sums"):
+        me.launch_multi_eval(failing, None, torch.zeros((1, 8, 1 << 17), dtype=torch.int32),
+                             me.Ladders(wide, torch.zeros((1, 2, 4), dtype=torch.int32), 1 << 16))
+    with pytest.raises(ValueError, match="above 32768 the s32 sums"):
+        me.split(1 << 31)
+    assert me.split(1 << 30) == (1 << 15, 1 << 15)
     with pytest.raises(ValueError, match="power of two"):
         me.multi_eval_rows(torch.zeros((2, 8, 12), dtype=torch.int32), [1])
-    assert (me.plain_calls, me.launches) == before
+    assert failing.calls == 3
+    assert (me.plain_calls, me.launches, me.ladder_launches) == before

@@ -150,19 +150,22 @@ def test_kernel_health_reset_zeroes_the_counters():
     mk.trees_by_size[1 << 19] += 1
     ft.op_launches["mul"] += 6
     ft.op_launches_by_shape[("mul", 1 << 16)] += 6
-    me.launches, me.plain_calls = 4, 2
+    me.launches, me.plain_calls, me.ladder_launches = 4, 2, 3
     me.launches_by_shape[(28, 32, 1 << 16)] += 4
+    me.ladder_launches_by_shape[(32, 1 << 16)] += 3
     try:
         rep = kernel_health.report()
         assert rep["launches"] == {"ntt_stages": 3, "blake3_rows": 2, "merkle": 5, "composition": 1,
-                                   "transition": 1, "batch_inverse": 4, "field_ops": 6, "multi_eval": 4}
-        assert rep["total"] == 26 and rep["plain_calls"] == {"multi_eval": 2}
+                                   "transition": 1, "batch_inverse": 4, "field_ops": 6, "multi_eval": 4,
+                                   "meval_ladders": 3}
+        assert rep["total"] == 29 and rep["plain_calls"] == {"multi_eval": 2}
         assert rep["launches_by_shape"]["ntt_stages"] == {"M=256 B=28 NL=256 r1": 3}
         assert rep["launches_by_shape"]["merkle"] == {"N=524288 trees=1": 2}
         assert rep["launches_by_shape"]["transition"] == {"N=524288 step=8": 1}
         assert rep["launches_by_shape"]["batch_inverse"] == {"R=3 N=65536": 4}
         assert rep["launches_by_shape"]["field_ops"] == {"mul n=65536": 6}
         assert rep["launches_by_shape"]["multi_eval"] == {"C=28 Q=32 T=65536": 4}
+        assert rep["launches_by_shape"]["meval_ladders"] == {"Q=32 T=65536": 3}
     finally:
         kernel_health.reset()
     assert kernel_health.launches() == dict.fromkeys(kernel_health.FAMILIES, 0)

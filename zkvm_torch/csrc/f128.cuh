@@ -32,42 +32,16 @@ struct alignas(16) cell {
 ZK_HD fe unpack(cell c) { return fe{c.lo, c.hi}; }
 ZK_HD cell pack(fe v) { return cell{v.lo, v.hi}; }
 
-// The product from 32-bit limbs (the card has no 64 x 64-bit multiplier):
-// a 4 x 4 schoolbook of 32 x 32 -> 64-bit products, then the
-// folds by eps = 0x2D00 * 2^32 - 1 as a multiply by the 14-bit 0x2D00, a
-// shift by one word and a subtraction.  mul32_c is the algorithm in C (the
-// host's mul32, so the emulated kernels check it); on the card mul32 runs
-// the same steps as one PTX carry chain (nvcc's SASS for the C kept its
-// carries in extra 64-bit adds and moves: ~130 instructions against ~80).
-ZK_HD fe mul32_c(fe a, fe b) {
+// Any 256-bit value r7..r0 (words, least significant first) mod p, as a
+// canonical element: the folds by eps = 0x2D00 * 2^32 - 1 as a multiply by
+// the 14-bit 0x2D00, a shift by one word and a subtraction.  The second half
+// of mul32_c, and the multi-eval's reduction of its digit sums.
+ZK_HD fe fold256(const uint32_t r[8]) {
   constexpr uint32_t E1 = 0x2D00;  // eps = E1 * 2^32 - 1
-  const uint32_t x[4] = {(uint32_t)a.lo, (uint32_t)(a.lo >> 32), (uint32_t)a.hi,
-                         (uint32_t)(a.hi >> 32)};
-  const uint32_t y[4] = {(uint32_t)b.lo, (uint32_t)(b.lo >> 32), (uint32_t)b.hi,
-                         (uint32_t)(b.hi >> 32)};
-  // 256-bit product r7..r0; each step is x*y + r + carry < 2^64
-  uint32_t r[8];
-  uint64_t t = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    t = (uint64_t)x[0] * y[j] + (t >> 32);
-    r[j] = (uint32_t)t;
-  }
-  r[4] = (uint32_t)(t >> 32);
-#pragma unroll
-  for (int i = 1; i < 4; ++i) {
-    t = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      t = (uint64_t)x[i] * y[j] + r[i + j] + (t >> 32);
-      r[i + j] = (uint32_t)t;
-    }
-    r[i + 4] = (uint32_t)(t >> 32);
-  }
   // fold 1: H * 2^128 == H * eps = (H * E1) << 32 - H for H = r7..r4;
   // g4..g0 = H * E1, and L + (g << 32) - H >= 0 is t5..t0 (t5:t4 < 2^47)
   uint32_t g[5];
-  t = 0;
+  uint64_t t = 0;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     t = (uint64_t)r[4 + j] * E1 + (t >> 32);
@@ -103,6 +77,39 @@ ZK_HD fe mul32_c(fe a, fe b) {
   const uint64_t tlo = lo + EPS, thi = hi + (tlo < lo);
   const bool carry = (tlo < lo) && thi == 0;
   return ((s >> 32) != 0 || carry) ? fe{tlo, thi} : fe{lo, hi};
+}
+
+// The product from 32-bit limbs (the card has no 64 x 64-bit multiplier):
+// a 4 x 4 schoolbook of 32 x 32 -> 64-bit products, then fold256.  mul32_c
+// is the algorithm in C (the host's mul32, so the emulated kernels check
+// it); on the card mul32 runs the same steps as one PTX carry chain (nvcc's
+// SASS for the C kept its carries in extra 64-bit adds and moves: ~130
+// instructions against ~80).
+ZK_HD fe mul32_c(fe a, fe b) {
+  const uint32_t x[4] = {(uint32_t)a.lo, (uint32_t)(a.lo >> 32), (uint32_t)a.hi,
+                         (uint32_t)(a.hi >> 32)};
+  const uint32_t y[4] = {(uint32_t)b.lo, (uint32_t)(b.lo >> 32), (uint32_t)b.hi,
+                         (uint32_t)(b.hi >> 32)};
+  // 256-bit product r7..r0; each step is x*y + r + carry < 2^64
+  uint32_t r[8];
+  uint64_t t = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    t = (uint64_t)x[0] * y[j] + (t >> 32);
+    r[j] = (uint32_t)t;
+  }
+  r[4] = (uint32_t)(t >> 32);
+#pragma unroll
+  for (int i = 1; i < 4; ++i) {
+    t = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      t = (uint64_t)x[i] * y[j] + r[i + j] + (t >> 32);
+      r[i + j] = (uint32_t)t;
+    }
+    r[i + 4] = (uint32_t)(t >> 32);
+  }
+  return fold256(r);
 }
 
 #if defined(__CUDA_ARCH__)

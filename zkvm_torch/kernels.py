@@ -63,10 +63,14 @@ SIGNATURES = {
     # op, nd, sizes (host), strides (host: a, b, out, each the limb axis's
     # then the nd element axes'), a, b, out, stream
     "zk_field_op": (_I, _I, _LP, _LP, _P, _P, _P, _P),
-    # C, Q, T: the slices of the multi-eval's work buffer
-    "zk_multi_eval_slices": (_I, _I, _L),
-    # coeffs, l1, l2, work, work_slices, out, C, Q, T, S, N2, stream
-    "zk_multi_eval": (_P, _P, _P, _P, _L, _P, _I, _I, _L, _L, _L, _P),
+    # C, Q, T, S: the slices of the multi-eval's work buffer
+    "zk_multi_eval_slices": (_I, _I, _L, _L),
+    # Q: the multi-eval's dynamic shared memory, in bytes
+    "zk_multi_eval_smem": (_I,),
+    # coeffs, l1 bytes, ldb, l2 cells, work, work_slices, out, C, Q, T, S, N2, stream
+    "zk_multi_eval": (_P, _P, _L, _P, _P, _L, _P, _I, _I, _L, _L, _L, _P),
+    # bases, l1 bytes, ldb, l2 cells, Q, S, N2, stream: the multi-eval's ladder operands
+    "zk_meval_ladders": (_P, _P, _L, _P, _I, _L, _L, _P),
 }
 
 build_seconds = 0.0  # wall time of the last nvcc build in this process
@@ -160,10 +164,11 @@ def stream_of(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def expect(t, shape, device, name: str):
-    """Check a kernel input: int32, on ``device``, contiguous, of ``shape``."""
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name}: expected int32 limbs, got {t.dtype}")
+def expect(t, shape, device, name: str, dtype=torch.int32):
+    """Check a kernel input: of ``dtype`` (int32 limbs unless named), on
+    ``device``, contiguous, of ``shape``."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {'int32 limbs' if dtype == torch.int32 else dtype}, got {t.dtype}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if tuple(t.shape) != tuple(shape):

@@ -1,14 +1,18 @@
 """Multi-point polynomial evaluation: rows[q][c] = sum_t coeffs[c][t] * pt_q^t.
 
 Port of ``zkvm.prover.eval_mxu`` (``_contract``, ``multi_eval_rows``): the
-OOD frame and the query rows.  :func:`multi_eval_rows` dispatches on the
-device.  On a CUDA tensor it builds the two O(sqrt T) factors of the
-power ladders of all Q points at once (``ntt_t.ladders_split``, field-op
-launches; pt^t = l1[t mod S] l2[t div S]) and launches the kernel
-``csrc/multi_eval.cu``, a direct field dot product that joins the factors
-as it goes and returns canonical (Q, C, 8) limbs; the host copies those
-Q C 32 bytes and turns them into ints (or it raises: no fallback).  On a CPU tensor it takes the
-plain version, :func:`multi_eval_rows_plain`; any other device raises.
+OOD frame and the query rows.  :func:`multi_eval_rows` (and
+:func:`multi_eval_rows_many`, several coefficient tensors at one point
+set) dispatches on the device.  On a CUDA tensor it makes the points'
+ladder operands in one launch of ``zk_meval_ladders`` (pt^t = l1[t mod S]
+l2[t div S] at ``ntt_t.ladders_split``'s S, l1 as the byte matrix of the
+tensor cores, l2 packed; :class:`Ladders`) and launches ``zk_multi_eval``
+once a coefficient tensor, both in ``csrc/multi_eval.cu``: a u8 ``mma``
+contraction over l1 with the sums mod p and the l2 factors on the card,
+returning canonical (Q, C, 8) limbs; the host copies those Q C 32 bytes
+once a call and turns them into ints (or it raises: no fallback).  On a
+CPU tensor it takes the plain version, :func:`multi_eval_rows_plain`; any
+other device raises.
 
 The plain version is the reference's nibble contraction: each field
 element splits into 32 four-bit nibbles, so the evaluation becomes one
@@ -21,13 +25,13 @@ happen on the host, and its ladders take the plain arithmetic
 (``f128t.PLAIN``) by name.  On the card it runs only as the kernel's
 yardstick (``chip_smoke.py``, ``kernel_bench.py``), and then launches no
 kernel; ``plain_calls`` counts its calls, so a run can show that no prove
-took it.
+took it.  The ladder kernel's plain version is :func:`ladders_plain`.
 """
 
 from __future__ import annotations
 
 import collections
-from typing import List, Sequence
+from typing import List, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -40,10 +44,56 @@ from zkvm_torch.ntt import ntt_t as nt
 from . import limits
 
 MAX_T = 1 << 40  # 225 * T stays below 2^53 (exact float64 sums)
+MAX_S = 1 << 15  # the kernel's s32 sums of S products of two bytes, 255^2 S < 2^31
+LADDER_ALIGN = 64  # a ladder byte row's length is a multiple of this (csrc/multi_eval.cu kLdbAlign)
 
 launches = 0  # calls of the multi-eval kernel's entry in this process (two launches each)
 launches_by_shape = collections.Counter()  # the same, by (C, Q, T)
+ladder_launches = 0  # launches of the ladder kernel (one a point set)
+ladder_launches_by_shape = collections.Counter()  # the same, by (Q, T)
 plain_calls = 0  # calls of multi_eval_rows_plain in this process
+
+
+class Ladders(NamedTuple):
+    """The ladder operands of Q points over T lanes at factor S (the
+    multi-eval kernel's B and its l2 factor): ``digits`` (Q 16, ldb) uint8,
+    byte j of pt_q^lo at row 16 q + j, column lo < S, zeros past S (ldb a
+    multiple of LADDER_ALIGN); ``cells`` (Q, N2, 4) int32, pt_q^(S hi) as
+    its four 32-bit words."""
+
+    digits: torch.Tensor
+    cells: torch.Tensor
+    s: int
+
+
+def split(t: int):
+    """(S, N2) of T lanes: ``ntt_t.ladders_split``'s factors; T past 2^30
+    (S past MAX_S) raises."""
+    s = 1 << ((t.bit_length() - 1 + 1) // 2)
+    if s > MAX_S:
+        raise ValueError(f"multi_eval: T = {t} needs a ladder factor of {s} lanes: above {MAX_S} the s32 sums of "
+                         "byte products could wrap")
+    return s, max(1, t // s)
+
+
+def ladders_from(l1: torch.Tensor, l2: torch.Tensor) -> Ladders:
+    """The ladder operands of factors l1 (Q, 8, S) and l2 (Q, 8, N2) limbs,
+    in plain torch."""
+    q, _, s = l1.shape
+    ldb = -(-s // LADDER_ALIGN) * LADDER_ALIGN
+    digits = torch.zeros((q, 8, 2, ldb), dtype=torch.uint8, device=l1.device)
+    digits[..., 0, :s] = (l1 & 0xFF).to(torch.uint8)
+    digits[..., 1, :s] = (l1 >> 8).to(torch.uint8)
+    w = l2.long().transpose(-1, -2).reshape(q, l2.shape[-1], 4, 2)  # (Q, N2, word, limb)
+    words = w[..., 0] | w[..., 1] << 16
+    cells = torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32).contiguous()
+    return Ladders(digits.reshape(q * 16, ldb), cells, s)
+
+
+def ladders_plain(bases: torch.Tensor, t: int) -> Ladders:
+    """The ladder kernel's plain version: ``ladders_split`` of the (Q, 8)
+    bases over T lanes in the plain arithmetic, taken to bytes."""
+    return ladders_from(*nt.ladders_split(bases, t, ft.PLAIN))
 
 
 def _nibbles(x: torch.Tensor) -> torch.Tensor:
@@ -118,63 +168,113 @@ def multi_eval_rows_plain(coeffs_t: torch.Tensor, points: Sequence[int]) -> List
     return rows
 
 
-def launch_multi_eval(lib, stream, coeffs_t: torch.Tensor, l1: torch.Tensor, l2: torch.Tensor) -> torch.Tensor:
+def launch_ladders(lib, stream, bases: torch.Tensor, t: int) -> Ladders:
+    """Call the ladder entry point of ``lib`` on the (Q, 8) int32 limbs of
+    the points: their :class:`Ladders` over T lanes at ``split(T)``, from
+    the caching allocator, in one launch."""
+    q = bases.shape[0]
+    kernels.expect(bases, (q, NLIMBS), bases.device, "bases")
+    s, n2 = split(t)
+    ldb = -(-s // LADDER_ALIGN) * LADDER_ALIGN
+    digits = torch.empty((q * 16, ldb), dtype=torch.uint8, device=bases.device)
+    cells = torch.empty((q, n2, 4), dtype=torch.int32, device=bases.device)
+    p = kernels.ptr
+    kernels.check(lib.zk_meval_ladders(p(bases), p(digits), ldb, p(cells), q, s, n2, stream), "zk_meval_ladders")
+    return Ladders(digits, cells, s)
+
+
+def launch_multi_eval(lib, stream, coeffs_t: torch.Tensor, lad: Ladders) -> torch.Tensor:
     """Call the multi-eval entry point of ``lib`` on contiguous int32 limbs
-    coeffs_t (C, 8, T) and the ladder factors l1 (Q, 8, S), S a power of
-    two, and l2 (Q, 8, N2), S N2 >= T, on one device: the (Q, C, 8)
+    coeffs_t (C, 8, T) and the ladder operands ``lad`` of Q points on the
+    same device (S a power of two, at most MAX_S, S N2 >= T): the (Q, C, 8)
     canonical limbs of sum_t coeffs[c][t] l1[q][t mod S] l2[q][t div S].
     The work buffer and the output come from the caching allocator;
     nothing is copied to the device, so it never waits for the stream."""
-    if coeffs_t.dim() != 3 or l1.dim() != 3 or l2.dim() != 3 or 0 in (*coeffs_t.shape, *l1.shape, *l2.shape):
-        raise ValueError(f"multi_eval: shapes {tuple(coeffs_t.shape)}, {tuple(l1.shape)} and {tuple(l2.shape)}, "
-                         "expected (C, 8, T), (Q, 8, S) and (Q, 8, N2)")
+    if coeffs_t.dim() != 3 or lad.digits.dim() != 2 or lad.cells.dim() != 3 or 0 in (*coeffs_t.shape,
+                                                                                      *lad.cells.shape):
+        raise ValueError(f"multi_eval: shapes {tuple(coeffs_t.shape)}, {tuple(lad.digits.shape)} and "
+                         f"{tuple(lad.cells.shape)}, expected (C, 8, T), (Q 16, ldb) and (Q, N2, 4)")
     c, _, t = coeffs_t.shape
-    q, _, s = l1.shape
-    n2 = l2.shape[-1]
-    if s & (s - 1) or s * n2 < t:
+    q, n2, _ = lad.cells.shape
+    s, ldb = lad.s, lad.digits.shape[-1]
+    if s < 1 or s & (s - 1) or s * n2 < t:
         raise ValueError(f"multi_eval: ladder factors of {s} x {n2} lanes for T = {t}")
+    if s > MAX_S:
+        raise ValueError(f"multi_eval: ladder factor of {s} lanes: above {MAX_S} the s32 sums of byte products "
+                         "could wrap")
+    if ldb < s or ldb % LADDER_ALIGN:
+        raise ValueError(f"multi_eval: ladder rows of {ldb} bytes for S = {s}")
     kernels.expect(coeffs_t, (c, NLIMBS, t), coeffs_t.device, "coeffs_t")
-    kernels.expect(l1, (q, NLIMBS, s), coeffs_t.device, "l1")
-    kernels.expect(l2, (q, NLIMBS, n2), coeffs_t.device, "l2")
-    slices = lib.zk_multi_eval_slices(c, q, t)
+    kernels.expect(lad.digits, (q * 16, ldb), coeffs_t.device, "digits", torch.uint8)
+    kernels.expect(lad.cells, (q, n2, 4), coeffs_t.device, "cells")
+    slices = lib.zk_multi_eval_slices(c, q, t, s)
     work = torch.empty((slices, q, c, 4), dtype=torch.int32, device=coeffs_t.device)
     out = torch.empty((q, c, NLIMBS), dtype=torch.int32, device=coeffs_t.device)
     p = kernels.ptr
-    rc = lib.zk_multi_eval(p(coeffs_t), p(l1), p(l2), p(work), slices, p(out), c, q, t, s, n2, stream)
+    rc = lib.zk_multi_eval(p(coeffs_t), p(lad.digits), ldb, p(lad.cells), p(work), slices, p(out), c, q, t, s, n2,
+                           stream)
     kernels.check(rc, "zk_multi_eval")
     return out
 
 
-def ladder_factors(bases: torch.Tensor, t: int):
-    """(l1 (Q, 8, S), l2 (Q, 8, T / S)), contiguous: the factors of the
-    ladders of the (Q, 8) bases over T lanes, base^i = l1[i mod S]
-    l2[i div S] (``ntt_t.ladders_split``)."""
-    return tuple(f.contiguous() for f in nt.ladders_split(bases, t))
+def evaluate(lib, stream, coeffs_ts: Sequence[torch.Tensor], bases: torch.Tensor) -> List[torch.Tensor]:
+    """Through the entry points of ``lib``: the ladder operands of the (Q, 8)
+    bases in one launch, then for each coefficient tensor (one T for all)
+    its (Q, C, 8) canonical limbs in one multi-eval call; counted."""
+    global launches, ladder_launches
+    q, t = bases.shape[0], coeffs_ts[0].shape[-1]
+    lad = launch_ladders(lib, stream, bases, t)
+    ladder_launches += 1
+    ladder_launches_by_shape[(q, t)] += 1
+    outs = []
+    for x in coeffs_ts:
+        outs.append(launch_multi_eval(lib, stream, x, lad))
+        launches += 1
+        launches_by_shape[(x.shape[0], q, t)] += 1
+    return outs
+
+
+def multi_eval_many_t(coeffs_ts: Sequence[torch.Tensor], points: Sequence[int]) -> List[torch.Tensor]:
+    """The card's part of :func:`multi_eval_rows_many`: for each coefficient
+    tensor (one T for all) its (Q, C, 8) canonical limbs on the card, by
+    :func:`evaluate`.  The points go to the card by one copy from pinned
+    memory that does not wait for the stream, so nothing here waits for
+    it."""
+    lengths = [_checked(x, points)[2] for x in coeffs_ts]
+    dev = coeffs_ts[0].device
+    if any(x.device != dev for x in coeffs_ts) or len(set(lengths)) != 1:
+        raise ValueError(f"multi_eval: coefficient tensors of lengths {lengths} on "
+                         f"{[str(x.device) for x in coeffs_ts]}, expected one length on one device")
+    if dev.type != "cuda":
+        raise ValueError(f"multi_eval: no kernel for device {dev}")
+    bases = torch.from_numpy(to_limbs(list(points)).view(np.int32)).pin_memory()
+    return evaluate(kernels.lib(), kernels.stream_of(coeffs_ts[0]), coeffs_ts, bases.to(dev, non_blocking=True))
 
 
 def multi_eval_t(coeffs_t: torch.Tensor, points: Sequence[int]) -> torch.Tensor:
-    """The card's part of :func:`multi_eval_rows`: (Q, C, 8) canonical limbs
-    on the card, from the points' ladder factors and one kernel call.  The
-    points go to the card by one copy from pinned memory that does not
-    wait for the stream, so nothing here waits for it."""
-    global launches
-    c, q, t = _checked(coeffs_t, points)
-    if coeffs_t.device.type != "cuda":
-        raise ValueError(f"multi_eval: no kernel for device {coeffs_t.device}")
-    bases = torch.from_numpy(to_limbs(list(points)).view(np.int32)).pin_memory()
-    l1, l2 = ladder_factors(bases.to(coeffs_t.device, non_blocking=True), t)
-    out = launch_multi_eval(kernels.lib(), kernels.stream_of(coeffs_t), coeffs_t, l1, l2)
-    launches += 1
-    launches_by_shape[(c, q, t)] += 1
-    return out
+    """:func:`multi_eval_many_t` of one tensor."""
+    return multi_eval_many_t([coeffs_t], points)[0]
+
+
+def multi_eval_rows_many(coeffs_ts: Sequence[torch.Tensor], points: Sequence[int]) -> List[List[List[int]]]:
+    """Evaluate each tensor's C transposed column polynomials at each point;
+    host ints as rows[q][c], one list a tensor: on CUDA tensors one ladder
+    launch and the kernel a tensor (or it raises), on CPU tensors the plain
+    version."""
+    if coeffs_ts and all(x.device.type == "cpu" for x in coeffs_ts):
+        for x in coeffs_ts:
+            _checked(x, points)
+        return [multi_eval_rows_plain(x, points) for x in coeffs_ts]
+    outs = multi_eval_many_t(coeffs_ts, points)
+    vals = from_limbs(to_numpy(torch.cat(outs, dim=1)))  # (Q, sum C) ints, one copy to the host
+    rows, c0 = [], 0
+    for out in outs:
+        c1 = c0 + out.shape[1]
+        rows.append([[int(v) for v in row[c0:c1]] for row in vals])
+        c0 = c1
+    return rows
 
 
 def multi_eval_rows(coeffs_t: torch.Tensor, points: Sequence[int]) -> List[List[int]]:
-    """Evaluate the C transposed column polynomials at each point; host ints
-    as rows[q][c]: the kernel on a CUDA tensor (or it raises), the plain
-    version on a CPU tensor."""
-    if coeffs_t.device.type == "cpu":
-        _checked(coeffs_t, points)
-        return multi_eval_rows_plain(coeffs_t, points)
-    vals = from_limbs(to_numpy(multi_eval_t(coeffs_t, points)))  # (Q, C) ints
-    return [[int(v) for v in row] for row in vals]
+    """:func:`multi_eval_rows_many` of one tensor."""
+    return multi_eval_rows_many([coeffs_t], points)[0]

@@ -366,7 +366,7 @@ class ClassStages:
         """Evaluate the committed polynomials at the query points (equal
         to the LDE rows there)."""
         x_pts = [f128.fmul(f128.DOMAIN_OFFSET, pow(self.dct["w_d"], p, f128.P)) for p in positions]
-        return me.multi_eval_rows(coeffs_t, x_pts), me.multi_eval_rows(h_t, x_pts)
+        return tuple(me.multi_eval_rows_many((coeffs_t, h_t), x_pts))  # one ladder operand for both
 
 
 class _TModeStages(ClassStages):

@@ -13,8 +13,10 @@ Families: K1 ``ntt_stages`` (counted by (M, B, NL, variant) only), K2
 count the kernel launches the entry reported and the trees), K3
 ``composition`` (by T), K4 ``transition`` (by (N, step)),
 ``batch_inverse`` (by (R, N)), ``field_ops``, the elementwise add, sub
-and mul of ``f128t`` (by operation and output elements), and
-``multi_eval`` (entry calls, two launches each; by (C, Q, T)).  Beside
+and mul of ``f128t`` (by operation and output elements),
+``multi_eval`` (entry calls, two launches each; by (C, Q, T)) and
+``meval_ladders``, the multi-eval's ladder operands (one launch a point
+set; by (Q, T)).  Beside
 them, :func:`plain_calls` counts the calls of the plain versions that a
 prove on a card must never take (the multi-eval's float64 product).
 """
@@ -34,7 +36,7 @@ from zkvm_torch.ntt import ntt_t as nt
 from zkvm_torch.prover import multi_eval as me
 
 FAMILIES = ("ntt_stages", "blake3_rows", "merkle", "composition", "transition", "batch_inverse", "field_ops",
-            "multi_eval")
+            "multi_eval", "meval_ladders")
 _COUNTED = {"blake3_rows": b3t, "merkle": mk, "composition": cp, "transition": tr, "batch_inverse": ft,
             "multi_eval": me}
 
@@ -43,10 +45,10 @@ def reset() -> None:
     """Every launch counter of every family to 0."""
     for mod in _COUNTED.values():
         mod.launches = 0
-    me.plain_calls = 0
+    me.ladder_launches = me.plain_calls = 0
     for counter in (nt.launches, b3t.launches_by_shape, cp.launches_by_shape, tr.launches_by_shape,
                     ft.launches_by_shape, mk.launches_by_size, mk.trees_by_size, ft.op_launches,
-                    ft.op_launches_by_shape, me.launches_by_shape):
+                    ft.op_launches_by_shape, me.launches_by_shape, me.ladder_launches_by_shape):
         counter.clear()
 
 
@@ -54,7 +56,7 @@ def launches() -> Dict[str, int]:
     """Launches per family in this process since the last :func:`reset`
     (the Merkle heap: entry calls, one a tree)."""
     return {"ntt_stages": sum(nt.launches.values()), **{name: mod.launches for name, mod in _COUNTED.items()},
-            "field_ops": sum(ft.op_launches.values())}
+            "field_ops": sum(ft.op_launches.values()), "meval_ladders": me.ladder_launches}
 
 
 def launches_by_shape() -> Dict[str, Dict[str, int]]:
@@ -68,6 +70,7 @@ def launches_by_shape() -> Dict[str, Dict[str, int]]:
         "batch_inverse": {f"R={r} N={n}": k for (r, n), k in sorted(ft.launches_by_shape.items())},
         "field_ops": {f"{op} n={n}": k for (op, n), k in sorted(ft.op_launches_by_shape.items())},
         "multi_eval": {f"C={c} Q={q} T={t}": k for (c, q, t), k in sorted(me.launches_by_shape.items())},
+        "meval_ladders": {f"Q={q} T={t}": k for (q, t), k in sorted(me.ladder_launches_by_shape.items())},
     }
 
 
