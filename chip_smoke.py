@@ -61,7 +61,18 @@ Phases, each printing one JSON line:
       result apart); torch._int_mm on the reference's two nibble
       matrices at the 2^20 query shape (the contraction alone, the
       yardstick); and a failing launch of either kernel that must raise
-      without a fall back to the plain version;
+      without a fall back to the plain version; then the FRI and DEEP
+      kernels (csrc/fri_fold.cu: fri.fold_t, one launch a FRI layer, and
+      ntt_t.ladder_t; csrc/deep.cu: deep.weighted_sum and
+      deep.deep_quotient) against their plain versions (in the plain
+      arithmetic: neither the field-op kernel nor K1 may launch in them),
+      exactly, at kernel_bench.fri_deep_cases: the fold at every layer of
+      a 2^16 and a 2^20 prove, the ladder at the remainder's scale and
+      the cold constants' shapes (strided rows, a broadcast scale), the
+      DEEP sums and quotients of T-mode, cls and mono at 2^16 and 2^20
+      and a strided row block of each; ms at the C entry and the wrapper,
+      the bound, the sync check, and a failing launch of each entry that
+      must raise without reaching a plain version;
   (d) conformance: the T = 128 program of conformance/vectors_e2e.json,
       proved in all three modes (T-mode, mono, cls), whose roots and proof
       bytes must match the vector byte for byte;
@@ -77,7 +88,12 @@ Phases, each printing one JSON line:
       query rows twice; mono and each rank of (h) twice, the OOD frame's),
       its ladder kernel exactly 3 times (once a point set: z and z g, z^8,
       the query points; mono and each rank twice) and its plain version
-      never (so in every timed prove below);
+      never (so in every timed prove below); the FRI fold once a layer (3
+      at T = 2^16, 5 at 2^20), the ladder once (the remainder's scale; the
+      cold proves more), the DEEP sums twice and the quotient once a class
+      (8; mono once a row block: 1 at 2^16, 16 at 2^20, with 32 sums), on
+      every path; and T-mode's field-op and K1 launches below the counts
+      before these kernels (230 and 74, PATH_BELOW);
       the proof must verify and fail with one byte flipped;
   (f) the same chain in mono (full-LDE) mode: warm-up, timed prove, verify
       and tamper check; K1, K2, K4 and the Merkle heap must have launched
@@ -154,7 +170,8 @@ from kernel_bench import (BINV_CASES, BINV_MONO_CASES, K1_CASES, K1_DIST_CASES, 
                           K1_MONO_CASES, K2_CASES, K2_DIST_CASES, K2_LARGE_CASES, K2_MONO_CASES, K3_LARGE_T,
                           MERKLE_CASES, MERKLE_DIST_CASES, MERKLE_LARGE_CASES, MEVAL_CASES, MONO_T, air_calls,
                           air_cases, binv_name, capture_entry, clock_ms, cuda_ms, fop_calls, fop_cases, fop_name,
-                          meval_name, meval_operands, meval_plain_t, meval_points, ptxas_summary, sass_opcodes)
+                          fri_deep_cases, meval_name, meval_operands, meval_plain_t, meval_points, ptxas_summary,
+                          sass_opcodes)
 from zkvm_torch import kernels, vm  # noqa: E402
 from zkvm_torch.dist import multihost  # noqa: E402
 from zkvm_torch.dist import run as dist_run  # noqa: E402
@@ -167,7 +184,8 @@ from zkvm_torch.field.limbs import from_numpy, from_t, to_limbs, to_numpy, ttens
 from zkvm_torch.hash import blake3_t as b3t  # noqa: E402
 from zkvm_torch.hash import merkle as mk  # noqa: E402
 from zkvm_torch.ntt import ntt_t as nt  # noqa: E402
-from zkvm_torch.prover import limits, prove  # noqa: E402
+from zkvm_torch.prover import deep as dp  # noqa: E402
+from zkvm_torch.prover import fri, limits, prove  # noqa: E402
 from zkvm_torch.prover import multi_eval as me  # noqa: E402
 from zkvm_torch.runtime import native_available  # noqa: E402
 from zkvm_torch.utils import kernel_health  # noqa: E402
@@ -534,6 +552,7 @@ def phase_kernels():
         raise AssertionError(f"the yardsticks of phase (c) launched the field-op kernel {yard} times")
     results["field_ops"] = field_op_kernels(rng)
     results["multi_eval"], results["meval_ladders"] = meval_kernels(rng)
+    results.update(fri_deep_kernels(rng))
     return results
 
 
@@ -645,8 +664,8 @@ def field_op_kernels(rng):
     patterns of _fop_patterns, and mono's 2^23-lane operands at T = 2^20
     (the kernel over the whole input, the plain version on three windows
     of lanes): the (28, 8, 2^23) trace LDE times a column of weights, and
-    the (4, 8, 2^19) block of it that the DEEP's column scan weighs (its
-    batch stride 2^26 limbs).  Returns the first case's results, and the
+    a (4, 8, 2^19) block of it, a strided batch as mono's row blocks are
+    read (its batch stride 2^26 limbs).  Returns the first case's results, and the
     largest error of all."""
     lib = kernels.lib()
     limbs = lambda shape: rand_limbs(rng, shape, spread=True)
@@ -793,6 +812,84 @@ def meval_kernels(rng):
             dict(lad_out[big], max_abs_err=max(r["max_abs_err"] for r in lad_out.values())))
 
 
+# the case of each FRI and DEEP family that the kernels line reports: the
+# shape a 2^16 T-mode prove launches (the first fold, the remainder's
+# scale, the sums over the 28 trace columns, a class's quotient)
+FRI_DEEP_REPORTED = {"fri_fold": "FRI fold n=2^16", "ladder": "FRI ladder B=1 n=2^10 x",
+                     "weighted_sum": "DEEP sum K=2 C=28 N=2^16", "deep_quotient": "DEEP quotient K=3 N=2^16"}
+# their plain versions, which a failing launch must not reach
+FRI_DEEP_PLAIN = ((fri, "fold_plain"), (nt, "ladder_plain"), (dp, "weighted_sum_plain"),
+                  (dp, "deep_quotient_plain"))
+
+
+def fri_deep_kernels(rng):
+    """Phase (c) for csrc/fri_fold.cu and csrc/deep.cu at
+    kernel_bench.fri_deep_cases (the fold at every layer of a 2^16 and a
+    2^20 prove, the ladder at the remainder's and the cold constants'
+    shapes with strided, broadcast rows, the DEEP sums and quotients of
+    T-mode, cls and mono at 2^16 and 2^20 and a strided row block of
+    each): exact against the plain versions, the C entry's and the
+    wrapper's ms, the bound, one wrapper call under the sync check; the
+    plain versions launch neither the field-op kernel nor K1.  Then a
+    failing launch of each entry must raise from the wrapper the prover
+    calls and reach no plain version.  Returns each family's reported
+    case (FRI_DEEP_REPORTED) with the largest error of the family."""
+    lib, out = kernels.lib(), {}
+    limbs = lambda shape: rand_limbs(rng, shape, spread=True)
+    plain_launches = 0
+    for case in fri_deep_cases(rng, limbs):
+        cname, cargs, keep = capture_entry(kernels, case["launch"], None)
+
+        def plain(fn=case["plain"]):
+            nonlocal plain_launches
+            before = sum(ft.op_launches.values()) + sum(nt.launches.values())
+            res = fn()
+            plain_launches += sum(ft.op_launches.values()) + sum(nt.launches.values()) - before
+            return res
+
+        res = compare(case["name"], case["wrapper"], plain, case["nbytes"],
+                      case["muls"] * OPS_MUL + case["adds"] * OPS_ADD, plain_reps=1,
+                      entry_fn=lambda: kernels.check(getattr(lib, cname)(*cargs), cname))
+        sync_free(case["name"], case["wrapper"])
+        out.setdefault(case["family"], {})[case["name"]] = res
+        del case, cargs, keep
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels", "check": "field_ops and K1 launches across the FRI and DEEP plain versions",
+          "launches": plain_launches})
+    if plain_launches:
+        raise AssertionError(f"the FRI and DEEP plain versions launched the field-op kernel or K1 {plain_launches} "
+                             "times")
+    v, one = rand_limbs(rng, (fri.FOLD, 8, 1 << 10)), rand_limbs(rng, (8, 1))[:, 0]
+    cols = rand_limbs(rng, (3, 8, 1 << 10))
+    calls = {"zk_fri_fold": lambda: fri.fold_t(v, 5, 7), "zk_ladder": lambda: nt.ladder_t(one, one, 1 << 10),
+             "zk_weighted_sum": lambda: dp.weighted_sum(cols, [[1, 2, 3]]),
+             "zk_deep_quotient": lambda: dp.deep_quotient(cols, [1, 2, 3], cols)}
+    real_lib, saved = kernels.lib, [getattr(mod, name) for mod, name in FRI_DEEP_PLAIN]
+    ran = []
+    for mod, name in FRI_DEEP_PLAIN:
+        setattr(mod, name, lambda *args, name=name, **kwargs: ran.append(name))
+    try:
+        for entry, call in calls.items():
+            failing = _FailingLib(real_lib(), {entry})
+            kernels.lib = lambda: failing
+            try:
+                call()
+                raised = None
+            except RuntimeError as err:
+                raised = str(err)
+            finally:
+                kernels.lib = real_lib
+            emit({"phase": "kernels", "check": f"a failing {entry} launch raises, no fall back", "raised": raised,
+                  "plain_calls": len(ran)})
+            if raised is None or f"{entry}: CUDA launch failed with error 700" not in raised or ran:
+                raise AssertionError(f"a failing {entry} launch did not raise, or fell back to the plain version")
+    finally:
+        for (mod, name), fn in zip(FRI_DEEP_PLAIN, saved):
+            setattr(mod, name, fn)
+    return {family: dict(cases[FRI_DEEP_REPORTED[family]], max_abs_err=max(r["max_abs_err"] for r in cases.values()))
+            for family, cases in out.items()}
+
+
 def phase_conformance():
     vec = json.loads((Path(__file__).resolve().parent / "conformance" / "vectors_e2e.json").read_text())
     key = vm.ServerKey(vm.DEMO_PARAMETERS, random.Random(7))
@@ -819,28 +916,41 @@ MODES = ("tmode", "mono", "cls")
 # and once more for the constants of a cold prove; the cls path: K4 once a
 # class, the batch inverse twice a class, no K3; cold mono at T = 2^20: K4
 # once over the domain, the batch inverse for the constants and the DEEP)
+FRI_DEEP = ("fri_fold", "ladder", "weighted_sum", "deep_quotient")
 MONO_KERNELS = ("ntt_stages", "blake3_rows", "merkle", "transition", "batch_inverse", "field_ops", "multi_eval",
-                "meval_ladders")
+                "meval_ladders") + FRI_DEEP
 TMODE_KERNELS = ("ntt_stages", "blake3_rows", "merkle", "composition", "batch_inverse", "field_ops", "multi_eval",
-                 "meval_ladders")
+                 "meval_ladders") + FRI_DEEP
 PATH_KERNELS = {"tmode": TMODE_KERNELS,
                 "mono": MONO_KERNELS,
                 "cls": MONO_KERNELS,
-                "lr_large_cold": ("batch_inverse", "field_ops", "multi_eval", "meval_ladders"),
+                "lr_large_cold": ("batch_inverse", "field_ops", "multi_eval", "meval_ladders") + FRI_DEEP,
                 "lr_large": TMODE_KERNELS,
                 "lr_large_cls": MONO_KERNELS,
                 "lr_large_mono": MONO_KERNELS}
 # the multi-eval: the OOD frame's two calls and the query rows' two in
 # T-mode and cls, the OOD frame's alone in mono (and on each rank of h);
-# its ladder kernel once a point set (z and z g, z^8, the query points)
+# its ladder kernel once a point set (z and z g, z^8, the query points).
+# FRI: a fold a layer (3 at D = 2^19, 5 at 2^23) and, in a steady prove,
+# the remainder's scale the one ladder; the DEEP: two column sums and a
+# quotient a class (T-mode, cls) or a row block (mono: one at 2^16, 16 at
+# 2^20)
+FRI_DEEP_16 = {"fri_fold": 3, "ladder": 1, "weighted_sum": 2, "deep_quotient": 8}
+FRI_DEEP_20 = {"fri_fold": 5, "weighted_sum": 2, "deep_quotient": 8}
 CLS_EXACT = {"transition": 8, "batch_inverse": 16, "composition": 0, "multi_eval": 4, "meval_ladders": 3}
-PATH_EXACT = {"tmode": {"transition": 0, "batch_inverse": 8, "multi_eval": 4, "meval_ladders": 3},
-              "mono": {"composition": 0, "multi_eval": 2, "meval_ladders": 2}, "cls": CLS_EXACT,
-              "lr_large_cold": {"batch_inverse": 9, "multi_eval": 4, "meval_ladders": 3},
-              "lr_large": {"batch_inverse": 8, "transition": 0, "multi_eval": 4, "meval_ladders": 3},
-              "lr_large_cls": CLS_EXACT,
+PATH_EXACT = {"tmode": {"transition": 0, "batch_inverse": 8, "multi_eval": 4, "meval_ladders": 3, **FRI_DEEP_16},
+              "mono": {"composition": 0, "multi_eval": 2, "meval_ladders": 2, **FRI_DEEP_16, "deep_quotient": 1},
+              "cls": {**CLS_EXACT, **FRI_DEEP_16},
+              "lr_large_cold": {"batch_inverse": 9, "multi_eval": 4, "meval_ladders": 3, **FRI_DEEP_20},
+              "lr_large": {"batch_inverse": 8, "transition": 0, "multi_eval": 4, "meval_ladders": 3, **FRI_DEEP_20,
+                           "ladder": 1},
+              "lr_large_cls": {**CLS_EXACT, **FRI_DEEP_20},
               "lr_large_mono": {"composition": 0, "transition": 1, "batch_inverse": 2, "multi_eval": 2,
-                                "meval_ladders": 2}}
+                                "meval_ladders": 2, "fri_fold": 5, "weighted_sum": 32, "deep_quotient": 16}}
+# the timed 2^16 T-mode prove launched fewer field ops and K1 than these
+# (the parent's counts before the FRI and DEEP kernels: PERF.md §4, one
+# H100, 230 field-op and 74 K1 launches)
+PATH_BELOW = {"tmode": {"field_ops": 230, "ntt_stages": 74}}
 
 
 def check_plain(where, plain):
@@ -861,7 +971,11 @@ def check_path(path, launches, by_shape, plain):
         if launches[name] != n:
             raise AssertionError(f"kernel {name} launched {launches[name]} times on the {path} path, "
                                  f"expected {n}")
-    if PATH_EXACT.get(path) is CLS_EXACT and any(not k.endswith(" step=1") for k in by_shape["transition"]):
+    for name, n in PATH_BELOW.get(path, {}).items():
+        if launches[name] >= n:
+            raise AssertionError(f"kernel {name} launched {launches[name]} times on the {path} path, "
+                                 f"expected fewer than {n}")
+    if path in ("cls", "lr_large_cls") and any(not k.endswith(" step=1") for k in by_shape["transition"]):
         raise AssertionError(f"K4 on the {path} path at {by_shape['transition']}, expected step 1")
 
 
@@ -1084,10 +1198,11 @@ def phase_dist(card, want):
                                          f"{world}-rank {backend} run")
             if r["launches"]["composition"] != 0:
                 raise AssertionError("K3 launched on the sharded mono path")
-            for name in ("multi_eval", "meval_ladders"):
-                if r["launches"][name] != 2:
+            for name, n in (("multi_eval", 2), ("meval_ladders", 2), ("fri_fold", 3), ("weighted_sum", 2),
+                            ("deep_quotient", 1)):
+                if r["launches"][name] != n:
                     raise AssertionError(f"kernel {name} launched {r['launches'][name]} times on rank {r['rank']}, "
-                                         "expected 2 (the OOD frame)")
+                                         f"expected {n} (the OOD frame's, a fold a layer, one row block's DEEP)")
             check_plain(f"rank {r['rank']} of the {world}-rank {backend} run", r["plain_calls"])
             staged = r["comm"]["host_staged_bytes"]
             if (backend == "gloo") != (staged > 0):
@@ -1111,6 +1226,14 @@ SOURCES = {
                    "zkvm/prover/eval_mxu.py:45 _contract, :80 multi_eval_rows (XLA, no Pallas)"),
     "meval_ladders": ("zkvm_torch/csrc/multi_eval.cu",
                       "zkvm/prover/eval_mxu.py:72 _ladders (ntt_t.ladders_t; XLA, no Pallas)"),
+    "fri_fold": ("zkvm_torch/csrc/fri_fold.cu",
+                 "zkvm/prover/fri.py:104 _fold_core_t (its M = 8 iNTT K1, zkvm/ntt/ntt_t.py:320 _pallas_stages; "
+                 "the rest XLA)"),
+    "ladder": ("zkvm_torch/csrc/fri_fold.cu", "zkvm/ntt/ntt_t.py:185 ladder_t (XLA, no Pallas)"),
+    "weighted_sum": ("zkvm_torch/csrc/deep.cu",
+                     "zkvm/prover/pipeline.py:630-632 _stage_deep_cls's column sums (XLA, no Pallas)"),
+    "deep_quotient": ("zkvm_torch/csrc/deep.cu",
+                      "zkvm/prover/pipeline.py:641-643 _stage_deep_cls's quotient (XLA, no Pallas)"),
 }
 
 

@@ -2,8 +2,9 @@
 """Time the hand-written kernels K1-K4, the Merkle heap, the batch
 inverse, the field-op kernel and the multi-eval kernel on one CUDA card.
 
-    python3 kernel_bench.py [--tree DIR] [--label NAME] [--only K1 K2 K3 K4 Merkle BINV FOPS MEVAL] [--large]
-    python3 kernel_bench.py --sweep [K1 K2 K3 K4 Merkle BINV FOPS MEVAL] [--tree DIR] [--label NAME]
+    python3 kernel_bench.py [--tree DIR] [--label NAME] [--only K1 K2 K3 K4 Merkle BINV FOPS MEVAL FRI DEEP]
+                            [--large]
+    python3 kernel_bench.py --sweep [K1 K2 K3 K4 Merkle BINV FOPS MEVAL FRI DEEP] [--tree DIR] [--label NAME]
     python3 kernel_bench.py --sass [--tree DIR]
 
 The first form times, at the cases of chip_smoke.py's phase (c), the
@@ -50,6 +51,16 @@ from the call the prover makes down to the C entry point:
   ``multi_eval_rows`` (the float64 product) at the rows level alone; a
   tree whose kernel takes the ladders' limb factors (its parent) builds
   them as its wrapper does (``ladder_factors``).
+  the FRI and DEEP kernels (fri_fold.cu: FRI, the fold at FRI_CASES and
+  the ladder at LADDER_CASES; deep.cu: DEEP, the column sums at
+  DEEP_SUM_CASES and the quotient at DEEP_QUOTIENT_CASES, and a strided
+  block of each, DEEP_BLOCK; see fri_deep_cases):
+    wrapper  ``fri.fold_t`` / ``ntt_t.ladder_t`` / ``deep.weighted_sum`` /
+             ``deep.deep_quotient``,
+    launch   ``launch_fold`` / ``launch_ladder`` / ``launch_weighted_sum``
+             / ``launch_deep_quotient``,
+    entry    the C entry alone, as above,
+    plain    the plain version (one call); the tree must have them;
   A tree without the Merkle kernel (the parent of its port) times its
   ``merkle_flat``, plain torch on the card, at the wrapper level alone.
   ``--large`` takes the cases of the 2^20-row path instead: T-mode's and
@@ -180,7 +191,11 @@ BINV_CASES = [(3, 8, 1 << 19), (16, 8, 1 << 16), (16, 8, 1 << 20), (3, 8, 1 << 1
 # tree has that many leaves); the first is the shipped default
 BINV_SHAPES = [(8, 128), (4, 256), (4, 128), (16, 64), (8, 64), (2, 512), (8, 256)]
 # The field-op kernel's cases, (op, a's shape, b's shape), at the provers'
-# shapes: the DEEP's weighted columns (T-mode at T = 2^16, C = 28, times a
+# shapes before the DEEP's and FRI's chains became kernels of their own
+# (csrc/deep.cu, csrc/fri_fold.cu; several are the kernel's coverage now,
+# not the main path's: T-mode still launches the DEEP's x - points and the
+# composition's inverse-offset scale, cls and mono their boundary groups):
+# the DEEP's weighted columns (T-mode at T = 2^16, C = 28, times a
 # weight column) and quotients ((3, 8, T) and the OOD values), FRI's Horner
 # step and constants and cls's boundary groups ((8, 2^16)), the
 # composition's inverse-offset ladder over D = 2^19, the 2^20 DEEP's
@@ -206,6 +221,31 @@ MEVAL_CASES = [(28, 2, 1 << 16), (8, 1, 1 << 16), (28, 32, 1 << 16), (8, 32, 1 <
 # the shipped default (8 groups x 16 points over 8 warps, chunks of 64)
 MEVAL_SHAPES = [(2, 4, 8, 2, 64), (2, 4, 8, 2, 32), (4, 2, 4, 2, 64), (2, 4, 8, 1, 64), (2, 4, 4, 2, 64),
                 (1, 4, 8, 2, 64)]
+# FRI (csrc/fri_fold.cu): the fold's n (groups (8, 8, n)) at every layer
+# of a 2^16 prove (D = 2^19: n = 2^16, 2^13, 2^10) and of a 2^20 prove (D
+# = 2^23: 2^20 down to 2^8); the ladder's (B, n, x): the FRI remainder's
+# scale at 2^16 and 2^20 (x its (8, 1024) and (8, 256) coefficients), and
+# the cold constants: a class's points at T = 2^16 and 2^20, a row block of
+# mono's domain points (2^19), and the mid twiddles of a size-2^19
+# transform (1024 strided bases over 512 lanes, one broadcast scale)
+FRI_CASES = [1 << 16, 1 << 13, 1 << 10, 1 << 20, 1 << 17, 1 << 14, 1 << 11, 1 << 8]
+LADDER_CASES = [(1, 1 << 10, True), (1, 1 << 8, True), (1, 1 << 16, False), (1, 1 << 20, False),
+                (1, 1 << 19, False), (1024, 512, False)]
+# DEEP (csrc/deep.cu): the column sums (K, C, N) of T-mode and cls (the 28
+# trace columns' two weight sets, the 8 composition columns' one, over T
+# = 2^16 and 2^20) and of mono at 2^16 (over D = 2^19); the quotient (K, N)
+# of a class at T = 2^16 and 2^20 and of mono's 2^19 domain; and mono's
+# DEEP at T = 2^20, which reads a row block of 2^19 of its 2^23-lane LDE
+# and inverses in place: here a block of (C, 8, 2^21) (DEEP_BLOCK: lanes,
+# block)
+DEEP_SUM_CASES = [(2, 28, 1 << 16), (1, 8, 1 << 16), (2, 28, 1 << 20), (1, 8, 1 << 20), (2, 28, 1 << 19),
+                  (1, 8, 1 << 19)]
+DEEP_QUOTIENT_CASES = [(3, 1 << 16), (3, 1 << 20), (3, 1 << 19)]
+DEEP_BLOCK = (1 << 21, 1 << 19)
+# the fold's field operations an output lane: the inverse 8-point DFT (5
+# multiplies, 24 adds or subtracts), Horner (7 and 7), the 1/8 and the
+# ladder's step (2 multiplies)
+FOLD_MULS, FOLD_ADDS = 14, 31
 SWEEPS = {
     "K1": ("ntt_stages.cu", "zk_ntt_stages", [
         {"ZK_K1_TILE": tile, "ZK_K1_LANES": lanes, "ZK_K1_PER_THREAD": k}
@@ -228,6 +268,11 @@ SWEEPS = {
     "MEVAL": ("multi_eval.cu", "zk_multi_eval", [
         {"ZK_MEVAL_WM": wm, "ZK_MEVAL_BM": bm, "ZK_MEVAL_WQ": wq, "ZK_MEVAL_BN": bn, "ZK_MEVAL_KC": kc}
         for wm, bm, wq, bn, kc in MEVAL_SHAPES]),
+    # threads a block, lanes a thread (the fold and the ladder)
+    "FRI": ("fri_fold.cu", "zk_fri_fold", [{"ZK_FOLD_THREADS": th, "ZK_FOLD_LANES": ln}
+                                            for th, ln in [(128, 4), (256, 4), (128, 2), (128, 8), (64, 4),
+                                                           (256, 1)]]),
+    "DEEP": ("deep.cu", "zk_weighted_sum", [{"ZK_DEEP_THREADS": th} for th in (256, 128, 512, 64)]),
 }
 
 
@@ -418,6 +463,62 @@ def meval_operands(me, coeffs, points):
     return me.ladder_factors(bases, coeffs.shape[-1])
 
 
+def fri_deep_cases(rng, limbs, only=("FRI", "DEEP")):
+    """The cases of the FRI and DEEP kernels, one at a time: dicts of
+    ``name``, ``family`` (the kernel-health family), ``wrapper`` and
+    ``plain`` (no arguments), ``launch`` (lib, stream), and the work the
+    bound counts: ``nbytes`` (each input read once, each output written
+    once), ``muls`` and ``adds`` (field operations).  Tensors come from
+    ``limbs(shape)`` (canonical limbs on the card), host ints from the
+    numpy ``rng``."""
+    from zkvm_torch.field import f128
+    from zkvm_torch.field.limbs import tensor
+    from zkvm_torch.ntt import ntt_t as nt
+    from zkvm_torch.prover import deep as dp
+    from zkvm_torch.prover import fri
+
+    ints = lambda k: [(int(rng.integers(0, 2**62)) << 66 | int(rng.integers(0, 2**62))) % f128.P for _ in range(k)]
+    if "FRI" in only:
+        for n in FRI_CASES:
+            v, (scale,) = limbs((fri.FOLD, 8, n)), ints(1)
+            base = f128.finv(f128.get_root_of_unity(fri.FOLD * n))
+            yield dict(name=f"FRI fold n={_dims((n,))[1:-1]}", family="fri_fold",
+                       wrapper=lambda v=v, s=scale, b=base: fri.fold_t(v, s, b),
+                       plain=lambda v=v, s=scale, b=base: fri.fold_plain(v, s, b),
+                       launch=lambda lib, stream, v=v, s=scale, b=base: fri.launch_fold(lib, stream, v, s, b),
+                       nbytes=(fri.FOLD + 1) * 32 * n, muls=FOLD_MULS * n, adds=FOLD_ADDS * n)
+        for b, n, with_x in LADDER_CASES:
+            base = limbs((8, b)).T if b > 1 else limbs((8, 1))[:, 0]  # B strided rows, as the mid twiddles give them
+            scale, x = limbs((8, 1))[:, 0], (limbs((8, n)) if with_x else None)
+            yield dict(name=f"FRI ladder B={b} n={_dims((n,))[1:-1]}" + (" x" if with_x else ""), family="ladder",
+                       wrapper=lambda a=(base, scale, n, x): nt.ladder_t(*a),
+                       plain=lambda a=(base, scale, n, x): nt.ladder_plain(*a),
+                       launch=lambda lib, stream, a=(base, scale, n, x): nt.launch_ladder(lib, stream, *a),
+                       nbytes=(2 if with_x else 1) * 32 * b * n, muls=(2 if with_x else 1) * b * n, adds=0)
+    if "DEEP" not in only:
+        return
+    lanes, block = DEEP_BLOCK
+    sums = [(k, c, n, None) for k, c, n in DEEP_SUM_CASES] + [(2, 28, block, lanes)]
+    for k, c, n, whole in sums:
+        cols = limbs((c, 8, n)) if whole is None else limbs((c, 8, whole))[:, :, block:2 * block]
+        w = [ints(c) for _ in range(k)]
+        yield dict(name=f"DEEP sum K={k} C={c} N={_dims((n,))[1:-1]}" + ("" if whole is None else " (a block)"),
+                   family="weighted_sum", wrapper=lambda a=(cols, w): dp.weighted_sum(*a),
+                   plain=lambda a=(cols, w): torch.stack([dp.weighted_sum_plain(a[0], tensor(wk, a[0].device))
+                                                          for wk in a[1]]),
+                   launch=lambda lib, stream, a=(cols, w): dp.launch_weighted_sum(lib, stream, *a),
+                   nbytes=(c + k) * 32 * n, muls=k * c * n, adds=k * c * n)
+    for k, n, whole in [(k, n, None) for k, n in DEEP_QUOTIENT_CASES] + [(3, block, lanes)]:
+        vals = limbs((k, 8, n))
+        inv = limbs((k, 8, n)) if whole is None else limbs((k, 8, whole))[..., block:2 * block]
+        at = ints(k)
+        yield dict(name=f"DEEP quotient K={k} N={_dims((n,))[1:-1]}" + ("" if whole is None else " (a block)"),
+                   family="deep_quotient", wrapper=lambda a=(vals, at, inv): dp.deep_quotient(*a),
+                   plain=lambda a=(vals, at, inv): dp.deep_quotient_plain(a[0], tensor(a[1], a[0].device), a[2]),
+                   launch=lambda lib, stream, a=(vals, at, inv): dp.launch_deep_quotient(lib, stream, *a),
+                   nbytes=(2 * k + 1) * 32 * n, muls=k * n, adds=2 * k * n)
+
+
 def clock_ms(fn, reps):
     """Host milliseconds a call, the card synchronised before and after
     the ``reps`` calls (for a call that copies its result to the host)."""
@@ -487,7 +588,9 @@ def capture_entry(kernels, launch, *args):
     """(name, arguments, tensors) of the one C entry call that
     ``launch(lib, stream, *args)`` makes, recorded without launching: the
     tensors whose pointers it passed (the output and any constants it
-    built) are returned too, to keep them alive while the entry is timed."""
+    built) are returned too, to keep them alive while the entry is timed.
+    A launch that holds its operands itself takes ``args`` = (None,) and
+    the current stream of the card."""
     keep, real_ptr = [], kernels.ptr
 
     def ptr(t):
@@ -496,8 +599,9 @@ def capture_entry(kernels, launch, *args):
 
     rec = _Recorder(kernels.lib())
     kernels.ptr = ptr
+    card = torch.empty(0, device="cuda") if args[0] is None else args[0]
     try:
-        launch(rec, kernels.stream_of(args[0]), *args)
+        launch(rec, kernels.stream_of(card), *(a for a in args if a is not None))
     finally:
         kernels.ptr = real_ptr
     (name, cargs), = rec.calls
@@ -615,6 +719,19 @@ def bench_tree(tree, label, only, reps=20, large=False):
                "ms": cuda_ms(lambda: me.multi_eval_rows_plain(coeffs, points), 1)[0]})
         del coeffs
         torch.cuda.empty_cache()
+    for case in (fri_deep_cases(rng, limbs, only) if {"FRI", "DEEP"} & set(only) else []):
+        cname, cargs, keep = capture_entry(kernels, case["launch"], None)
+        calls = {
+            "wrapper": case["wrapper"],
+            "launch": lambda: case["launch"](lib, stream),
+            "entry": lambda: kernels.check(getattr(lib, cname)(*cargs), cname),
+        }
+        for level, fn in calls.items():
+            ms, host_ms = cuda_ms(fn, reps)
+            _emit({"tree": label, "case": case["name"], "level": level, "ms": ms, "host_ms": host_ms})
+        _emit({"tree": label, "case": case["name"], "level": "plain", "ms": cuda_ms(case["plain"], 1)[0]})
+        del case, cargs, keep, calls
+        torch.cuda.empty_cache()
     for name, kind, args, host in airs:
         if name.split()[0] not in only:
             continue
@@ -715,6 +832,9 @@ def sweep(tree, label, kernels_to_sweep, reps=20):
             for name, op, a, b in fop_cases(lambda shape: _limbs(rng, shape, dev)):
                 _, plain, launch = fop_calls(ft, op)
                 cases.append((name, plain(a, b), lambda lib, a=a, b=b, f=launch: f(lib, stream, a, b)))
+        elif kernel in ("FRI", "DEEP"):
+            cases = [(c["name"], c["plain"](), lambda lib, f=c["launch"]: f(lib, stream))
+                     for c in fri_deep_cases(rng, lambda shape: _limbs(rng, shape, dev), (kernel,))]
         elif kernel == "MEVAL":
             from zkvm_torch.prover import multi_eval as me
 
@@ -786,8 +906,9 @@ def main(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", type=Path, default=ROOT, help="checkout whose zkvm_torch is timed")
     ap.add_argument("--label", default="this", help="name of the tree in the output")
-    ap.add_argument("--only", nargs="+", default=["K1", "K2", "K3", "K4", "Merkle", "BINV", "FOPS", "MEVAL"],
-                    choices=["K1", "K2", "K3", "K4", "Merkle", "BINV", "FOPS", "MEVAL"],
+    ap.add_argument("--only", nargs="+", default=["K1", "K2", "K3", "K4", "Merkle", "BINV", "FOPS", "MEVAL", "FRI",
+                                                  "DEEP"],
+                    choices=["K1", "K2", "K3", "K4", "Merkle", "BINV", "FOPS", "MEVAL", "FRI", "DEEP"],
                     help="kernels to time")
     ap.add_argument("--large", action="store_true", help="the cases of the 2^20-row path")
     ap.add_argument("--sweep", nargs="*", choices=list(SWEEPS), help="time these kernels at each shape of SWEEPS")

@@ -1,8 +1,8 @@
 """The large-trace path of the port at small T, on the CPU.
 
 * the chunked stage forms (``prover.limits.CHUNK_T`` patched to 2^6, so T =
-  2^8 takes them): the DEEP's column-scanned weighted sums and the
-  multi-point evaluation in pairs (``test_torch_prover.py``) equal their
+  2^8 takes them): the DEEP's weighted sums (in column blocks at every T)
+  and the multi-point evaluation in pairs (``test_torch_prover.py``) equal their
   one-shot forms and the JAX package's sums / ``eval_mxu.multi_eval_rows``,
   exactly (under ``-m slow`` the DEEP that T-mode and cls share against the
   whole JAX ``_stage_deep_t``); a T = 2^8
@@ -30,6 +30,7 @@ from zkvm.field import f128
 from zkvm.field import jax_f128 as jf
 from zkvm_torch.examples import prove_lr_large as lrl
 from zkvm_torch.field.limbs import from_numpy, tensor, to_limbs, to_numpy
+from zkvm_torch.prover import deep
 from zkvm_torch.prover import limits
 from zkvm_torch.prover import multi_eval as me
 from zkvm_torch.prover import pipeline as tpl
@@ -76,10 +77,11 @@ def _port_deep(coeffs, h, gammas, epsilons, z, zg, zm):
 
 
 def test_deep_chunked_equals_one_shot_and_jax_sums(chunked):
-    """The DEEP witness with the column-scanned weighted sums equals the
-    one-shot form, and the scanned sums equal the JAX package's one-shot
-    sums (the rest of the stage is unchanged; the whole JAX stage is held
-    against it under -m slow)."""
+    """The DEEP witness with the chunked stage forms equals the one-shot
+    form, and the weighted sums' plain version (in column blocks) and its
+    dispatch on the CPU equal the JAX package's one-shot sums (the rest of
+    the stage is unchanged; the whole JAX stage is held against it under
+    -m slow)."""
     from zkvm.field import jax_f128t as jt
 
     coeffs, h, gammas, epsilons, z, zg, zm = _deep_inputs()
@@ -87,9 +89,10 @@ def test_deep_chunked_equals_one_shot_and_jax_sums(chunked):
     chunked()
     np.testing.assert_array_equal(_port_deep(coeffs, h, gammas, epsilons, z, zg, zm), one_shot)
     for cols, w in ((coeffs, gammas), (h, epsilons)):
-        got = tpl._weighted_sum(from_numpy(cols), tensor(w))
+        got = deep.weighted_sum_plain(from_numpy(cols), tensor(w))
         want = jt.fsum(jt.fmul(jnp.asarray(cols), jnp.asarray(jf.to_limbs(w))[:, :, None]), axis=0)
         np.testing.assert_array_equal(to_numpy(got), np.asarray(want))
+        np.testing.assert_array_equal(to_numpy(deep.weighted_sum(from_numpy(cols), [w])[0]), np.asarray(want))
 
 
 @pytest.mark.slow  # the JAX stage's CPU compile takes minutes

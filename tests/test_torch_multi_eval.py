@@ -13,7 +13,7 @@ cross and S < 32 leaves the one chunk partial; the contract cases add
 odd T, S of 1-256 (several chunks, T ending inside a chunk) and S = 2^12
 with every digit 0xFF where the byte products are largest.  The T = 128
 conformance proves in T-mode and cls run with every multi-eval call
-through the emulated kernels.  On the card, ``chip_smoke.py`` phase (c)
+through the emulated kernels at the shipped tile.  On the card, ``chip_smoke.py`` phase (c)
 holds the nvcc build against the plain versions at the provers' shapes.
 """
 
@@ -112,13 +112,16 @@ def _launch(lib, coeffs_t, points):
     return me.evaluate(lib, None, [coeffs_t], from_numpy(to_limbs(list(points))))[0]
 
 
-@pytest.mark.parametrize("t", [16, 128, 1024])
+@pytest.mark.parametrize("t", [16, 128, 512])
 @pytest.mark.parametrize("q", [1, 2, 3, 31, 32])
-@pytest.mark.parametrize("c", [1, 8, 28])
+@pytest.mark.parametrize("c", [1, 3, 8])
 def test_multi_eval_kernel_emulated(emu, jax_rows, c, q, t):
     """Both builds equal the plain version and JAX's eval_mxu, limb for
     limb (so every output is canonical), at C columns, Q points and T
-    coefficients."""
+    coefficients.  The emulation's time grows with the blocks, C x the
+    point tiles x the slices: the tile edges (Q = 31, 32) and several
+    slices (T = 512: S = 32, N2 = 16) at up to 8 columns, the provers'
+    28 columns in the T = 128 proves below."""
     vals, points = _inputs(t)
     coeffs_t = _t(vals[:c])
     want = to_limbs(me.multi_eval_rows_plain(coeffs_t, points[:q]))  # (Q, C, 8)
@@ -133,7 +136,7 @@ def test_multi_eval_plain_version_needs_no_dispatching_op(monkeypatch, jax_rows,
     ops patched to raise, ``multi_eval_rows_plain`` (its ladders in the
     plain arithmetic, in one piece and, with ``CHUNK_T`` patched below T,
     in point pairs) still equals JAX's rows at 28 columns, 31 points and
-    T = 1024."""
+    T = 512."""
     if pairs:
         monkeypatch.setattr(limits, "CHUNK_T", 128)
 
@@ -142,9 +145,9 @@ def test_multi_eval_plain_version_needs_no_dispatching_op(monkeypatch, jax_rows,
 
     for name in ("fadd", "fsub", "fmul", "_dispatch"):
         monkeypatch.setattr(ft, name, refuse)
-    vals, points = _inputs(1024)
+    vals, points = _inputs(512)
     got = me.multi_eval_rows_plain(_t(vals), points[:31])
-    assert got == [list(row) for row in jax_rows(1024)[:31]]
+    assert got == [list(row) for row in jax_rows(512)[:31]]
 
 
 @pytest.mark.parametrize("c,q,t,s,n2", [(3, 5, 1, 1, 1), (2, 3, 5, 2, 3), (5, 2, 100, 8, 13), (9, 1, 300, 16, 19),
@@ -255,15 +258,18 @@ def test_multi_eval_slices_cover_t(emu, c, q, t):
 @pytest.mark.parametrize("mode", ["tmode", "cls"])
 def test_provers_through_the_emulated_multi_eval_kernel(emu, monkeypatch, mode):
     """Every multi-eval call of a T = 128 prove (the OOD frame's two and the
-    query rows' two) through the kernel's emulation at the small launch
-    shape: the proof equals the conformance vector's bytes."""
+    query rows' two) through the kernel's emulation at the shipped launch
+    shape, the card's (the small one is the grid's above; its thousands of
+    64-thread blocks a call, each ending in a barrier, made this test the
+    suite's slowest on a loaded host): the proof equals the conformance
+    vector's bytes."""
     calls = []
 
     def through_kernel(coeffs_ts, points):
         calls.append((tuple(x.shape[0] for x in coeffs_ts), len(points)))
         for x in coeffs_ts:
             me._checked(x, points)
-        outs = me.evaluate(emu["small"], None, coeffs_ts, from_numpy(to_limbs(list(points))))
+        outs = me.evaluate(emu["shipped"], None, coeffs_ts, from_numpy(to_limbs(list(points))))
         return [[[int(v) for v in row] for row in from_limbs(to_numpy(out))] for out in outs]
 
     monkeypatch.setattr(me, "multi_eval_rows_many", through_kernel)

@@ -70,14 +70,15 @@ def test_fri_fold_matches_reference():
     groups = _t(_vals(5, (tfri.FOLD, 64)))  # (FOLD, 8, L)
     q = _t(_vals(6, (64,)))  # (8, L)
     want = jfri._fold_core_t(jnp.asarray(groups), jnp.asarray(q))
-    got = tfri._fold_core_t(from_numpy(groups), from_numpy(q))
+    got = tfri._fold_core_t_plain(from_numpy(groups), from_numpy(q))
     np.testing.assert_array_equal(to_numpy(got), np.asarray(want))
     # the verifier-side fold of one opened group agrees with the device fold
     beta, offset, d = 12345, f128.DOMAIN_OFFSET, tfri.FOLD * 64
     w_d = f128.get_root_of_unity(d)
     scale = f128.fmul(beta, f128.finv(offset))
     q_t = tnt.ladder_t_host(f128.finv(w_d), d // tfri.FOLD, scale)
-    folded = tfri._fold_core_t(from_numpy(groups), q_t)
+    folded = tfri.fold_t(from_numpy(groups), scale, f128.finv(w_d))
+    np.testing.assert_array_equal(to_numpy(folded), to_numpy(tfri._fold_core_t_plain(from_numpy(groups), q_t)))
     from zkvm_torch.field.limbs import from_t
 
     j = 9

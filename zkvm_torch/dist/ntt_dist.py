@@ -130,9 +130,8 @@ def coset_lde_sharded(coeffs: torch.Tensor, blowup: int, mesh,
     array, and the size-D transform is the four-step one."""
     local_t = coeffs.shape[-1]
     t = local_t * mesh.size
-    col = lambda v: ft.const_col(v, coeffs.device)[:, 0]
     start = pow(offset, mesh.rank * local_t, f128.P)
-    scaled = ft.fmul(coeffs, nt.ladder_t(col(offset), col(start), local_t))
+    scaled = nt.ladder_t_host(offset, local_t, start, coeffs.device, x=coeffs)
     whole = comm.all_gather(scaled, mesh, dim=-1)  # (..., 8, T)
     rows = mesh.rows(blowup * t)
     block = torch.zeros(whole.shape[:-1] + (rows.stop - rows.start,), dtype=whole.dtype, device=whole.device)

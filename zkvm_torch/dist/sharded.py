@@ -19,9 +19,9 @@ from zkvm_torch.field import f128
 from zkvm_torch.field import f128t as ft
 from zkvm_torch.field.limbs import from_numpy, tensor, to_numpy
 from zkvm_torch.hash import blake3_t as b3t
-from zkvm_torch.ntt import ntt_t as nt
-from zkvm_torch.prover.fri import FOLD, _fold_core_t
-from zkvm_torch.prover.mono import _domain_constants, _weighted_columns
+from zkvm_torch.prover import deep as dp
+from zkvm_torch.prover.fri import FOLD, fold_t
+from zkvm_torch.prover.mono import _domain_constants
 from zkvm_torch.prover.pipeline import NUM_COMP_COLUMNS
 from . import comm
 from .mesh import row_block
@@ -59,8 +59,8 @@ def sharded_prove_step(mesh, cols_host, delta: int, blowup: int = 8):
     comp_digests = _digests(comp_lde, mesh)
 
     deep = list(range(5, 41))
-    a = _weighted_columns(lde, tensor(deep[:28], dev))
-    hsum = _weighted_columns(comp_lde, tensor(deep[28:36], dev))
+    a = dp.weighted_sum(lde, [deep[:28]])[0]
+    hsum = dp.weighted_sum(comp_lde, [deep[28:36]])[0]
     den = ft.fsub(dc["x"], ft.const_col(Z_POINT, dev))
     y = ft.fmul(ft.fadd(a, hsum), ft.batch_inverse(den))
     y = comm.all_gather(y, mesh, dim=-1)  # (8, D): the fold groups cross the blocks
@@ -68,6 +68,5 @@ def sharded_prove_step(mesh, cols_host, delta: int, blowup: int = 8):
     offset = f128.DOMAIN_OFFSET
     groups = y.reshape(8, FOLD, d // FOLD).transpose(0, 1).contiguous()
     scale = f128.fmul(BETA, f128.finv(offset))
-    q_t = nt.ladder_t_host(f128.finv(f128.get_root_of_unity(d)), d // FOLD, scale, dev)
-    folded = to_numpy(_fold_core_t(groups, q_t)).T.copy()  # (T, 8)
+    folded = to_numpy(fold_t(groups, scale, f128.finv(f128.get_root_of_unity(d)))).T.copy()  # (T, 8)
     return trace_digests, comp_digests, folded

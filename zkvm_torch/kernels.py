@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
 SOURCES = (
     "ntt_stages.cu", "blake3_rows.cu", "merkle.cu", "composition.cu", "transition.cu", "batch_inverse.cu",
-    "field_ops.cu", "multi_eval.cu",
+    "field_ops.cu", "multi_eval.cu", "fri_fold.cu", "deep.cu",
 )
 HEADERS = ("zk_common.cuh", "f128.cuh", "transition.cuh", "blake3.cuh", "host_emu.h")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -40,6 +40,7 @@ _L = ctypes.c_long
 _U64 = ctypes.c_uint64
 _IP = ctypes.POINTER(ctypes.c_int)  # a host array of ints
 _LP = ctypes.POINTER(ctypes.c_long)  # a host array of longs
+_UP = ctypes.POINTER(ctypes.c_uint32)  # a host array of 32-bit words
 # C signatures: every device pointer and the stream are void*, sizes are
 # int/long; delta goes as two uint64 words, boundary columns as host ints
 SIGNATURES = {
@@ -71,6 +72,14 @@ SIGNATURES = {
     "zk_multi_eval": (_P, _P, _L, _P, _P, _L, _P, _I, _I, _L, _L, _L, _P),
     # bases, l1 bytes, ldb, l2 cells, Q, S, N2, stream: the multi-eval's ladder operands
     "zk_meval_ladders": (_P, _P, _L, _P, _I, _L, _L, _P),
+    # v, out, n, scalars (a host array of 6 x 4 words), stream: one FRI layer's fold
+    "zk_fri_fold": (_P, _P, _L, _UP, _P),
+    # x, x_row, x_limb, base, base_row, base_limb, scale, scale_row, scale_limb, out, B, n, stream
+    "zk_ladder": (_P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P),
+    # cols, col_stride, limb_stride, weights (a host array of K C x 4 words), out, K, C, N, stream
+    "zk_weighted_sum": (_P, _L, _L, _UP, _P, _I, _I, _L, _P),
+    # vals, vals_row, vals_limb, inv, inv_row, inv_limb, at (a host array of K x 4 words), out, K, N, stream
+    "zk_deep_quotient": (_P, _L, _L, _P, _L, _L, _UP, _P, _I, _L, _P),
 }
 
 build_seconds = 0.0  # wall time of the last nvcc build in this process
@@ -175,3 +184,11 @@ def expect(t, shape, device, name: str, dtype=torch.int32):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def words(values):
+    """Canonical field elements (host ints) as a host array of their 32-bit
+    words, four an element, least significant first: the packed cells
+    that an entry point takes by value."""
+    flat = [(int(v) >> (32 * i)) & 0xFFFFFFFF for v in values for i in range(4)]
+    return (ctypes.c_uint32 * max(1, len(flat)))(*flat)

@@ -121,37 +121,137 @@ def _one(device: torch.device) -> torch.Tensor:
 
 
 def _ladder_impl(base: torch.Tensor, scale: torch.Tensor, n: int) -> torch.Tensor:
-    """(8, n) = scale * base^i: doubling up to 256 lanes, then the sqrt
-    split base^i = base^(i mod S) * (base^S)^(i div S) as one outer-product
-    multiply."""
+    """(8, n) = scale * base^i in the plain arithmetic: doubling up to 256
+    lanes, then the sqrt split base^i = base^(i mod S) * (base^S)^(i div
+    S) as one outer-product multiply."""
     if n <= 256:
         cur = scale[:, None]
         step = base[:, None]
         while cur.shape[1] < n:
-            cur = torch.cat([cur, ft.fmul(cur, step)], dim=1)
-            step = ft.fsquare(step)
+            cur = torch.cat([cur, ft.fmul_plain(cur, step)], dim=1)
+            step = ft.fsquare_plain(step)
         return cur
     s = 1 << ((n.bit_length() - 1 + 1) // 2)
     l1 = _ladder_impl(base, scale, s)  # (8, S), carries the scale
     base_s = base
     for _ in range(s.bit_length() - 1):
-        base_s = ft.fsquare(base_s[:, None])[:, 0]
+        base_s = ft.fsquare_plain(base_s[:, None])[:, 0]
     l2 = _ladder_impl(base_s, _one(base.device), n // s)  # (8, N2)
-    prod = ft.fmul(l2.transpose(0, 1)[:, :, None], l1[None])  # (N2, 8, S)
+    prod = ft.fmul_plain(l2.transpose(0, 1)[:, :, None], l1[None])  # (N2, 8, S)
     return prod.transpose(0, 1).reshape(8, n)
 
 
-def ladder_t(base: torch.Tensor, scale: torch.Tensor, n: int) -> torch.Tensor:
-    """(8, n): scale * base^i for (8,) limb tensors base and scale."""
-    assert n & (n - 1) == 0
-    return _ladder_impl(base, scale, n)
+# launches of the ladder kernel (csrc/fri_fold.cu zk_ladder) in this
+# process, and by (B, n)
+ladder_launches = 0
+ladder_launches_by_shape = collections.Counter()
 
 
-def ladder_t_host(base: int, n: int, scale: int = 1, device="cpu") -> torch.Tensor:
-    """(8, n) transposed limb tensor: scale * base^i for host ints."""
-    return ladder_t(
-        ft.const_col(base, device)[:, 0], ft.const_col(scale, device)[:, 0], n
-    )
+def _ladder_rows(base, scale, n, x):
+    """(B, x as (rows, 8, n) or None) of a ladder call, after the checks the
+    kernel's wrapper makes on every device: int32 limbs on one device, base
+    and scale (8,) or (B, 8), x (..., 8, n) of 1 or B rows, n a power of
+    two."""
+    ops = [t for t in (base, scale, x) if t is not None]
+    if any(t.dtype != torch.int32 for t in ops) or any(t.device != base.device for t in ops):
+        raise TypeError("ladder: expected int32 limbs on one device")
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"ladder: n = {n}, expected a power of two")
+    for name, t in (("base", base), ("scale", scale)):
+        if t.dim() not in (1, 2) or t.shape[-1] != 8:
+            raise ValueError(f"ladder: {name} of shape {tuple(t.shape)}, expected (8,) or (B, 8)")
+    rows = [t.shape[0] for t in (base, scale) if t.dim() == 2]
+    if x is not None:
+        if x.dim() < 2 or x.shape[-2:] != (8, n):
+            raise ValueError(f"ladder: x of shape {tuple(x.shape)}, expected (..., 8, {n})")
+        x = x.reshape(-1, 8, n)
+        rows.append(x.shape[0])
+    b = max(rows, default=1)
+    if any(r not in (1, b) for r in rows):
+        raise ValueError(f"ladder: rows {rows} do not broadcast")
+    return b, x
+
+
+def ladder_plain(base: torch.Tensor, scale: torch.Tensor, n: int, x=None) -> torch.Tensor:
+    """The ladder kernel's plain version, in the plain arithmetic: scale *
+    base^i for i < n (base and scale (8,), or (B, 8) rows), times x
+    (..., 8, n) where given; shaped as x, else (8, n) for one row and
+    (B, 8, n) for B.  One row is :func:`_ladder_impl`'s doubling, B rows
+    ``_ladders_impl``'s."""
+    b, rows_x = _ladder_rows(base, scale, n, x)
+    if base.dim() == 1 and scale.dim() == 1:
+        lad = _ladder_impl(base, scale, n)
+    else:
+        bases = base.expand(b, 8) if base.dim() == 1 else base
+        lad = ft.fmul_plain(_ladders_impl(bases, n, ft.PLAIN), scale.reshape(-1, 8)[:, :, None])
+    if x is None:
+        return lad
+    out = ft.fmul_plain(rows_x, lad)
+    return out.reshape(x.shape) if out.shape[0] == rows_x.shape[0] else out
+
+
+def _limb_strides(t):
+    """(row stride, limb stride) of an (8,) or (B, 8) operand, the row
+    stride 0 for one row."""
+    return (0, t.stride(0)) if t.dim() == 1 or t.shape[0] == 1 else (t.stride(0), t.stride(1))
+
+
+def launch_ladder(lib, stream, base, scale, n: int, x=None) -> torch.Tensor:
+    """Call the ladder entry point of ``lib``: :func:`ladder_plain`'s
+    function in one launch, reading base, scale and x through their
+    strides.  It copies nothing to the device, so it never waits for the
+    stream."""
+    b, rows_x = _ladder_rows(base, scale, n, x)
+    if b > 65535:
+        raise ValueError(f"ladder: {b} rows, at most 65535")
+    if rows_x is not None and rows_x.stride(-1) != 1:
+        rows_x = rows_x.contiguous()
+    out = torch.empty((b, 8, n), dtype=torch.int32, device=base.device)
+    xr, xl = (0, 0) if rows_x is None else ((0 if rows_x.shape[0] == 1 else rows_x.stride(0)), rows_x.stride(1))
+    p = kernels.ptr
+    rc = lib.zk_ladder(p(rows_x), xr, xl, p(base), *_limb_strides(base), p(scale), *_limb_strides(scale), p(out),
+                       b, n, stream)
+    kernels.check(rc, "zk_ladder")
+    if x is not None:
+        return out.reshape(x.shape) if b == rows_x.shape[0] else out
+    return out[0] if base.dim() == 1 and scale.dim() == 1 else out
+
+
+def ladder_kernel(lib, stream, base, scale, n: int, x=None) -> torch.Tensor:
+    """:func:`launch_ladder`, counted."""
+    global ladder_launches
+    out = launch_ladder(lib, stream, base, scale, n, x)
+    ladder_launches += 1
+    ladder_launches_by_shape[(out.numel() // (8 * n), n)] += 1
+    return out
+
+
+def ladder_t(base: torch.Tensor, scale: torch.Tensor, n: int, x=None) -> torch.Tensor:
+    """scale * base^i for i < n (base and scale (8,) limbs, or (B, 8) rows),
+    times x (..., 8, n) where given: (8, n), (B, 8, n) or x's shape.  A CUDA
+    tensor launches the ladder kernel once (or it raises), a CPU tensor
+    takes :func:`ladder_plain`."""
+    _ladder_rows(base, scale, n, x)
+    if base.device.type == "cpu":
+        return ladder_plain(base, scale, n, x)
+    if base.device.type != "cuda":
+        raise ValueError(f"ladder: no kernel for device {base.device}")
+    return ladder_kernel(kernels.lib(), kernels.stream_of(base), base, scale, n, x)
+
+
+def host_limbs(values, device) -> torch.Tensor:
+    """Host ints -> (k, 8) int32 limbs on ``device``; a card's copy comes
+    from pinned memory and does not wait for the stream."""
+    t = torch.from_numpy(np.ascontiguousarray(to_limbs([v % f128.P for v in values])).view(np.int32))
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def ladder_t_host(base: int, n: int, scale: int = 1, device="cpu", x=None) -> torch.Tensor:
+    """:func:`ladder_t` of host ints base and scale (x on ``device``)."""
+    ops = host_limbs([base, scale], device)
+    return ladder_t(ops[0], ops[1], n, x)
 
 
 def ladders_split(bases: torch.Tensor, n: int, arith: ft.Arith = ft.DISPATCH):
@@ -203,8 +303,8 @@ def _mid_twiddles_cached(n: int, n1: int, inverse: bool, scaled: bool, device):
         w = f128.finv(w)
     scale = f128.finv(n) if scaled else 1
     lad = ladder_t_host(w, n2, device=device)  # (8, N2): w^k2
-    cols = ladders_t(lad.transpose(0, 1).contiguous(), n1)  # (N2, 8, N1)
-    rows = ft.fmul(cols, ft.const_col(scale, device)).permute(2, 1, 0)
+    cols = ladder_t(lad.transpose(0, 1), host_limbs([scale], device)[0], n1)  # (N2, 8, N1)
+    rows = cols.permute(2, 1, 0)
     if n1 > 1:
         rows = rows.index_select(0, _layout_dev(n1, device)[0])
     return pack_t(rows)

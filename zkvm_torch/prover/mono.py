@@ -15,7 +15,8 @@ query-row gather).  Unlike T-mode, the whole (28, 8, D) trace LDE and the
 3. composition commit: size-D iNTT, 8 column polynomials, one size-D coset
    NTT, row hashes (K2), Merkle heap;
 4. DEEP: pointwise over D, with one batch inverse of the three
-   denominators;
+   denominators, two launches of ``csrc/deep.cu``'s column sums and one of
+   its quotient (a row block);
 5. queries: the rows gathered from the resident LDEs.
 
 From ``limits.CHUNK_T`` on, the domain constants, the composition's
@@ -50,15 +51,8 @@ from zkvm_torch.field.limbs import from_numpy, from_t, tensor, to_numpy
 from zkvm_torch.hash import blake3_t as b3t
 from zkvm_torch.hash.merkle import merkle_flat, merkle_forest_flat
 from zkvm_torch.ntt import ntt_t as nt
-from . import limits
+from . import deep, limits
 from .pipeline import comp_columns, weighted_host
-
-# Columns per limb product in the DEEP sums: the plain fmul (the CPU's)
-# widens (C, 8, D) limbs to int64 partial products 48x the operand's bytes,
-# so 4 columns at D = 2^19 (~3 GB of temporaries) instead of 28 (~22 GB);
-# the card's field-op kernel allocates its output alone.
-DEEP_COLUMN_BLOCK = 4
-
 
 def row_blocks(n_rows: int, t_len: int) -> list:
     """Slices of a domain's rows for mono's pointwise work: one slice below
@@ -69,13 +63,11 @@ def row_blocks(n_rows: int, t_len: int) -> list:
 
 
 def _ladder_blocks(base: int, scale: int, lo: int, blocks, device) -> torch.Tensor:
-    """(8, n) = scale * base^(lo + i) over equal row blocks: one ladder
-    base^i of a block, times each block's host factor (an (8, n) ladder
-    in one piece holds ~12 GiB of plain limb-product transients at n =
-    2^23 on the CPU; a ladder a block is also fewer launches)."""
-    lad = nt.ladder_t_host(base, blocks[0].stop - blocks[0].start, device=device)
-    return torch.cat([ft.fmul(lad, ft.const_col(f128.fmul(scale, pow(base, lo + blk.start, f128.P)), device))
-                      for blk in blocks], dim=-1)
+    """(8, n) = scale * base^(lo + i) over row blocks: one ladder a block,
+    scaled by its host factor (an (8, n) ladder in one piece holds ~12 GiB
+    of plain limb-product transients at n = 2^23 on the CPU)."""
+    return torch.cat([nt.ladder_t_host(base, blk.stop - blk.start, f128.fmul(scale, pow(base, lo + blk.start, f128.P)),
+                                       device) for blk in blocks], dim=-1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -130,16 +122,6 @@ def _domain_constants(t_len: int, blowup: int, device, rank: int = 0, ranks: int
 def _commit_rows(lde_t):
     """Merkle heap over the BLAKE3 hashes of the (C, 8, D) LDE's rows."""
     return merkle_flat(b3t.hash_rows_t(lde_t).transpose(0, 1))
-
-
-def _weighted_columns(lde_t, weights_t):
-    """sum_c weights[c] * lde[c] as (8, D); lde (C, 8, D), weights (C, 8)."""
-    acc = None
-    for c0 in range(0, lde_t.shape[0], DEEP_COLUMN_BLOCK):
-        blk = slice(c0, c0 + DEEP_COLUMN_BLOCK)
-        part = ft.fsum(ft.fmul(lde_t[blk], weights_t[blk, :, None]), axis=0)
-        acc = part if acc is None else ft.fadd(acc, part)
-    return acc
 
 
 def _rows(lde_t, index) -> list:
@@ -197,24 +179,17 @@ class MonoStages:
         dev = self.lde.device
         x = self.dc["x"]
         blocks = row_blocks(x.shape[-1], self.t_len)
-        weights = [(self.lde, tensor(gammas, dev)), (self.lde, tensor(deltas, dev)),
-                   (self.comp_lde, tensor(epsilons, dev))]
         ood_cur, ood_nxt, ood_comp = ood
-        at_points = [
-            ft.const_col(weighted_host(gammas, ood_cur), dev),
-            ft.const_col(weighted_host(deltas, ood_nxt), dev),
-            ft.const_col(weighted_host(epsilons, ood_comp), dev),
-        ]
+        at = [weighted_host(gammas, ood_cur), weighted_host(deltas, ood_nxt), weighted_host(epsilons, ood_comp)]
         pts = [ft.const_col(p, dev) for p in points]
         inv = ft.batch_inverse(torch.cat([torch.stack([ft.fsub(x[:, blk], p) for p in pts]) for blk in blocks],
                                          dim=-1))  # (3, 8, D)
         y = []
         for blk in blocks:
-            yb = None
-            for k, (lde, w) in enumerate(weights):
-                term = ft.fmul(ft.fsub(_weighted_columns(lde[..., blk], w), at_points[k]), inv[k][:, blk])
-                yb = term if yb is None else ft.fadd(yb, term)
-            y.append(yb)
+            vals = torch.empty((3, 8, blk.stop - blk.start), dtype=torch.int32, device=dev)
+            deep.weighted_sum(self.lde[..., blk], [gammas, deltas], out=vals[:2])
+            deep.weighted_sum(self.comp_lde[..., blk], [epsilons], out=vals[2:])
+            y.append(deep.deep_quotient(vals, at, inv[..., blk]))
         return torch.cat(y, dim=-1)
 
     def query_rows(self, coeffs_t, h_t, positions):

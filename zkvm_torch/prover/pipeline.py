@@ -15,9 +15,11 @@ the full (28, 8, D) LDE.  Stages, in proof order:
 4. OOD frame: multi-point evaluation (the kernel ``csrc/multi_eval.cu``);
 5. DEEP, the reference's class form (``_stage_deep_cls``; it gives the
    values of its T-mode suffix scan): the weighted column sums in
-   coefficient space, then per class one coset NTT of the three combined
-   polynomials (K1) and one batch inverse of x - (z, z g, z^8);
-6. FRI: per layer, group hashes (K2), Merkle heap, 8-point iNTT fold (K1);
+   coefficient space (two launches of ``csrc/deep.cu``'s sum), then per
+   class one coset NTT of the three combined polynomials (K1), one batch
+   inverse of x - (z, z g, z^8) and one launch of its quotient;
+6. FRI: per layer, group hashes (K2), Merkle heap, one fold launch
+   (``csrc/fri_fold.cu``);
 7. queries: multi-point evaluation at the query points, Merkle openings.
 
 Transcript and proof bytes are identical to the reference's (exact field
@@ -53,11 +55,12 @@ from zkvm_torch.field import f128
 from zkvm_torch.air import composition as cp
 from zkvm_torch.air.periodic import periodic_class_patterns
 from zkvm_torch.field import f128t as ft
-from zkvm_torch.field.limbs import from_limbs, from_numpy, tensor, to_limbs, ttensor
+from zkvm_torch.field.limbs import from_limbs, from_numpy, tensor, to_limbs
 from zkvm_torch.hash import blake3_t as b3t
 from zkvm_torch.hash.merkle import DeviceMerkleTree, ShardedMerkleTree, merkle_flat
 from zkvm_torch.ntt import ntt_t as nt
 from zkvm_torch.utils.profiler import profiler
+from . import deep
 from . import limits
 from . import multi_eval as me
 from . import wire
@@ -109,7 +112,7 @@ def class_points(dct, r):
     """Class r's domain points base_r * g^k, (8, T)."""
     bases = dct["class_bases_t"]
     t = dct["d"] // bases.shape[0]
-    return nt.ladder_t(ttensor(dct["g_trace"], bases.device), bases[r], t)
+    return nt.ladder_t(nt.host_limbs([dct["g_trace"]], bases.device)[0], bases[r], t)
 
 
 @functools.lru_cache(maxsize=None)
@@ -200,23 +203,6 @@ def _stage_comp_commit_t(comp_t, dct):
     """(8, D) composition evaluations -> (h coefficients (8, 8, T), heap)."""
     h_t = comp_columns(comp_t, dct["inv_off_t"])
     return h_t, _commit_classes(h_t, dct)
-
-
-def _weighted_sum(cols_t, w_t):
-    """sum_c w[c] * cols[c] of (C, 8, T) columns and (C, 8) weights.  From
-    ``limits.CHUNK_T`` on, a scan over the columns (the reference's,
-    pipeline.py:433-452): the one-shot plain product over all C columns
-    holds ~50 bytes of int64 transients an input byte
-    (``f128t._product_cols``); on a card the field-op kernel holds none,
-    and the DEEP at T = 2^18 peaked at 1.29 GiB scanned, 1.49 in one
-    product (``chip_smoke.py`` phase g, NVIDIA H100 80GB HBM3).  Field
-    addition is exact and commutative, so the value is the same."""
-    if cols_t.shape[-1] < limits.CHUNK_T:
-        return ft.fsum(ft.fmul(cols_t, w_t[:, :, None]), axis=0)
-    acc = torch.zeros_like(cols_t[0])
-    for c in range(cols_t.shape[0]):
-        acc = ft.fadd(acc, ft.fmul(cols_t[c], w_t[c][:, None]))
-    return acc
 
 
 def weighted_host(weights, values) -> int:
@@ -346,20 +332,17 @@ class ClassStages:
         over the points z, z g and z^8, with one batch inverse a class."""
         dev = coeffs_t.device
         dct = self.dct
-        abc = torch.stack([
-            _weighted_sum(coeffs_t, tensor(gammas, dev)),
-            _weighted_sum(coeffs_t, tensor(deltas, dev)),
-            _weighted_sum(h_t, tensor(epsilons, dev)),
-        ])  # (3, 8, T) coefficients
+        abc = torch.empty((3, 8, coeffs_t.shape[-1]), dtype=torch.int32, device=dev)  # the combined coefficients
+        deep.weighted_sum(coeffs_t, [gammas, deltas], out=abc[:2])
+        deep.weighted_sum(h_t, [epsilons], out=abc[2:])
         ood_cur, ood_nxt, ood_comp = ood
-        at = tensor([weighted_host(gammas, ood_cur), weighted_host(deltas, ood_nxt),
-                     weighted_host(epsilons, ood_comp)], dev)[:, :, None]  # (3, 8, 1)
+        at = [weighted_host(gammas, ood_cur), weighted_host(deltas, ood_nxt), weighted_host(epsilons, ood_comp)]
         pts = tensor(list(points), dev)[:, :, None]  # z, z g, z^8: (3, 8, 1)
         y = []
         for r in range(len(dct["class_scales"])):
             vals = _class_ntt(abc, dct, r)  # (3, 8, T)
             inv = ft.batch_inverse(ft.fsub(dct["x_cls_t"][r], pts))
-            y.append(ft.fsum(ft.fmul(ft.fsub(vals, at), inv), axis=0))
+            y.append(deep.deep_quotient(vals, at, inv))
         return _interleave(y)
 
     def query_rows(self, coeffs_t, h_t, positions):
