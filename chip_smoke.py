@@ -22,7 +22,9 @@ Phases, each printing one JSON line:
       are timed at their C entry (the kernel alone, its arguments built
       beforehand) and at their wrapper, and one wrapper call of each (and
       of the Merkle heap) runs under torch.cuda.set_sync_debug_mode("error"),
-      so a wrapper that waits for the stream fails the run; and zk::mul32
+      so a wrapper that waits for the stream fails the run; the Merkle
+      heap must make one kernel launch a tree at every leaf count and
+      leave its counter scratch all zero; and zk::mul32
       alone against the plain multiply on every pair of edge values; the
       batch inverse (csrc/batch_inverse.cu) against its plain Fermat
       version at the provers' shapes (kernel_bench.BINV_CASES: (3, 8,
@@ -113,7 +115,8 @@ Phases, each printing one JSON line:
       launched 9 times in the cold prove (the constants once, the DEEP 8)
       and 8 in the steady one; K1, K2, K3 and the Merkle heap must have
       launched in the steady prove (printed by shape), the Merkle heap in
-      at most ceil(23 / 10) launches a tree of 2^23 leaves.
+      one launch a tree of 2^23 leaves (as on every path: one launch a
+      tree at every leaf count).
       Then the same trace proved once in cls and once in mono (each with
       its constants built in that prove), whose bytes must equal the
       T-mode proof's, with each stage's seconds and peaks and its launches
@@ -472,8 +475,11 @@ def phase_kernels():
         del x, cargs, keep
     results["blake3_rows"] = dict(k2[0], max_abs_err=max(r["max_abs_err"] for r in k2))
     # the Merkle heap over random digests, given as the provers give them:
-    # the (N, 8) transposed view of (8, N) words
+    # the (N, 8) transposed view of (8, N) words; one launch a tree, and its
+    # counters zero again after every tree
     heaps = []
+    mk.launches_by_size.clear()
+    mk.trees_by_size.clear()
     for n in MERKLE_CASES + MERKLE_LARGE_CASES + MERKLE_DIST_CASES:
         leaves = torch.from_numpy(rng.integers(0, 1 << 32, size=(8, n), dtype=np.uint64).astype(np.uint32)
                                   .view(np.int32)).to(DEV)
@@ -484,6 +490,14 @@ def phase_kernels():
                              entry_fn=lambda: kernels.check(getattr(lib, cname)(*cargs), cname)))
         sync_free(f"Merkle N={n}", lambda: mk.merkle_flat(leaves.T))
         del leaves, cargs, keep
+    torch.cuda.synchronize()
+    stale = int(mk._counters[DEV].count_nonzero().item())
+    emit({"phase": "kernels", "check": "Merkle: one launch a tree, counters zero after the trees",
+          "launches_by_size": dict(mk.launches_by_size), "trees_by_size": dict(mk.trees_by_size),
+          "nonzero_counters": stale})
+    if mk.launches_by_size != mk.trees_by_size or stale:
+        raise AssertionError(f"the Merkle heap: {dict(mk.launches_by_size)} launches for {dict(mk.trees_by_size)} "
+                             f"trees, {stale} counters left nonzero")
     results["merkle"] = dict(heaps[0], max_abs_err=max(r["max_abs_err"] for r in heaps))
     # K3 (one class at T = 2^16, the real boundary columns) and K4 (the
     # mono shape and one class): kernel_bench.air_cases; then K3 and K4's
@@ -959,11 +973,22 @@ def check_plain(where, plain):
         raise AssertionError(f"plain versions ran {plain} times in {where}")
 
 
+def check_merkle(where, by_shape):
+    """One Merkle kernel launch a tree at every leaf count: the launches
+    the entry reported by N equal the trees (kernel_health's "N=n
+    trees=t": launches)."""
+    for key, made in by_shape["merkle"].items():
+        trees = int(key.split("trees=")[1])
+        if made != trees:
+            raise AssertionError(f"the Merkle heap in {where}: {made} launches for {key}, expected one a tree")
+
+
 def check_path(path, launches, by_shape, plain):
     """The kernels ``path`` must have launched, the counts it must have
-    made exactly, for the cls paths K4 at step 1 alone, and no plain
-    version in place of a kernel."""
+    made exactly, one Merkle launch a tree, for the cls paths K4 at step 1
+    alone, and no plain version in place of a kernel."""
     check_plain(f"the {path} prove", plain)
+    check_merkle(f"the {path} prove", by_shape)
     for name in PATH_KERNELS[path]:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the {path} path")
@@ -1122,7 +1147,7 @@ def phase_lr_large(card):
         check_path(path, *counts[path], plain)
         if path == "lr_large":
             # the trace and the composition trees have 2^23 leaves each:
-            # the launches the Merkle entry reported for them, a tree
+            # the launches the Merkle entry reported for them, one a tree
             trees, merkle_2_23 = mk.trees_by_size[1 << 23], mk.launches_by_size[1 << 23]
     steady = proofs["lr_large"].to_wire_bytes()
     for path in ("lr_large_cls", "lr_large_mono"):
@@ -1137,7 +1162,7 @@ def phase_lr_large(card):
           "verify_seconds": verify_seconds, "tampered_rejected": rejected,
           "proof_bytes": len(steady), "launches": launches, "launches_by_shape": by_shape,
           "merkle_launches_per_tree_2^23": per_tree, "card": card})
-    if trees != 2 or rest or not 0 < per_tree <= -(-23 // 10):
+    if trees != 2 or rest or per_tree != 1:
         raise AssertionError(f"the Merkle heap of 2^23 leaves: {trees} trees in the prove, "
                              f"{merkle_2_23} launches")
     return {path: launches for path, (launches, _) in counts.items()}
@@ -1204,6 +1229,7 @@ def phase_dist(card, want):
                     raise AssertionError(f"kernel {name} launched {r['launches'][name]} times on rank {r['rank']}, "
                                          f"expected {n} (the OOD frame's, a fold a layer, one row block's DEEP)")
             check_plain(f"rank {r['rank']} of the {world}-rank {backend} run", r["plain_calls"])
+            check_merkle(f"rank {r['rank']} of the {world}-rank {backend} run", r["launches_by_shape"])
             staged = r["comm"]["host_staged_bytes"]
             if (backend == "gloo") != (staged > 0):
                 raise AssertionError(f"dist: {staged} bytes staged through the host under {backend}")

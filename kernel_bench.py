@@ -6,6 +6,7 @@ inverse, the field-op kernel and the multi-eval kernel on one CUDA card.
                             [--large]
     python3 kernel_bench.py --sweep [K1 K2 K3 K4 Merkle BINV FOPS MEVAL FRI DEEP] [--tree DIR] [--label NAME]
     python3 kernel_bench.py --sass [--tree DIR]
+    python3 kernel_bench.py --profile [--only Merkle FRI] [--tree DIR] [--label NAME]
 
 The first form times, at the cases of chip_smoke.py's phase (c), the
 calls of the ``zkvm_torch`` package found in DIR (default: this checkout)
@@ -63,6 +64,8 @@ from the call the prover makes down to the C entry point:
     plain    the plain version (one call); the tree must have them;
   A tree without the Merkle kernel (the parent of its port) times its
   ``merkle_flat``, plain torch on the card, at the wrapper level alone.
+  The Merkle heap's cases are MERKLE_CASES and the sharded path's
+  MERKLE_DIST_CASES.
   ``--large`` takes the cases of the 2^20-row path instead: T-mode's and
   cls's (K1_LARGE_CASES, K2_LARGE_CASES, K3 and K4's class shape at
   K3_LARGE_T, MERKLE_LARGE_CASES) and mono's over the whole D = 2^23
@@ -94,6 +97,17 @@ shape.
 ``csrc/f128.cuh`` defines (``zk::mul``, ``zk::mul32``) and prints the
 SASS opcode counts of each (cuobjdump), the probe's own loads, stores and
 indexing included.
+
+``--profile`` runs torch.profiler (CUPTI) over a few wrapper calls of
+each Merkle case (MERKLE_CASES and MERKLE_LARGE_CASES) and each FRI fold
+case (FRI_CASES) of DIR's package and prints, per case, the kernels a
+call launched, each launch's device time and the gap before it (on the
+card's clock; under the profiler it holds the host's cost of a launch,
+CUPTI's included), the call's span on the card, and each kernel's
+launch record from the trace
+(grid, block, registers, shared memory, blocks and warps an SM, the
+estimated achieved occupancy).  Stall reasons need ncu, which the card's
+machine does not run.
 
 Every form first prints the card's name and power limit.
 """
@@ -254,8 +268,12 @@ SWEEPS = {
         + [(tile, 4, k) for tile in (1024, 2048) for k in (2, 4)]]),
     "K2": ("blake3_rows.cu", "zk_blake3_rows", [
         {"ZK_K2_THREADS": th, "ZK_K2_MIN_BLOCKS": mb} for th, mb in K2_SHAPES]),
-    # log2 of the leaves a block of the first launch takes
-    "Merkle": ("merkle.cu", "zk_merkle_heap", [{"ZK_MERKLE_K": k} for k in (10, 8, 9, 11)]),
+    # log2 of the nodes a block takes, the sibling units a carry gathers
+    # (0: 2^k / 32), threads a block and the blocks an SM must hold
+    "Merkle": ("merkle.cu", "zk_merkle_heap", [
+        {"ZK_MERKLE_K": k, "ZK_MERKLE_GROUP": g, "ZK_MERKLE_THREADS": th, "ZK_MERKLE_MIN_BLOCKS": mb}
+        for k, g, th, mb in [(10, 0, 256, 3), (10, 0, 256, 4), (9, 0, 128, 8), (11, 0, 256, 4), (10, 128, 256, 3),
+                             (10, 64, 256, 3)]]),
     "K3": ("composition.cu", "zk_composition", [
         {"ZK_AIR_THREADS": th, "ZK_AIR_MIN_BLOCKS": mb, "ZK_AIR_SPLIT": sp}
         for th, mb, sp in [K3_SHAPE] + [x for x in AIR_SHAPES if x != K3_SHAPE]]),
@@ -268,10 +286,13 @@ SWEEPS = {
     "MEVAL": ("multi_eval.cu", "zk_multi_eval", [
         {"ZK_MEVAL_WM": wm, "ZK_MEVAL_BM": bm, "ZK_MEVAL_WQ": wq, "ZK_MEVAL_BN": bn, "ZK_MEVAL_KC": kc}
         for wm, bm, wq, bn, kc in MEVAL_SHAPES]),
-    # threads a block, lanes a thread (the fold and the ladder)
-    "FRI": ("fri_fold.cu", "zk_fri_fold", [{"ZK_FOLD_THREADS": th, "ZK_FOLD_LANES": ln}
-                                            for th, ln in [(128, 4), (256, 4), (128, 2), (128, 8), (64, 4),
-                                                           (256, 1)]]),
+    # threads a block, lanes a thread (the fold above its one-lane n and
+    # the ladder), the largest n the fold takes at one lane (0: none)
+    "FRI": ("fri_fold.cu", "zk_fri_fold", [{"ZK_FOLD_THREADS": th, "ZK_FOLD_LANES": ln, "ZK_FOLD_ONE_LANE_MAX": one}
+                                            for th, ln, one in [(128, 4, 1 << 17), (128, 4, 0), (64, 4, 1 << 17),
+                                                                (256, 4, 1 << 17), (128, 8, 1 << 17),
+                                                                (128, 2, 1 << 17), (128, 4, 1 << 20),
+                                                                (32, 4, 1 << 17)]]),
     "DEEP": ("deep.cu", "zk_weighted_sum", [{"ZK_DEEP_THREADS": th} for th in (256, 128, 512, 64)]),
 }
 
@@ -325,9 +346,9 @@ def _kernel_name(mangled):
 
 
 def ptxas_summary(log):
-    """{kernel: {"registers", "spill_stores", "spill_loads", "smem"}} from
-    an ``nvcc -Xptxas -v`` log (spills and static shared memory in
-    bytes)."""
+    """{kernel: {"registers", "stack", "spill_stores", "spill_loads",
+    "smem"}} from an ``nvcc -Xptxas -v`` log (the stack frame, spills and
+    static shared memory in bytes)."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -337,9 +358,9 @@ def ptxas_summary(log):
             continue
         if cur is None:
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
-            out[cur].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            out[cur].update(stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out[cur]["registers"] = int(m.group(1))
@@ -572,14 +593,14 @@ def hash_calls(kind):
 
 class _Recorder:
     """A stand-in kernel library whose entry points record their arguments;
-    a size query (``*_slices``, which the wrapper allocates by) answers
-    from the real library."""
+    a size query (``*_slices``, ``*_counters``, which the wrapper allocates
+    by) answers from the real library."""
 
     def __init__(self, real):
         self.calls, self.real = [], real
 
     def __getattr__(self, name):
-        if name.endswith("_slices"):
+        if name.endswith(("_slices", "_counters")):
             return getattr(self.real, name)
         return lambda *args: self.calls.append((name, args)) or 0
 
@@ -625,7 +646,8 @@ def bench_tree(tree, label, only, reps=20, large=False):
         airs = itertools.chain(air_cases(limbs, dev, K3_LARGE_T, ("class",)),
                                air_cases(limbs, dev, MONO_T, ("mono",), k3=False))
     else:
-        k1_cases, hashes, airs = K1_CASES, hash_cases(rng, dev), air_cases(limbs, dev)
+        k1_cases, airs = K1_CASES, air_cases(limbs, dev)
+        hashes = hash_cases(rng, dev, merkle=MERKLE_CASES + MERKLE_DIST_CASES)
     for m, b, nl, variants in k1_cases if "K1" in only else []:
         for variant in variants:
             y, tw, pre, r1 = _k1_inputs(nt, rng, m, b, nl, variant, dev)
@@ -865,6 +887,58 @@ def sweep(tree, label, kernels_to_sweep, reps=20):
         torch.cuda.empty_cache()
 
 
+_TRACE_SKIP = ("queued", "device", "context", "stream", "correlation", "External id")
+
+
+def profile(tree, label, only, reps=5):
+    """torch.profiler over ``reps`` wrapper calls of each Merkle and FRI
+    fold case of the tree's package: per case, the launches of one call
+    (each one's mean device time, the mean gap before it, the call's mean
+    span on the card) and each kernel's launch record in the trace."""
+    sys.path.insert(0, str(tree))
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from zkvm_torch import kernels
+
+    dev = torch.device("cuda", 0)
+    kernels.lib()
+    rng = np.random.default_rng(20261017)
+    cases = []
+    if "Merkle" in only:
+        wrapper = hash_calls("Merkle")[0]
+        cases += [(f"Merkle N={n}", lambda a=_words(rng, (8, n), dev): wrapper(a))
+                  for n in MERKLE_CASES + MERKLE_LARGE_CASES]
+    if "FRI" in only:
+        cases += [(c["name"], c["wrapper"]) for c in fri_deep_cases(rng, lambda shape: _limbs(rng, shape, dev), ("FRI",))
+                  if c["family"] == "fri_fold"]
+    path = kernels.BUILD / "profile_trace.json"
+    for name, fn in cases:
+        fn()
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(path))
+        events = sorted((e for e in json.loads(path.read_text())["traceEvents"] if e.get("cat") == "kernel"),
+                        key=lambda e: e["ts"])
+        k = len(events) // reps
+        row = {"tree": label, "case": name, "kernels_a_call": k}
+        if k and len(events) == k * reps:
+            calls = [events[i * k:(i + 1) * k] for i in range(reps)]
+            row["launch_us"] = [sum(c[j]["dur"] for c in calls) / reps for j in range(k)]
+            row["gap_before_us"] = [sum(c[j]["ts"] - c[j - 1]["ts"] - c[j - 1]["dur"] for c in calls) / reps
+                                    for j in range(1, k)]
+            row["span_us"] = sum(c[-1]["ts"] + c[-1]["dur"] - c[0]["ts"] for c in calls) / reps
+            row["launches"] = [{"name": e["name"], **{a: v for a, v in e.get("args", {}).items()
+                                                      if a not in _TRACE_SKIP}} for e in calls[0]]
+        else:
+            row["kernel_events"] = len(events)
+        _emit(row)
+    path.unlink(missing_ok=True)
+
+
 def sass(tree):
     """SASS opcode counts of a probe kernel for each f128 multiply of the
     tree's f128.cuh."""
@@ -913,6 +987,8 @@ def main(argv):
     ap.add_argument("--large", action="store_true", help="the cases of the 2^20-row path")
     ap.add_argument("--sweep", nargs="*", choices=list(SWEEPS), help="time these kernels at each shape of SWEEPS")
     ap.add_argument("--sass", action="store_true", help="SASS counts of the tree's f128 multiplies")
+    ap.add_argument("--profile", action="store_true",
+                    help="torch.profiler launches, gaps and occupancy of the Merkle and FRI fold cases")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_bench: torch.cuda.is_available() is false; this needs a CUDA card")
@@ -921,6 +997,8 @@ def main(argv):
         sweep(args.tree.resolve(), args.label, args.sweep or list(SWEEPS))
     elif args.sass:
         sass(args.tree.resolve())
+    elif args.profile:
+        profile(args.tree.resolve(), args.label, args.only)
     else:
         bench_tree(args.tree.resolve(), args.label, args.only, large=args.large)
 

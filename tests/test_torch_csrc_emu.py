@@ -53,14 +53,19 @@ def emu(tmp_path_factory):
 @pytest.fixture(scope="module")
 def emu_shape(tmp_path_factory):
     """One source's host emulation at other launch shapes (its -D defines),
-    built once a shape."""
+    built once a shape, with every entry point of the source declared
+    (``entry`` must be one)."""
     out, built = tmp_path_factory.mktemp("emu_shapes"), {}
 
     def get(source, entry, defines):
         if (source, defines) not in built:
             lib = ctypes.CDLL(str(_build_emu(out, [source], defines)))
-            getattr(lib, entry).argtypes = list(kernels.SIGNATURES[entry])
-            getattr(lib, entry).restype = ctypes.c_int
+            for name, args in kernels.SIGNATURES.items():
+                fn = getattr(lib, name, None)
+                if fn is not None:
+                    fn.argtypes = list(args)
+                    fn.restype = ctypes.c_int
+            getattr(lib, entry)
             built[(source, defines)] = lib
         return built[(source, defines)]
 
@@ -141,49 +146,103 @@ def test_blake3_rows_shapes_emulated(emu_shape, threads, c, n):
     np.testing.assert_array_equal(got, np.asarray(jb3t.hash_rows_t(jnp.asarray(xs))))
 
 
+def _merkle_leaves(seed, n):
+    """(N, 8) random leaf digests: the numpy words and the torch tensor."""
+    words = np.random.default_rng(seed).integers(0, 2**32, size=(n, 8), dtype=np.uint64).astype(np.uint32)
+    return words, from_numpy(words)
+
+
 @pytest.mark.parametrize("k,n", [(3, 1), (3, 2), (3, 4), (3, 8), (3, 16), (3, 64), (None, 8), (None, 2048)])
 def test_merkle_heap_emulated(emu, emu_shape, k, n):
     """The Merkle kernel at 2^k leaves a block (k = 3, or the shipped k
-    where None): N = 1 ([0, leaf]), 2, 2^(k-1) and 2^k take launch (i)
-    alone, 2^(k+1) and 2^(k+3) both launches.  Exact against the plain
-    version and the JAX merkle_flat."""
+    where None): N = 1 ([0, leaf]), 2, 2^(k-1) and 2^k in one block, 2^(k+1)
+    and 2^(k+3) over blocks that meet at their group's counter; one launch
+    at every N.  Exact against the plain version and the JAX merkle_flat."""
     lib = emu if k is None else emu_shape("merkle.cu", "zk_merkle_heap", (f"ZK_MERKLE_K={k}",))
-    words = np.random.default_rng(n).integers(0, 2**32, size=(n, 8), dtype=np.uint64).astype(np.uint32)
-    leaves = from_numpy(words)
+    words, leaves = _merkle_leaves(n, n)
     heap, made = tmerkle.launch_heap(lib, 0, leaves.T.contiguous())
-    assert made == (1 if n <= 2 ** (k or 10) else 2)
+    assert made == 1
     got = to_numpy(heap)
     np.testing.assert_array_equal(got, to_numpy(tmerkle.merkle_flat_plain(leaves)))
     np.testing.assert_array_equal(got, np.asarray(b3j.merkle_flat(jnp.asarray(words))))
 
 
-@pytest.mark.parametrize("top,n,launches", [(3, 128, 3), (3, 256, 3), (3, 1024, 4), (1, 64, 2), (5, 512, 3)])
-def test_merkle_heap_levels_emulated(emu_shape, top, n, launches):
-    """The Merkle kernel at 2^3 nodes a block with the top launch's
-    capacity at 2^top roots (-DZK_MERKLE_TOP): past it, the subtree launch
-    runs again over the roots, so N = 128 and 256 take three launches and
-    1024 four (ceil(log2 N / 3)).  Exact against the plain version and the
-    JAX merkle_flat."""
-    lib = emu_shape("merkle.cu", "zk_merkle_heap", ("ZK_MERKLE_K=3", f"ZK_MERKLE_TOP={top}"))
-    words = np.random.default_rng(n + top).integers(0, 2**32, size=(n, 8), dtype=np.uint64).astype(np.uint32)
-    leaves = from_numpy(words)
+@pytest.mark.parametrize("reverse", [0, 1], ids=["forward", "reverse"])
+@pytest.mark.parametrize("n,units", [(64, 1), (128, 2 + 1), (256, 4 + 1), (512, 8 + 1), (1024, 16 + 2 + 1)])
+def test_merkle_heap_levels_emulated(emu_shape, n, units, reverse):
+    """The Merkle kernel at 2^3 nodes a block: a block builds its 8 leaves
+    to one root (four leaves a thread and their two levels in registers,
+    then one level in shared memory), and the last of each group of 8
+    siblings to arrive carries
+    the group's roots on, one to three times (N = 64: 8 roots, one carry;
+    1024: 128, 16, 2 roots, three), in one launch; each carried unit has a
+    counter.  The blocks run in grid order and in reverse
+    (-DZK_EMU_REVERSE_BLOCKS=1: the last arrival of a group is its lowest
+    block).  Exact against the plain version and the JAX merkle_flat, and
+    the counters are zero again."""
+    lib = emu_shape("merkle.cu", "zk_merkle_heap", ("ZK_MERKLE_K=3", f"ZK_EMU_REVERSE_BLOCKS={reverse}"))
+    assert lib.zk_merkle_counters(n) == units
+    words, leaves = _merkle_leaves(n + reverse, n)
     heap, made = tmerkle.launch_heap(lib, 0, leaves.T.contiguous())
-    assert made == launches <= -(-(n.bit_length() - 1) // 3)
+    assert made == 1
+    assert not tmerkle._counters[torch.device("cpu")].any()
     got = to_numpy(heap)
     np.testing.assert_array_equal(got, to_numpy(tmerkle.merkle_flat_plain(leaves)))
     np.testing.assert_array_equal(got, np.asarray(b3j.merkle_flat(jnp.asarray(words))))
+
+
+@pytest.mark.parametrize("reverse", [0, 1], ids=["forward", "reverse"])
+@pytest.mark.parametrize("k,group,n", [(6, 0, 4096), (6, 0, 32), (6, 0, 64), (3, 2, 256), (4, 4, 1024)])
+def test_merkle_heap_top_emulated(emu_shape, k, group, n, reverse):
+    """The tree's top in one warp: at 2^6 nodes a block (32 threads) a
+    unit keeps 32 roots, so N = 4096 carries five times before the top's
+    five levels on __syncwarp(), N = 64 is one level in the block and
+    the top, and N = 32 is the top alone (all one leaf a thread: a unit of
+    64 has too few grandparents for four); with -DZK_MERKLE_GROUP a unit
+    of 2^k nodes keeps 2^k / G roots (k = 3, G = 2: 4 roots, a one-level
+    unit; k = 4, G = 4: 4 roots).  Both block orders, one launch; exact
+    against the plain version and the JAX merkle_flat."""
+    defines = (f"ZK_MERKLE_K={k}", f"ZK_MERKLE_GROUP={group}", f"ZK_EMU_REVERSE_BLOCKS={reverse}")
+    lib = emu_shape("merkle.cu", "zk_merkle_heap", defines)
+    words, leaves = _merkle_leaves(n + k, n)
+    heap, made = tmerkle.launch_heap(lib, 0, leaves.T.contiguous())
+    assert made == 1
+    got = to_numpy(heap)
+    np.testing.assert_array_equal(got, to_numpy(tmerkle.merkle_flat_plain(leaves)))
+    np.testing.assert_array_equal(got, np.asarray(b3j.merkle_flat(jnp.asarray(words))))
+
+
+def test_merkle_trees_leave_the_counters_zero(emu_shape):
+    """Three trees in a row on one scratch (2^3 nodes a block, the blocks
+    in reverse order): each is exact, and the counters are all zero after
+    them, so no tree needs a memset."""
+    lib = emu_shape("merkle.cu", "zk_merkle_heap", ("ZK_MERKLE_K=3", "ZK_EMU_REVERSE_BLOCKS=1"))
+    scratch = tmerkle.counters(lib, torch.device("cpu"), 1024)
+    for n in (1024, 64, 512):
+        _, leaves = _merkle_leaves(3 * n, n)
+        heap, made = tmerkle.launch_heap(lib, 0, leaves.T.contiguous())
+        assert made == 1
+        np.testing.assert_array_equal(to_numpy(heap), to_numpy(tmerkle.merkle_flat_plain(leaves)))
+    assert tmerkle.counters(lib, torch.device("cpu"), 1024) is scratch
+    assert scratch.numel() >= lib.zk_merkle_counters(1024) > 0
+    assert not scratch.any()
 
 
 def test_merkle_launches_of_the_shipped_kernel(emu):
-    """The shipped kernel (2^10 nodes a block) reports the launches it
-    made: one up to 2^10 leaves, two from 2^11 (the 2^23-leaf trees of the
-    2^20-row path, three launches, are counted on the card by chip_smoke.py);
-    the entry refuses a leaf count that is not a power of two and reports
-    no launch."""
+    """The shipped kernel (2^10 nodes a block) reports one launch a tree at
+    every N, one block or several (the 2^23-leaf trees of the 2^20-row
+    path are counted on the card by chip_smoke.py); it needs no counter up
+    to 2^10 leaves and one from 2^11; the entry refuses a leaf count that
+    is not a power of two, or too few counters, and reports no launch."""
     made = [tmerkle.launch_heap(emu, 0, torch.zeros((8, 1 << k), dtype=torch.int32))[1] for k in (0, 1, 10, 11, 12)]
-    assert made == [1, 1, 1, 2, 2]
+    assert made == [1, 1, 1, 1, 1]
+    assert [emu.zk_merkle_counters(1 << k) for k in (0, 5, 10, 11, 15, 23)] == [0, 0, 0, 1, 1, 256 + 8 + 1]
+    assert emu.zk_merkle_counters(24) == -1
     count = ctypes.c_int(7)
-    assert emu.zk_merkle_heap(None, None, 24, ctypes.byref(count), None) == 1
+    assert emu.zk_merkle_heap(None, None, 24, None, 1024, ctypes.byref(count), None) == 1
+    assert count.value == 0
+    count = ctypes.c_int(7)
+    assert emu.zk_merkle_heap(None, None, 1 << 23, None, 264, ctypes.byref(count), None) == 1
     assert count.value == 0
 
 

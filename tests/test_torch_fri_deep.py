@@ -5,9 +5,10 @@ for the fold, the JAX ``zkvm.prover.fri._fold_core_t`` at the ladder of
 ``zkvm.ntt.ntt_t.ladder_t_host``.
 
 Each source is built twice: at its shipped launch shape and at a small
-one (``SMALL``: 4 threads a block and 2 lanes a thread), so that small
-inputs cross blocks, partial blocks and the ladder's step between a
-thread's lanes.  The plain versions launch nothing (the dispatching field
+one (``SMALL``: 4 threads a block and 2 lanes a thread, the fold at one
+lane a thread up to n = 2^10 only), so that small inputs cross blocks,
+partial blocks, the ladder's step between a thread's lanes and both of
+the fold's instances.  The plain versions launch nothing (the dispatching field
 ops and K1 patched to raise); the T = 128 conformance proves in the three
 modes, and FRI over two layers, run with every call of the four entries
 through the emulation; a failing launch raises and nothing falls back.
@@ -41,7 +42,7 @@ from zkvm_torch.prover.transcript import RandomCoin
 torch.set_num_threads(1)
 
 VECTORS = Path(__file__).resolve().parent.parent / "conformance" / "vectors_e2e.json"
-SMALL = ("ZK_FOLD_THREADS=4", "ZK_FOLD_LANES=2", "ZK_DEEP_THREADS=4")
+SMALL = ("ZK_FOLD_THREADS=4", "ZK_FOLD_LANES=2", "ZK_FOLD_ONE_LANE_MAX=1024", "ZK_DEEP_THREADS=4")
 ENTRIES = ("zk_fri_fold", "zk_ladder", "zk_weighted_sum", "zk_deep_quotient")
 EDGES = (0, 1, f128.P - 1, 2**64 - 1, 2**112 - 1, 45 * 2**40 - 1, 2**127)
 
@@ -82,7 +83,7 @@ def _t(vals):
     return from_numpy(np.ascontiguousarray(np.swapaxes(to_limbs(vals), -1, -2)))
 
 
-FOLD_LANES = (1, 8, 1024)
+FOLD_LANES = (1, 8, 1024, 2048)
 
 
 def _fold_inputs(n):
@@ -114,12 +115,46 @@ def jax_folds():
 def test_fri_fold_kernel_emulated(emu, jax_folds, n):
     """The fold entry in both builds equals its plain version and the JAX
     ``_fold_core_t`` at q_t = scale w_D^(-j) (JAX's ``ladder_t_host``),
-    for a random beta and offset."""
+    for a random beta and offset: in the shipped build every n at one lane
+    a thread, in the small one n <= 2^10 at one lane and 2^11, across its
+    threshold, at two."""
     v, scale, base = _fold_inputs(n)
     want = jax_folds[n]
     np.testing.assert_array_equal(to_numpy(fri.fold_plain(v, scale, base)), want)
     for name, lib in emu.items():
         np.testing.assert_array_equal(to_numpy(fri.launch_fold(lib, None, v, scale, base)), want, err_msg=name)
+
+
+def test_fold_power_table():
+    """The fold's ladder tables, built on the host once a base, are
+    base^(2^e) mod p for every e < 48 and base^i mod p for every i < 32,
+    and the kernel's scalars carry them after scale, 1/8 and r, r^2, r^3,
+    four words an element."""
+    rng = np.random.default_rng(50)
+    for base in [int(x) for x in _rand(rng, (3,))] + [f128.finv(f128.get_root_of_unity(1 << 19))]:
+        squares, powers = fri.power_table(base)
+        assert len(squares) == fri.FOLD_LEVELS == 48 and len(powers) == fri.WARP_POWERS == 32
+        assert list(squares) == [pow(base, 2**e, f128.P) for e in range(48)]
+        assert list(powers) == [pow(base, i, f128.P) for i in range(32)]
+        words = list(fri.fold_scalars(7, base))
+        assert len(words) == 4 * (5 + 48 + 32)
+        assert words[:4] == list(kernels.words([7]))
+        assert words[20:4 * 53] == list(kernels.words(squares))
+        assert words[4 * 53:] == list(kernels.words(powers))
+
+
+def test_fold_launch_builds_no_tensor_from_host_data(emu, monkeypatch):
+    """The fold's launch function builds no tensor from host data (on a
+    card each such copy waits for the stream): its scalars and table go
+    by value."""
+    built = []
+    for name in ("tensor", "from_numpy", "as_tensor"):
+        fn = getattr(torch, name)
+        monkeypatch.setattr(torch, name, lambda *a, _n=name, _f=fn, **k: built.append(_n) or _f(*a, **k))
+    v = torch.zeros((fri.FOLD, 8, 64), dtype=torch.int32)
+    for lib in emu.values():
+        fri.launch_fold(lib, None, v, 3, 5)
+    assert built == [], f"the fold's launch built {built}"
 
 
 def test_ladder_kernel_emulated(emu):
@@ -335,7 +370,7 @@ def test_fri_deep_kernels_refuse_and_never_fall_back(monkeypatch, emu):
         dp.weighted_sum(cols.long(), [[1, 2, 3]])
     lib = emu["shipped"]
     p = None
-    assert lib.zk_fri_fold(p, p, 0, kernels.words([0] * 6), p) == -1
+    assert lib.zk_fri_fold(p, p, 0, kernels.words([0] * 85), p) == -1
     assert lib.zk_ladder(p, 0, 0, p, 0, 1, p, 0, 1, p, 0, 16, p) == -1
     assert lib.zk_ladder(p, 0, 0, p, 0, 1, p, 0, 1, p, 65536, 16, p) == -1
     assert lib.zk_weighted_sum(p, 0, 1, kernels.words([0] * 5), p, 5, 1, 16, p) == -1

@@ -22,18 +22,32 @@
 //
 // The ladder is kept in registers in both: thread t of block k takes the
 // lanes j = k L T + t + l T (l < L, T threads a block), so the warp's
-// lanes are neighbours; its first power base^j is a product of the
-// block's table of base^(2^e) over the set bits of j (the table is built
-// once a block in shared memory by squaring), and each next lane is one
-// multiply by base^T.  No ladder tensor is built and the scalars of the
-// fold travel by value, so the wrappers copy nothing to the card.
+// lanes are neighbours; its first power base^j is a product of a table of
+// base^(2^e) over the set bits of j, and each next lane is one multiply by
+// base^T.  The fold's base is a host int, so its tables come by value
+// with the other scalars (built on the host once a base): no thread
+// squares and none waits for another.  Beside base^(2^e) (48 cells) the
+// fold takes base^i for i < 32 (32 cells), so the bits of j below 5,
+// which differ across a warp, cost one multiply and not five: a warp
+// multiplies wherever any of its lanes does.  zk_ladder's base is a
+// device value, so one thread of its block builds the table in shared
+// memory by squaring while the others wait.  No ladder tensor is built
+// and the fold's scalars travel by value, so the wrappers copy nothing to
+// the card.
+//
+// The fold's shape follows n: at n <= ZK_FOLD_ONE_LANE_MAX (2^17) one lane
+// a thread, which puts n / T blocks on the card for the small layers (2^16
+// lanes: 512 blocks of 128), where the lanes a thread would run in series
+// are latency; above it ZK_FOLD_LANES lanes a thread, whose next lanes
+// cost one multiply each where a first power costs a popcount of them.
+// Both are instances of one template; the entry picks one from n.
 //
 // What bounds them on an H100: the fold moves 288 bytes an output lane (8
 // elements read, 1 written) against 14 multiplies and 31 adds (the 5 of
 // the DFT, 7 of Horner, the 1/8 and the ladder's step): 1,592 32-bit
 // operations by the bound's count, 95 ps against 86 ps of bytes, so both
 // nearly alike; at the path's smaller layers (n <= 2^17) the launch and
-// the table's ~20 serial squarings are most of its time.  The ladder
+// a thread's dependent multiplies are most of its time.  The ladder
 // writes 32 bytes a lane (64 with x) against one or two multiplies:
 // bytes.
 #include "f128.cuh"
@@ -46,6 +60,10 @@
 #ifndef ZK_FOLD_LANES
 #define ZK_FOLD_LANES 4
 #endif
+// the largest n that the fold takes at one lane a thread
+#ifndef ZK_FOLD_ONE_LANE_MAX
+#define ZK_FOLD_ONE_LANE_MAX (1L << 17)
+#endif
 
 namespace {
 
@@ -56,13 +74,16 @@ constexpr int kThreads = ZK_FOLD_THREADS;
 constexpr int kLanes = ZK_FOLD_LANES;
 constexpr int kFold = 8;
 constexpr int kMaxLevels = 48;  // base^(2^e) for e < 48: lanes below 2^48
+constexpr int kWarpPowers = 32;  // the fold's base^i for i < 32: a lane's place in its warp
 static_assert(kThreads >= 1 && (kThreads & (kThreads - 1)) == 0, "a power of two threads a block");
 static_assert(kLanes >= 1, "a thread takes lanes");
 
 constexpr int log2i(long v) { return v <= 1 ? 0 : 1 + log2i(v / 2); }
 constexpr int kLogThreads = log2i(kThreads);
+constexpr int kLogWarp = log2i(kWarpPowers);
 
-// the levels of the table: every set bit of a lane below n, and base^T
+// the levels of zk_ladder's table: every set bit of a lane below n, and
+// base^T
 ZK_HD int levels_for(long n) {
   int bits = 0;
   while (bits < kMaxLevels && (1L << bits) < n) ++bits;
@@ -79,17 +100,18 @@ ZK_HD void build_powers(cell* pw, fe base, int levels) {
   }
 }
 
-// scale * base^j from the table
+// scale * base^j from a table of base^(2^e)
 ZK_HD fe power_from(const cell* pw, fe scale, long j) {
   for (int e = 0; j; ++e, j >>= 1)
     if (j & 1) scale = zk::mul32(scale, zk::unpack(pw[e]));
   return scale;
 }
 
-// the fold's scalars: q_0 = beta / offset, the ladder's base w_D^(-1), 1/8
-// and the powers r, r^2, r^3 of r = w_8^(-1) (the inverse DFT's twiddles)
+// the fold's scalars: q_0 = beta / offset, 1/8, the powers r, r^2, r^3 of
+// r = w_8^(-1) (the inverse DFT's twiddles) and the ladder's table
+// base^(2^e), e < kMaxLevels, of its base w_D^(-1), and base^i, i < 32
 struct FoldArgs {
-  cell scale, base, inv8, r[3];
+  cell scale, inv8, r[3], pw[kMaxLevels], lane[kWarpPowers];
 };
 
 ZK_HD void butterfly(fe& a, fe& b) {
@@ -130,20 +152,23 @@ ZK_HD void dft8(fe x[kFold], const FoldArgs& a) {
   for (int k = 0; k < kFold; ++k) x[k] = y[k];
 }
 
+// the fold of lanes j0 + l T, l < LANES, j0 = k LANES T + t
+template <int LANES>
 __global__ void __launch_bounds__(kThreads)
-fri_fold_kernel(const uint32_t* __restrict__ v, uint32_t* __restrict__ out, long n, const FoldArgs a) {
-  __shared__ cell pw[kMaxLevels];
-  if (threadIdx.x == 0) build_powers(pw, zk::unpack(a.base), levels_for(n));
-  __syncthreads();
-  const long j0 = (long)blockIdx.x * kLanes * kThreads + threadIdx.x;
+fri_fold_kernel(const uint32_t* __restrict__ v, uint32_t* __restrict__ out, long n, const __grid_constant__ FoldArgs a) {
+  const long j0 = (long)blockIdx.x * LANES * kThreads + threadIdx.x;
   if (j0 >= n) return;
-  const fe step = zk::unpack(pw[kLogThreads]), inv8 = zk::unpack(a.inv8);
-  fe q = power_from(pw, zk::unpack(a.scale), j0);
+  const fe inv8 = zk::unpack(a.inv8);
+  // scale base^(j0 mod 32) base^(32 (j0 / 32)): one multiply for the
+  // lane's place in its warp (a divergent read of the table), then the
+  // set bits of j0 / 32, the same across the warp (one multiply each)
+  fe q = zk::mul32(zk::unpack(a.scale), zk::unpack(a.lane[j0 & (kWarpPowers - 1)]));
+  q = power_from(a.pw + kLogWarp, q, j0 >> kLogWarp);
   const long group = 8 * n;  // elements t and t + 1 of a group lie 8 n limbs apart
-  for (int l = 0; l < kLanes; ++l) {
+  for (int l = 0; l < LANES; ++l) {
     const long j = j0 + (long)l * kThreads;
     if (j >= n) break;
-    if (l) q = zk::mul32(q, step);
+    if (l) q = zk::mul32(q, zk::unpack(a.pw[kLogThreads]));
     fe b[kFold];
 #pragma unroll
     for (int t = 0; t < kFold; ++t) b[t] = zk::load(v + t * group + j, n);
@@ -188,24 +213,31 @@ __global__ void __launch_bounds__(kThreads) ladder_kernel(const LadderArgs a) {
   }
 }
 
-long lane_blocks(long n) { return (n + (long)kLanes * kThreads - 1) / ((long)kLanes * kThreads); }
+long lane_blocks(long n, int lanes = kLanes) { return (n + (long)lanes * kThreads - 1) / ((long)lanes * kThreads); }
 
 }  // namespace
 
 // The fold of one FRI layer: v (FOLD, 8, n) contiguous limbs, group j's
 // value t at v[t][.][j]; out (8, n) canonical limbs, out[j] = (1/8)
 // sum_k c_k q_j^k with c_k = sum_t v[t][j] r^(t k) and q_j = scale
-// base^j.  scalars: 6 packed elements (16 bytes each, its four 32-bit words
-// least significant first): scale, base, 1/8, r, r^2, r^3.  -1 with no
-// launch for n < 1.  One launch on the stream.
+// base^j.  scalars: 5 + 48 + 32 packed elements (16 bytes each, its four
+// 32-bit words least significant first): scale, 1/8, r, r^2, r^3, then
+// base^(2^e) for e < 48, then base^i for i < 32.  One lane a thread for
+// n <= ZK_FOLD_ONE_LANE_MAX, else ZK_FOLD_LANES.  -1 with no launch for
+// n < 1.  One launch on the stream.
 ZK_EXPORT int zk_fri_fold(const uint32_t* v, uint32_t* out, long n, const uint32_t* scalars, void* stream) {
-  if (n < 1 || lane_blocks(n) > 0x7fffffffL) return -1;
+  if (n < 1 || lane_blocks(n, 1) > 0x7fffffffL) return -1;
   auto at = [scalars](int i) {
     const uint32_t* w = scalars + 4 * i;
     return cell{(uint64_t)w[1] << 32 | w[0], (uint64_t)w[3] << 32 | w[2]};
   };
-  const FoldArgs a{at(0), at(1), at(2), {at(3), at(4), at(5)}};
-  ZK_LAUNCH(fri_fold_kernel, dim3((unsigned)lane_blocks(n)), dim3(kThreads), 0, stream, v, out, n, a);
+  FoldArgs a{at(0), at(1), {at(2), at(3), at(4)}, {}, {}};
+  for (int e = 0; e < kMaxLevels; ++e) a.pw[e] = at(5 + e);
+  for (int i = 0; i < kWarpPowers; ++i) a.lane[i] = at(5 + kMaxLevels + i);
+  if (n <= ZK_FOLD_ONE_LANE_MAX)
+    ZK_LAUNCH(fri_fold_kernel<1>, dim3((unsigned)lane_blocks(n, 1)), dim3(kThreads), 0, stream, v, out, n, a);
+  else
+    ZK_LAUNCH(fri_fold_kernel<kLanes>, dim3((unsigned)lane_blocks(n)), dim3(kThreads), 0, stream, v, out, n, a);
   return ZK_LAST_ERROR();
 }
 

@@ -9,10 +9,15 @@
 // the funnel shift are their plain shift forms; cp.async is a plain copy
 // with its zero fill; a grid of the warp-wide mma.sync of u8 bytes (M A
 // fragments by N B fragments) exchanges its lanes' fragments through a
-// buffer of the warp's, between two barriers of the warp's 32 threads.
+// buffer of the warp's, between two barriers of the warp's 32 threads,
+// and __syncwarp() is that barrier.  atomicAdd is a std::atomic_ref add,
+// and __threadfence() a sequentially consistent fence.  With ZK_EMU_REVERSE_BLOCKS=1 the blocks of a grid run in
+// reverse order (the last block first), so a kernel whose blocks meet at
+// a counter sees its last arrival at the lowest block.
 // Never compiled by nvcc.
 #pragma once
 
+#include <atomic>
 #include <barrier>
 #include <cstddef>
 #include <cstdint>
@@ -33,6 +38,11 @@ struct dim3 {
 #define __launch_bounds__(...)
 #define __restrict__
 #define __shared__ static
+#define __grid_constant__
+
+#ifndef ZK_EMU_REVERSE_BLOCKS
+#define ZK_EMU_REVERSE_BLOCKS 0
+#endif
 
 namespace zk_emu {
 inline thread_local dim3 tl_thread_idx;
@@ -71,7 +81,8 @@ void launch(dim3 grid, dim3 block, size_t smem_bytes, K kernel, A... args) {
       for (unsigned bz = 0; bz < grid.z; ++bz)
         for (unsigned by = 0; by < grid.y; ++by)
           for (unsigned bx = 0; bx < grid.x; ++bx) {
-            tl_block_idx = dim3(bx, by, bz);
+            tl_block_idx = ZK_EMU_REVERSE_BLOCKS ? dim3(grid.x - 1 - bx, grid.y - 1 - by, grid.z - 1 - bz)
+                                                 : dim3(bx, by, bz);
             kernel(args...);
             bar.arrive_and_wait();  // the block's end: every thread done before the next block
           }
@@ -128,6 +139,13 @@ inline void cp_async(void* dst, const void* src, int bytes, int src_bytes) {
 #define blockDim (zk_emu::g_block_dim)
 #define gridDim (zk_emu::g_grid_dim)
 #define __syncthreads() (zk_emu::block_barrier->arrive_and_wait())
+
+// the barrier of the calling thread's warp (all its threads, whatever the mask)
+inline void __syncwarp(unsigned = 0xFFFFFFFFu) { zk_emu::warp_barriers[zk_emu::linear_thread() / 32]->arrive_and_wait(); }
+
+inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
+
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 
 // byte i of the result is byte s[4i+2 .. 4i] of the 8 bytes y:x
 inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {

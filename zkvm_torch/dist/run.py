@@ -119,6 +119,7 @@ def _prove(mesh, program, inputs, use_native, via_vm, warmup=False):
         "rank": mesh.rank, "proof": proof.to_wire_bytes(), "program_hash": program.hash, "outputs": outputs,
         "trace_length": proof.trace_length, "seconds": seconds, "cold_seconds": cold,
         "stage_seconds": stages, "stage_peaks": peaks or {}, "launches": kernel_health.launches(),
+        "launches_by_shape": kernel_health.launches_by_shape(),
         "plain_calls": kernel_health.plain_calls(), "comm": comm.read_counts(),
         "peak_bytes": max(peaks.values()) if peaks else None,  # each stage resets the peak
     }
@@ -128,7 +129,8 @@ def prove_program(mesh, source, tape, secrets=(), key_seed=7, use_native=True, v
     """Prove a program in mono over the mesh (the key from
     ``random.Random(key_seed)``, which encrypts ``secrets``); every rank
     returns its proof bytes, the program hash and outputs, its launches per
-    kernel (counts set to 0 just before the prove, read just after), its
+    kernel and by shape (counts set to 0 just before the prove, read just
+    after), its
     collectives, its seconds (the card synchronised), its stage seconds and
     peaks, and its peak device bytes (on a card).
     ``via_vm``: through ``vm.prove(config=ZkVmConfig().with_mesh(P))``."""

@@ -3,9 +3,11 @@
 Port of ``blake3_jax.merge`` / ``merkle_flat`` and
 ``zkvm.hash.merkle.DeviceMerkleTree``.  The reference builds the tree in
 XLA, outside any Pallas kernel; here :func:`merkle_flat` is the CUDA
-kernel ``csrc/merkle.cu`` for a CUDA tensor (ceil(log2 N / 10) launches a
-tree of N leaves, sharing K2's compress) and the plain PyTorch version, one vectorised
-BLAKE3 compress per level, for a CPU tensor.
+kernel ``csrc/merkle.cu`` for a CUDA tensor (one launch a tree of N
+leaves at every N, sharing K2's compress; its blocks meet at counters in
+an int32 scratch kept per device, which every tree leaves at zero) and
+the plain PyTorch version, one vectorised BLAKE3 compress per level, for a
+CPU tensor.
 
 Heap layout (winter-crypto style): nodes[1] = root, children of i at 2i and
 2i+1, leaf j at nodes[N + j], nodes[0] unused; digests are 8 little-endian
@@ -69,18 +71,36 @@ launches = 0  # calls of the CUDA kernel's entry in this process (one a tree)
 launches_by_size = collections.Counter()
 trees_by_size = collections.Counter()
 
+# the kernel's counters, per device: int32 zeros that every launch leaves
+# at zero, so trees that follow one another on the device's stream share
+# them (the kernel needs the trees of one device on one stream at a time)
+_counters = {}
+
+
+def counters(lib, device: torch.device, n: int) -> torch.Tensor:
+    """The device's counter scratch, with room for a tree of ``n`` leaves
+    (``zk_merkle_counters``): made of zeros at the first call, and again,
+    larger, only for a tree that needs more."""
+    need = lib.zk_merkle_counters(n)
+    cur = _counters.get(device)
+    if cur is None or cur.numel() < need:
+        cur = _counters[device] = torch.zeros(max(need, 1024), dtype=torch.int32, device=device)
+    return cur
+
 
 def launch_heap(lib, stream, leaves_8n: torch.Tensor):
     """Call the Merkle entry point of ``lib`` on (8, N) leaf digest words
     (N a power of two); returns the (2N, 8) heap and the kernel launches
-    the entry made."""
+    the entry made (one)."""
     n = leaves_8n.shape[-1]
     kernels.expect(leaves_8n, (8, n), leaves_8n.device, "leaves")
     if n < 1 or n & (n - 1):
         raise ValueError(f"Merkle heap: {n} leaves, expected a power of two")
     heap = torch.empty((2 * n, 8), dtype=torch.int32, device=leaves_8n.device)
+    scratch = counters(lib, leaves_8n.device, n)
     made = ctypes.c_int(0)
-    rc = lib.zk_merkle_heap(kernels.ptr(leaves_8n), kernels.ptr(heap), n, ctypes.byref(made), stream)
+    rc = lib.zk_merkle_heap(kernels.ptr(leaves_8n), kernels.ptr(heap), n, kernels.ptr(scratch), scratch.numel(),
+                            ctypes.byref(made), stream)
     kernels.check(rc, "zk_merkle_heap")
     return heap, made.value
 

@@ -8,7 +8,8 @@ for position j is the 8 evaluations {j + t*D/8}; each layer's leaf j hashes
 its group (kernel K2 at C = 8).  Folding interpolates each group with an
 8-point iNTT along the group axis and evaluates it at beta/x_j by Horner:
 on a card one launch of ``csrc/fri_fold.cu``'s fold a layer
-(:func:`fold_t`; the ladder of the x_j made in its registers), on the CPU
+(:func:`fold_t`; the ladder of the x_j made in its registers from a table
+of powers built on the host and passed by value), on the CPU
 the plain version (K1's plain version at M = 8, a ladder and 15 plain
 field ops).  The remainder's inverse-offset scale is one ladder launch.
 """
@@ -16,6 +17,8 @@ field ops).  The remainder's inverse-offset scale is one ladder launch.
 from __future__ import annotations
 
 import collections
+import ctypes
+import functools
 from typing import List
 
 import numpy as np
@@ -68,12 +71,36 @@ def fold_plain(v: torch.Tensor, scale: int, base: int) -> torch.Tensor:
 
 _R8 = f128.finv(f128.get_root_of_unity(FOLD))  # the inverse DFT's root
 _FOLD_CONSTANTS = [f128.finv(FOLD), _R8, pow(_R8, 2, f128.P), pow(_R8, 3, f128.P)]
+FOLD_LEVELS = 48  # the kernel's table: base^(2^e) for e < 48 (kMaxLevels)
+WARP_POWERS = 32  # and base^i for i < 32 (kWarpPowers)
+
+
+@functools.lru_cache(maxsize=64)
+def power_table(base: int):
+    """(base^(2^e) mod p for e < FOLD_LEVELS, by squaring; base^i mod p for
+    i < WARP_POWERS) on the host: the fold kernel's ladder tables, built
+    once a base (a layer's w_D^(-1))."""
+    squares = [base % f128.P]
+    for _ in range(FOLD_LEVELS - 1):
+        squares.append(squares[-1] * squares[-1] % f128.P)
+    powers = [1]
+    for _ in range(WARP_POWERS - 1):
+        powers.append(powers[-1] * base % f128.P)
+    return tuple(squares), tuple(powers)
+
+
+@functools.lru_cache(maxsize=64)
+def _table_words(base: int):
+    squares, powers = power_table(base)
+    return tuple(kernels.words([*_FOLD_CONSTANTS, *squares, *powers]))
 
 
 def fold_scalars(scale: int, base: int):
-    """The fold kernel's six scalars, as a host array of their 32-bit words:
-    q_0 = scale, the ladder's base, 1/8 and r, r^2, r^3 for r = w_8^(-1)."""
-    return kernels.words([scale, base, *_FOLD_CONSTANTS])
+    """The fold kernel's 5 + 48 + 32 scalars, as a host array of their
+    32-bit words: q_0 = scale, 1/8, r, r^2, r^3 for r = w_8^(-1), then the
+    ladder's tables base^(2^e) and base^i (:func:`power_table`)."""
+    words = (*kernels.words([scale]), *_table_words(base))
+    return (ctypes.c_uint32 * len(words))(*words)
 
 
 fold_launches = 0  # launches of the fold kernel (csrc/fri_fold.cu zk_fri_fold) in this process
@@ -93,8 +120,8 @@ def _fold_checked(v: torch.Tensor) -> int:
 def launch_fold(lib, stream, v: torch.Tensor, scale: int, base: int) -> torch.Tensor:
     """Call the fold entry point of ``lib`` on contiguous groups v (FOLD, 8,
     n): the (8, n) fold at q_j = scale * base^j, one launch.  The scalars
-    go by value, so it copies nothing to the device and never waits for
-    the stream."""
+    and the ladder's table go by value, so it copies nothing to the device
+    and never waits for the stream."""
     n = _fold_checked(v)
     kernels.expect(v, (FOLD, 8, n), v.device, "v")
     out = torch.empty((8, n), dtype=torch.int32, device=v.device)
