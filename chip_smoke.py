@@ -6,6 +6,10 @@
 Phases, each printing one JSON line:
 
   (a) device: the card (nvidia-smi name and power limit), torch and CUDA;
+      then the card's free memory: where another process holds it, the
+      run waits (MEMORY_WAIT_S in all) until CARD_NEED_BYTES are free, and
+      a later phase that runs out of card memory is run once more from its
+      start after such a wait (a "memory" line each time);
   (b) build: nvcc builds the kernels of zkvm_torch/csrc for sm_90a; each
       kernel's registers and spills as ptxas reports them; the SASS
       instructions of the f128 multiply zk::mul32, counted from its probe
@@ -25,7 +29,8 @@ Phases, each printing one JSON line:
       so a wrapper that waits for the stream fails the run; the Merkle
       heap must make one kernel launch a tree at every leaf count and
       leave its counter scratch all zero; and zk::mul32
-      alone against the plain multiply on every pair of edge values; the
+      alone against the plain multiply on every pair of edge values, and
+      zk::sqr32 (the ladders' squaring) against it on the same elements; the
       batch inverse (csrc/batch_inverse.cu) against its plain Fermat
       version at the provers' shapes (kernel_bench.BINV_CASES: (3, 8,
       2^19), (16, 8, 2^16), (16, 8, 2^20), (3, 8, 2^16), (8, 2^16), and
@@ -47,7 +52,9 @@ Phases, each printing one JSON line:
       mono's 2^23-lane LDE and a row block of it at T = 2^20 (plain on
       windows); then the multi-eval's two kernels (csrc/multi_eval.cu:
       multi_eval_rows on a CUDA tensor): the ladder kernel
-      (launch_ladders) against ladders_plain, and the u8 mma contraction
+      (launch_ladders) against ladders_plain at kernel_bench.MLAD_CASES
+      (each point set below and the OOD frame's three points; ms at the C
+      entry), and the u8 mma contraction
       (multi_eval_t: the ladders and the kernel) against
       multi_eval_rows_plain (both plain versions in the plain arithmetic:
       the field-op kernel must launch no time in them) at
@@ -65,12 +72,14 @@ Phases, each printing one JSON line:
       yardstick); and a failing launch of either kernel that must raise
       without a fall back to the plain version; then the FRI and DEEP
       kernels (csrc/fri_fold.cu: fri.fold_t, one launch a FRI layer, and
-      ntt_t.ladder_t; csrc/deep.cu: deep.weighted_sum and
+      the ladder's two entries, ntt_t.ladder_t of device bases and
+      ntt_t.ladder_t_host of host ints; csrc/deep.cu: deep.weighted_sum and
       deep.deep_quotient) against their plain versions (in the plain
       arithmetic: neither the field-op kernel nor K1 may launch in them),
       exactly, at kernel_bench.fri_deep_cases: the fold at every layer of
-      a 2^16 and a 2^20 prove, the ladder at the remainder's scale and
-      the cold constants' shapes (strided rows, a broadcast scale), the
+      a 2^16 and a 2^20 prove, both ladder entries at the remainder's
+      scale and the cold constants' shapes (the device-base one also at
+      strided rows with a broadcast scale, the mid twiddles'), the
       DEEP sums and quotients of T-mode, cls and mono at 2^16 and 2^20
       and a strided row block of each; ms at the C entry and the wrapper,
       the bound, the sync check, and a failing launch of each entry that
@@ -88,11 +97,14 @@ Phases, each printing one JSON line:
       batch inverse exactly 8 times (the DEEP, once a class), K4 never,
       the multi-eval kernel exactly 4 times (the OOD frame twice, the
       query rows twice; mono and each rank of (h) twice, the OOD frame's),
-      its ladder kernel exactly 3 times (once a point set: z and z g, z^8,
-      the query points; mono and each rank twice) and its plain version
-      never (so in every timed prove below); the FRI fold once a layer (3
-      at T = 2^16, 5 at 2^20), the ladder once (the remainder's scale; the
-      cold proves more), the DEEP sums twice and the quotient once a class
+      its ladder kernel exactly 2 times (once a point set: z, z g and z^8
+      in one, the query points; mono and each rank once) and its plain
+      version never (so in every timed prove below); the FRI fold once a
+      layer (3 at T = 2^16, 5 at 2^20), the host-constant ladder once (the
+      remainder's scale; the cold proves more) and the device-base one
+      never (a cold prove builds the mid twiddles with it, and the cold
+      2^20 prove of (g) must launch it), the DEEP sums twice and the
+      quotient once a class
       (8; mono once a row block: 1 at 2^16, 16 at 2^20, with 32 sums), on
       every path; and T-mode's field-op and K1 launches below the counts
       before these kernels (230 and 74, PATH_BELOW);
@@ -150,6 +162,7 @@ and every rank of (h)), and last
 Any failure raises and exits non-zero; there is no CPU fallback.
 """
 
+import gc
 import itertools
 import json
 import os
@@ -171,14 +184,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from kernel_bench import (BINV_CASES, BINV_MONO_CASES, K1_CASES, K1_DIST_CASES, K1_LARGE_CASES,  # noqa: E402
                           K1_MONO_CASES, K2_CASES, K2_DIST_CASES, K2_LARGE_CASES, K2_MONO_CASES, K3_LARGE_T,
-                          MERKLE_CASES, MERKLE_DIST_CASES, MERKLE_LARGE_CASES, MEVAL_CASES, MONO_T, air_calls,
-                          air_cases, binv_name, capture_entry, clock_ms, cuda_ms, fop_calls, fop_cases, fop_name,
-                          fri_deep_cases, meval_name, meval_operands, meval_plain_t, meval_points, ptxas_summary,
-                          sass_opcodes)
+                          MERKLE_CASES, MERKLE_DIST_CASES, MERKLE_LARGE_CASES, MEVAL_CASES, MLAD_CASES, MONO_T,
+                          air_calls, air_cases, binv_name, capture_entry, clock_ms, cuda_ms, fop_calls, fop_cases,
+                          fop_name, fri_deep_cases, meval_name, meval_operands, meval_plain_t, meval_points,
+                          mlad_name, ptxas_summary, sass_opcodes)
 from zkvm_torch import kernels, vm  # noqa: E402
 from zkvm_torch.dist import multihost  # noqa: E402
 from zkvm_torch.dist import run as dist_run  # noqa: E402
-from zkvm_torch.air import composition as cp  # noqa: E402
 from zkvm_torch.air import transition as tr  # noqa: E402
 from zkvm_torch.field import f128  # noqa: E402
 from zkvm_torch.field import f128t as ft  # noqa: E402
@@ -234,6 +246,59 @@ BINV_MULS = 3
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+# The card may be shared: another process can hold most of its memory when
+# this run starts, or take it while the run goes on.  The run's own peak is
+# about 41 GiB allocated (phase g's 2^20 prove); it starts once the card has
+# CARD_NEED_BYTES free, and a phase that runs out of memory is run once
+# more from its start once the card has that much free again.  All the
+# waiting together takes at most MEMORY_WAIT_S seconds, so that the whole
+# run stays within its 1200 s.
+CARD_NEED_BYTES = 48 << 30
+MEMORY_WAIT_S = 360.0
+MEMORY_POLL_S = 2.0
+_memory_waited = [0.0]
+
+
+def wait_for_card(why):
+    """Wait, within what is left of MEMORY_WAIT_S, until the card has
+    CARD_NEED_BYTES free; print what was seen.  Returns whether it has."""
+    t0 = time.perf_counter()
+    free, total = torch.cuda.mem_get_info()
+    while free < CARD_NEED_BYTES and _memory_waited[0] + time.perf_counter() - t0 < MEMORY_WAIT_S:
+        time.sleep(MEMORY_POLL_S)
+        free, total = torch.cuda.mem_get_info()
+    waited = time.perf_counter() - t0
+    _memory_waited[0] += waited
+    emit({"phase": "memory", "why": why, "free_gib": gib(free), "total_gib": gib(total),
+          "need_gib": gib(CARD_NEED_BYTES), "this_process_reserved_gib": gib(torch.cuda.memory_reserved()),
+          "waited_seconds": waited})
+    return free >= CARD_NEED_BYTES
+
+
+def out_of_memory(exc):
+    """Whether ``exc`` is the card running out of memory, here or in a
+    spawned rank (whose error comes back as text)."""
+    return isinstance(exc, torch.OutOfMemoryError) or "CUDA out of memory" in str(exc)
+
+
+def run_phase(name, fn, *args):
+    """``fn(*args)``; where it runs out of card memory, free this process's
+    cache, wait for the card, and run it once more from its start (every
+    phase sets its counts to 0 itself and checks all it checked).  A second
+    failure, or one of another kind, is raised."""
+    try:
+        return fn(*args)
+    except Exception as exc:  # noqa: BLE001 - re-raised below unless it is the card's memory
+        if not out_of_memory(exc):
+            raise
+        first = str(exc).strip().splitlines()[-1]
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": name, "out_of_memory": first[:400], "rerun": True})
+    wait_for_card(f"phase {name} ran out of card memory")
+    return fn(*args)
 
 
 EDGES = (0, 1, f128.P - 1, ft.EPS, 2**127)
@@ -372,6 +437,7 @@ def phase_build():
     log = kernels.build_log or (kernels.BUILD / "nvcc.log").read_text()
     sass = library_sass()
     ops = sass_opcodes(sass, "zk_mul32_probe")
+    sqr_ops = sass_opcodes(sass, "zk_sqr32_probe")
     # K2's and the Merkle kernels' opcodes: each rotation of a G step is one
     # PRMT (by 16, 8) or SHF (by 12, 7), so 112 of each a compress; its 232
     # xors are LOP3, its 224 adds IADD3 or IMAD (BLAKE3_BLOCK_OPS)
@@ -384,7 +450,8 @@ def phase_build():
                             **{op: n for op, n in counts.items() if op.split(".")[0] in alu}}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "nvcc_seconds": kernels.build_seconds,
           "library": kernels.library_path().name, "ptxas": ptxas_summary(log),
-          "mul32_probe_sass": {"total": sum(ops.values()), "opcodes": ops}, "hash_sass": hash_ops})
+          "mul32_probe_sass": {"total": sum(ops.values()), "opcodes": ops},
+          "sqr32_probe_sass": {"total": sum(sqr_ops.values()), "opcodes": sqr_ops}, "hash_sass": hash_ops})
 
 
 def _k1_work(b, m, nl, variant):
@@ -459,6 +526,13 @@ def phase_kernels():
     emit({"phase": "kernels", "case": "mul32 alone, 2^16 pairs", "max_abs_err": err})
     if err != 0:
         raise AssertionError(f"zk::mul32 differs from the plain multiply (max abs err {err})")
+    # zk::sqr32 alone (the ladders' squaring chains): the same elements
+    kernels.check(kernels.lib().zk_sqr32(kernels.ptr(pa), kernels.ptr(out), 1 << 16, kernels.stream_of(out)),
+                  "zk_sqr32")
+    err = max_abs_err(nt.unpack_t(out), ft.fmul_plain(a, a))
+    emit({"phase": "kernels", "case": "sqr32 alone, 2^16 elements", "max_abs_err": err})
+    if err != 0:
+        raise AssertionError(f"zk::sqr32 differs from the plain multiply (max abs err {err})")
     # K2: trace rows (C = 28) and composition / FRI rows (C = 8), N = 2^16
     # per class in T-mode, N = 2^19 over the whole domain in mono
     # K2 and the Merkle heap: ms at the C entry (its arguments recorded from
@@ -749,9 +823,10 @@ def ladders_flat(lad):
 
 
 def meval_kernels(rng):
-    """Phase (c) for the multi-eval's kernels at kernel_bench.MEVAL_CASES:
-    the ladder kernel (launch_ladders) against ladders_plain and the
-    contraction (multi_eval_t: the ladders and the kernel) against the
+    """Phase (c) for the multi-eval's kernels: the ladder kernel
+    (launch_ladders) against ladders_plain at kernel_bench.MLAD_CASES (each
+    point set of MEVAL_CASES and the OOD frame's three points), and at
+    MEVAL_CASES the contraction (multi_eval_t: the ladders and the kernel) against the
     plain version (as (Q, C, 8) limbs), exactly; the C entry's ms, the
     wrapper's and the rows' host ms; one wrapper call under the sync
     check; at the 2^20 query shape torch._int_mm of the nibble matrices;
@@ -773,16 +848,23 @@ def meval_kernels(rng):
     big = max(MEVAL_CASES, key=lambda cqt: cqt[0] * cqt[1] * cqt[2])  # the 2^20 query shape
     emit({"phase": "kernels", "case": "multi-eval dynamic shared memory, bytes",
           **{f"Q={q}": lib.zk_multi_eval_smem(q) for q in (1, 2, 32)}})
+    for q, t in MLAD_CASES:
+        bases = from_numpy(to_limbs(meval_points(rng, q)), DEV)
+        s, n2 = me.split(t)
+        ldb = -(-s // me.LADDER_ALIGN) * me.LADDER_ALIGN
+        # the ladder kernel writes the bytes of l1 and the cells of l2, a
+        # multiply an output; ms is the C entry's, wrapper_ms the launch's
+        # with the comparison's flattening
+        lname, largs, lkeep = capture_entry(kernels, me.launch_ladders, bases, t)
+        lad_out[(q, t)] = compare(mlad_name(q, t), lambda: ladders_flat(me.launch_ladders(lib, stream, bases, t)),
+                                  lambda: plain(lambda: ladders_flat(me.ladders_plain(bases, t))),
+                                  q * (16 * ldb + n2 * PACKED_BYTES), q * (s + n2) * OPS_MUL,
+                                  entry_fn=lambda: kernels.check(getattr(lib, lname)(*largs), lname))
+        del bases, largs, lkeep
     for c, q, t in MEVAL_CASES:
         name = meval_name(c, q, t)
         coeffs, points = rand_limbs(rng, (c, 8, t), spread=True), meval_points(rng, q)
-        bases = from_numpy(to_limbs(points), DEV)
         s, n2 = me.split(t)
-        ldb = -(-s // me.LADDER_ALIGN) * me.LADDER_ALIGN
-        lad_bytes = q * (16 * ldb + n2 * PACKED_BYTES)
-        lad_out[(c, q, t)] = compare(f"{name} ladders", lambda: ladders_flat(me.launch_ladders(lib, stream, bases, t)),
-                                     lambda: plain(lambda: ladders_flat(me.ladders_plain(bases, t))),
-                                     lad_bytes, q * (s + n2) * OPS_MUL)
         (lad,) = meval_operands(me, coeffs, points)
         cname, cargs, keep = capture_entry(kernels, me.launch_multi_eval, coeffs, lad)
         # the kernel reads the coefficients, the ladder bytes and cells, and writes the rows
@@ -798,7 +880,7 @@ def meval_kernels(rng):
         emit({"phase": "kernels", "case": name, "rows_host_ms": res["rows_host_ms"],
               **({"library_ms": res["library_ms"]} if "library_ms" in res else {})})
         out[(c, q, t)] = res
-        del coeffs, bases, lad, cargs, keep
+        del coeffs, lad, cargs, keep
         torch.cuda.empty_cache()
     emit({"phase": "kernels", "check": "field_ops launches across the multi-eval's plain versions",
           "launches": plain_op_launches})
@@ -823,14 +905,17 @@ def meval_kernels(rng):
             raise AssertionError(f"multi_eval_rows did not raise on a failing {entry} launch, or fell back to the "
                                  "plain version")
     return (dict(out[big], max_abs_err=max(r["max_abs_err"] for r in out.values())),
-            dict(lad_out[big], max_abs_err=max(r["max_abs_err"] for r in lad_out.values())))
+            dict(lad_out[big[1:]], max_abs_err=max(r["max_abs_err"] for r in lad_out.values())))
 
 
 # the case of each FRI and DEEP family that the kernels line reports: the
 # shape a 2^16 T-mode prove launches (the first fold, the remainder's
-# scale, the sums over the 28 trace columns, a class's quotient)
-FRI_DEEP_REPORTED = {"fri_fold": "FRI fold n=2^16", "ladder": "FRI ladder B=1 n=2^10 x",
-                     "weighted_sum": "DEEP sum K=2 C=28 N=2^16", "deep_quotient": "DEEP quotient K=3 N=2^16"}
+# scale through the host-constant ladder, the sums over the 28 trace
+# columns, a class's quotient), and for the device-base ladder the mid
+# twiddles of a size-2^19 transform (cold constants)
+FRI_DEEP_REPORTED = {"fri_fold": "FRI fold n=2^16", "ladder": "FRI ladder B=1024 n=512",
+                     "ladder_const": "FRI ladder const B=1 n=2^10 x", "weighted_sum": "DEEP sum K=2 C=28 N=2^16",
+                     "deep_quotient": "DEEP quotient K=3 N=2^16"}
 # their plain versions, which a failing launch must not reach
 FRI_DEEP_PLAIN = ((fri, "fold_plain"), (nt, "ladder_plain"), (dp, "weighted_sum_plain"),
                   (dp, "deep_quotient_plain"))
@@ -876,6 +961,7 @@ def fri_deep_kernels(rng):
     v, one = rand_limbs(rng, (fri.FOLD, 8, 1 << 10)), rand_limbs(rng, (8, 1))[:, 0]
     cols = rand_limbs(rng, (3, 8, 1 << 10))
     calls = {"zk_fri_fold": lambda: fri.fold_t(v, 5, 7), "zk_ladder": lambda: nt.ladder_t(one, one, 1 << 10),
+             "zk_ladder_const": lambda: nt.ladder_t_host(3, 1 << 10, 5, DEV),
              "zk_weighted_sum": lambda: dp.weighted_sum(cols, [[1, 2, 3]]),
              "zk_deep_quotient": lambda: dp.deep_quotient(cols, [1, 2, 3], cols)}
     real_lib, saved = kernels.lib, [getattr(mod, name) for mod, name in FRI_DEEP_PLAIN]
@@ -930,7 +1016,7 @@ MODES = ("tmode", "mono", "cls")
 # and once more for the constants of a cold prove; the cls path: K4 once a
 # class, the batch inverse twice a class, no K3; cold mono at T = 2^20: K4
 # once over the domain, the batch inverse for the constants and the DEEP)
-FRI_DEEP = ("fri_fold", "ladder", "weighted_sum", "deep_quotient")
+FRI_DEEP = ("fri_fold", "ladder_const", "weighted_sum", "deep_quotient")
 MONO_KERNELS = ("ntt_stages", "blake3_rows", "merkle", "transition", "batch_inverse", "field_ops", "multi_eval",
                 "meval_ladders") + FRI_DEEP
 TMODE_KERNELS = ("ntt_stages", "blake3_rows", "merkle", "composition", "batch_inverse", "field_ops", "multi_eval",
@@ -938,29 +1024,30 @@ TMODE_KERNELS = ("ntt_stages", "blake3_rows", "merkle", "composition", "batch_in
 PATH_KERNELS = {"tmode": TMODE_KERNELS,
                 "mono": MONO_KERNELS,
                 "cls": MONO_KERNELS,
-                "lr_large_cold": ("batch_inverse", "field_ops", "multi_eval", "meval_ladders") + FRI_DEEP,
+                "lr_large_cold": ("batch_inverse", "field_ops", "multi_eval", "meval_ladders", "ladder") + FRI_DEEP,
                 "lr_large": TMODE_KERNELS,
                 "lr_large_cls": MONO_KERNELS,
                 "lr_large_mono": MONO_KERNELS}
 # the multi-eval: the OOD frame's two calls and the query rows' two in
 # T-mode and cls, the OOD frame's alone in mono (and on each rank of h);
-# its ladder kernel once a point set (z and z g, z^8, the query points).
-# FRI: a fold a layer (3 at D = 2^19, 5 at 2^23) and, in a steady prove,
-# the remainder's scale the one ladder; the DEEP: two column sums and a
-# quotient a class (T-mode, cls) or a row block (mono: one at 2^16, 16 at
-# 2^20)
-FRI_DEEP_16 = {"fri_fold": 3, "ladder": 1, "weighted_sum": 2, "deep_quotient": 8}
+# its ladder kernel once a point set (z, z g and z^8 in one, the query
+# points).  FRI: a fold a layer (3 at D = 2^19, 5 at 2^23) and, in a
+# steady prove, the remainder's scale the one ladder, through the
+# host-constant entry (the device-base entry builds only the mid
+# twiddles, in a cold prove); the DEEP: two column sums and a quotient a
+# class (T-mode, cls) or a row block (mono: one at 2^16, 16 at 2^20)
+FRI_DEEP_16 = {"fri_fold": 3, "ladder": 0, "ladder_const": 1, "weighted_sum": 2, "deep_quotient": 8}
 FRI_DEEP_20 = {"fri_fold": 5, "weighted_sum": 2, "deep_quotient": 8}
-CLS_EXACT = {"transition": 8, "batch_inverse": 16, "composition": 0, "multi_eval": 4, "meval_ladders": 3}
-PATH_EXACT = {"tmode": {"transition": 0, "batch_inverse": 8, "multi_eval": 4, "meval_ladders": 3, **FRI_DEEP_16},
-              "mono": {"composition": 0, "multi_eval": 2, "meval_ladders": 2, **FRI_DEEP_16, "deep_quotient": 1},
+CLS_EXACT = {"transition": 8, "batch_inverse": 16, "composition": 0, "multi_eval": 4, "meval_ladders": 2}
+PATH_EXACT = {"tmode": {"transition": 0, "batch_inverse": 8, "multi_eval": 4, "meval_ladders": 2, **FRI_DEEP_16},
+              "mono": {"composition": 0, "multi_eval": 2, "meval_ladders": 1, **FRI_DEEP_16, "deep_quotient": 1},
               "cls": {**CLS_EXACT, **FRI_DEEP_16},
-              "lr_large_cold": {"batch_inverse": 9, "multi_eval": 4, "meval_ladders": 3, **FRI_DEEP_20},
-              "lr_large": {"batch_inverse": 8, "transition": 0, "multi_eval": 4, "meval_ladders": 3, **FRI_DEEP_20,
-                           "ladder": 1},
+              "lr_large_cold": {"batch_inverse": 9, "multi_eval": 4, "meval_ladders": 2, **FRI_DEEP_20},
+              "lr_large": {"batch_inverse": 8, "transition": 0, "multi_eval": 4, "meval_ladders": 2, **FRI_DEEP_20,
+                           "ladder": 0, "ladder_const": 1},
               "lr_large_cls": {**CLS_EXACT, **FRI_DEEP_20},
               "lr_large_mono": {"composition": 0, "transition": 1, "batch_inverse": 2, "multi_eval": 2,
-                                "meval_ladders": 2, "fri_fold": 5, "weighted_sum": 32, "deep_quotient": 16}}
+                                "meval_ladders": 1, "fri_fold": 5, "weighted_sum": 32, "deep_quotient": 16}}
 # the timed 2^16 T-mode prove launched fewer field ops and K1 than these
 # (the parent's counts before the FRI and DEEP kernels: PERF.md §4, one
 # H100, 230 field-op and 74 K1 launches)
@@ -1223,8 +1310,8 @@ def phase_dist(card, want):
                                          f"{world}-rank {backend} run")
             if r["launches"]["composition"] != 0:
                 raise AssertionError("K3 launched on the sharded mono path")
-            for name, n in (("multi_eval", 2), ("meval_ladders", 2), ("fri_fold", 3), ("weighted_sum", 2),
-                            ("deep_quotient", 1)):
+            for name, n in (("multi_eval", 2), ("meval_ladders", 1), ("fri_fold", 3), ("weighted_sum", 2),
+                            ("deep_quotient", 1), ("ladder", 0)):
                 if r["launches"][name] != n:
                     raise AssertionError(f"kernel {name} launched {r['launches'][name]} times on rank {r['rank']}, "
                                          f"expected {n} (the OOD frame's, a fold a layer, one row block's DEEP)")
@@ -1256,6 +1343,8 @@ SOURCES = {
                  "zkvm/prover/fri.py:104 _fold_core_t (its M = 8 iNTT K1, zkvm/ntt/ntt_t.py:320 _pallas_stages; "
                  "the rest XLA)"),
     "ladder": ("zkvm_torch/csrc/fri_fold.cu", "zkvm/ntt/ntt_t.py:185 ladder_t (XLA, no Pallas)"),
+    "ladder_const": ("zkvm_torch/csrc/fri_fold.cu",
+                     "zkvm/ntt/ntt_t.py:185 ladder_t, called by :150 ladder_t_host (XLA, no Pallas)"),
     "weighted_sum": ("zkvm_torch/csrc/deep.cu",
                      "zkvm/prover/pipeline.py:630-632 _stage_deep_cls's column sums (XLA, no Pallas)"),
     "deep_quotient": ("zkvm_torch/csrc/deep.cu",
@@ -1265,10 +1354,11 @@ SOURCES = {
 
 def main():
     card = phase_device()
+    wait_for_card("start")
     phase_build()
-    results = phase_kernels()
-    phase_conformance()
-    runs = {mode: phase_bench(mode) for mode in MODES}
+    results = run_phase("kernels", phase_kernels)
+    run_phase("conformance", phase_conformance)
+    runs = {mode: run_phase("bench", phase_bench, mode) for mode in MODES}
     by_path = {mode: launches for mode, (launches, _) in runs.items()}
     # the three layouts prove the same trace: their proofs must be the same bytes
     same = runs["tmode"][1] == runs["mono"][1] == runs["cls"][1]
@@ -1278,8 +1368,8 @@ def main():
     bench_proof = runs["tmode"][1]
     del runs
     torch.cuda.empty_cache()
-    by_path.update(phase_lr_large(card))
-    by_path["dist"] = phase_dist(card, bench_proof)
+    by_path.update(run_phase("lr_large", phase_lr_large, card))
+    by_path["dist"] = run_phase("dist", phase_dist, card, bench_proof)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],

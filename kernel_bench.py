@@ -2,9 +2,9 @@
 """Time the hand-written kernels K1-K4, the Merkle heap, the batch
 inverse, the field-op kernel and the multi-eval kernel on one CUDA card.
 
-    python3 kernel_bench.py [--tree DIR] [--label NAME] [--only K1 K2 K3 K4 Merkle BINV FOPS MEVAL FRI DEEP]
-                            [--large]
-    python3 kernel_bench.py --sweep [K1 K2 K3 K4 Merkle BINV FOPS MEVAL FRI DEEP] [--tree DIR] [--label NAME]
+    python3 kernel_bench.py [--tree DIR] [--label NAME]
+                            [--only K1 K2 K3 K4 Merkle BINV FOPS MEVAL MLAD FRI DEEP] [--large]
+    python3 kernel_bench.py --sweep [K1 K2 K3 K4 Merkle BINV FOPS MEVAL MLAD FRI DEEP] [--tree DIR] [--label NAME]
     python3 kernel_bench.py --sass [--tree DIR]
     python3 kernel_bench.py --profile [--only Merkle FRI] [--tree DIR] [--label NAME]
 
@@ -52,14 +52,20 @@ from the call the prover makes down to the C entry point:
   ``multi_eval_rows`` (the float64 product) at the rows level alone; a
   tree whose kernel takes the ladders' limb factors (its parent) builds
   them as its wrapper does (``ladder_factors``).
+  the multi-eval's ladder kernel alone (multi_eval.cu, MLAD) at MLAD_CASES
+  (the point sets of MEVAL_CASES and the OOD frame's three points):
+    ladders  ``multi_eval.launch_ladders``,
+    entry    the C entry alone, as above;
   the FRI and DEEP kernels (fri_fold.cu: FRI, the fold at FRI_CASES and
-  the ladder at LADDER_CASES; deep.cu: DEEP, the column sums at
+  the ladder at LADDER_CASES through both entries, ``zk_ladder`` of device
+  bases and, where the tree has it and B = 1, ``zk_ladder_const`` of host
+  ints; deep.cu: DEEP, the column sums at
   DEEP_SUM_CASES and the quotient at DEEP_QUOTIENT_CASES, and a strided
   block of each, DEEP_BLOCK; see fri_deep_cases):
-    wrapper  ``fri.fold_t`` / ``ntt_t.ladder_t`` / ``deep.weighted_sum`` /
-             ``deep.deep_quotient``,
-    launch   ``launch_fold`` / ``launch_ladder`` / ``launch_weighted_sum``
-             / ``launch_deep_quotient``,
+    wrapper  ``fri.fold_t`` / ``ntt_t.ladder_t`` / ``ntt_t.ladder_t_host``
+             / ``deep.weighted_sum`` / ``deep.deep_quotient``,
+    launch   ``launch_fold`` / ``launch_ladder`` / ``launch_ladder_const``
+             / ``launch_weighted_sum`` / ``launch_deep_quotient``,
     entry    the C entry alone, as above,
     plain    the plain version (one call); the tree must have them;
   A tree without the Merkle kernel (the parent of its port) times its
@@ -230,6 +236,13 @@ FOP_THREADS = [256, 128, 512, 64]
 # columns at 32 points) at T = 2^16 (the bench's chain) and 2^20 (the LR)
 MEVAL_CASES = [(28, 2, 1 << 16), (8, 1, 1 << 16), (28, 32, 1 << 16), (8, 32, 1 << 16),
                (28, 2, 1 << 20), (8, 1, 1 << 20), (28, 32, 1 << 20), (8, 32, 1 << 20)]
+# its ladder kernel's (Q, T): each point set of MEVAL_CASES and the OOD
+# frame's one set of z, z g and z^8 (Q = 3), the provers' since the OOD
+# frame reads its two tensors' points from one ladder launch
+MLAD_CASES = sorted({(q, t) for _, q, t in MEVAL_CASES} | {(3, 1 << 16), (3, 1 << 20)}, key=lambda qt: (qt[1], qt[0]))
+# its launch shapes: threads a block (two warps or more), outputs a
+# thread; the first is the shipped default
+MLAD_SHAPES = [(64, 2), (64, 1), (64, 4), (32, 2), (32, 4), (32, 8), (64, 8), (128, 2)]
 # its tile for 3 points or more: groups (m16 tiles) a warp, warps along the
 # groups, points a warp, warps along the points, t a chunk; the first is
 # the shipped default (8 groups x 16 points over 8 warps, chunks of 64)
@@ -240,11 +253,12 @@ MEVAL_SHAPES = [(2, 4, 8, 2, 64), (2, 4, 8, 2, 32), (4, 2, 4, 2, 64), (2, 4, 8, 
 # = 2^23: 2^20 down to 2^8); the ladder's (B, n, x): the FRI remainder's
 # scale at 2^16 and 2^20 (x its (8, 1024) and (8, 256) coefficients), and
 # the cold constants: a class's points at T = 2^16 and 2^20, a row block of
-# mono's domain points (2^19), and the mid twiddles of a size-2^19
-# transform (1024 strided bases over 512 lanes, one broadcast scale)
+# mono's domain points (2^19), the mid twiddles of a size-2^19 transform
+# (1024 strided bases over 512 lanes, one broadcast scale), and the 2^20
+# cold prove's inverse-offset ladder over D = 2^23 (inv_off_t)
 FRI_CASES = [1 << 16, 1 << 13, 1 << 10, 1 << 20, 1 << 17, 1 << 14, 1 << 11, 1 << 8]
 LADDER_CASES = [(1, 1 << 10, True), (1, 1 << 8, True), (1, 1 << 16, False), (1, 1 << 20, False),
-                (1, 1 << 19, False), (1024, 512, False)]
+                (1, 1 << 19, False), (1024, 512, False), (1, 1 << 23, False)]
 # DEEP (csrc/deep.cu): the column sums (K, C, N) of T-mode and cls (the 28
 # trace columns' two weight sets, the 8 composition columns' one, over T
 # = 2^16 and 2^20) and of mono at 2^16 (over D = 2^19); the quotient (K, N)
@@ -286,13 +300,23 @@ SWEEPS = {
     "MEVAL": ("multi_eval.cu", "zk_multi_eval", [
         {"ZK_MEVAL_WM": wm, "ZK_MEVAL_BM": bm, "ZK_MEVAL_WQ": wq, "ZK_MEVAL_BN": bn, "ZK_MEVAL_KC": kc}
         for wm, bm, wq, bn, kc in MEVAL_SHAPES]),
+    "MLAD": ("multi_eval.cu", "zk_meval_ladders", [{"ZK_MLAD_THREADS": th, "ZK_MLAD_LANES": ln}
+                                                   for th, ln in MLAD_SHAPES]),
     # threads a block, lanes a thread (the fold above its one-lane n and
-    # the ladder), the largest n the fold takes at one lane (0: none)
-    "FRI": ("fri_fold.cu", "zk_fri_fold", [{"ZK_FOLD_THREADS": th, "ZK_FOLD_LANES": ln, "ZK_FOLD_ONE_LANE_MAX": one}
-                                            for th, ln, one in [(128, 4, 1 << 17), (128, 4, 0), (64, 4, 1 << 17),
-                                                                (256, 4, 1 << 17), (128, 8, 1 << 17),
-                                                                (128, 2, 1 << 17), (128, 4, 1 << 20),
-                                                                (32, 4, 1 << 17)]]),
+    # the device-base ladder), the largest n the fold takes at one lane (0:
+    # none); the host-constant ladder's lanes above its largest one-lane n
+    "FRI": ("fri_fold.cu", "zk_fri_fold", [{"ZK_FOLD_THREADS": th, "ZK_FOLD_LANES": ln, "ZK_FOLD_ONE_LANE_MAX": one,
+                                             "ZK_LADDER_LANES": cl, "ZK_LADDER_ONE_LANE_MAX": cone}
+                                            for th, ln, one, cl, cone in [
+                                                (128, 4, 1 << 17, 8, 1 << 17), (128, 4, 0, 8, 1 << 17),
+                                                (64, 4, 1 << 17, 8, 1 << 17), (256, 4, 1 << 17, 8, 1 << 17),
+                                                (128, 8, 1 << 17, 8, 1 << 17), (128, 2, 1 << 17, 8, 1 << 17),
+                                                (128, 4, 1 << 20, 8, 1 << 17), (32, 4, 1 << 17, 8, 1 << 17),
+                                                (128, 4, 1 << 17, 4, 1 << 17), (128, 4, 1 << 17, 16, 1 << 17),
+                                                (128, 4, 1 << 17, 32, 1 << 17), (128, 4, 1 << 17, 8, 1 << 15),
+                                                (128, 4, 1 << 17, 8, 1 << 19), (128, 4, 1 << 17, 16, 1 << 15),
+                                                (128, 4, 1 << 17, 16, 1 << 14), (128, 4, 1 << 17, 16, 1 << 16),
+                                                (128, 4, 1 << 17, 32, 1 << 15), (128, 4, 1 << 17, 16, 1 << 13)]]),
     "DEEP": ("deep.cu", "zk_weighted_sum", [{"ZK_DEEP_THREADS": th} for th in (256, 128, 512, 64)]),
 }
 
@@ -454,6 +478,10 @@ def meval_name(c, q, t):
     return f"MEVAL C={c} Q={q} T=2^{t.bit_length() - 1}"
 
 
+def mlad_name(q, t):
+    return f"MEVAL ladders Q={q} T=2^{t.bit_length() - 1}"
+
+
 def meval_points(rng, q):
     """q random points, with 0, 1 and p - 1 among them from q = 4 on."""
     from zkvm_torch.field import f128
@@ -511,11 +539,22 @@ def fri_deep_cases(rng, limbs, only=("FRI", "DEEP")):
         for b, n, with_x in LADDER_CASES:
             base = limbs((8, b)).T if b > 1 else limbs((8, 1))[:, 0]  # B strided rows, as the mid twiddles give them
             scale, x = limbs((8, 1))[:, 0], (limbs((8, n)) if with_x else None)
+            work = dict(nbytes=(2 if with_x else 1) * 32 * b * n, muls=(2 if with_x else 1) * b * n, adds=0)
             yield dict(name=f"FRI ladder B={b} n={_dims((n,))[1:-1]}" + (" x" if with_x else ""), family="ladder",
                        wrapper=lambda a=(base, scale, n, x): nt.ladder_t(*a),
                        plain=lambda a=(base, scale, n, x): nt.ladder_plain(*a),
-                       launch=lambda lib, stream, a=(base, scale, n, x): nt.launch_ladder(lib, stream, *a),
-                       nbytes=(2 if with_x else 1) * 32 * b * n, muls=(2 if with_x else 1) * b * n, adds=0)
+                       launch=lambda lib, stream, a=(base, scale, n, x): nt.launch_ladder(lib, stream, *a), **work)
+            dev = base.device
+            del base, scale
+            if b > 1 or not hasattr(nt, "launch_ladder_const"):
+                continue
+            # the same ladder of a base and a scale that the host knows
+            hb, hs = ints(2)
+            yield dict(name=f"FRI ladder const B=1 n={_dims((n,))[1:-1]}" + (" x" if with_x else ""),
+                       family="ladder_const", wrapper=lambda a=(hb, n, hs, dev, x): nt.ladder_t_host(*a),
+                       plain=lambda a=(hb, hs, n, x, dev): nt.ladder_plain(*nt.host_limbs(a[:2], a[4]), *a[2:4]),
+                       launch=lambda lib, stream, a=(hb, hs, n, x, dev): nt.launch_ladder_const(lib, stream, *a),
+                       **work)
     if "DEEP" not in only:
         return
     lanes, block = DEEP_BLOCK
@@ -741,6 +780,18 @@ def bench_tree(tree, label, only, reps=20, large=False):
                "ms": cuda_ms(lambda: me.multi_eval_rows_plain(coeffs, points), 1)[0]})
         del coeffs
         torch.cuda.empty_cache()
+    for q, t in MLAD_CASES if "MLAD" in only else []:
+        from zkvm_torch.field.limbs import from_numpy, to_limbs
+        from zkvm_torch.prover import multi_eval as me
+
+        bases = from_numpy(to_limbs(meval_points(rng, q)), dev)
+        cname, cargs, keep = capture_entry(kernels, me.launch_ladders, bases, t)
+        calls = {"ladders": lambda: me.launch_ladders(lib, stream, bases, t),
+                 "entry": lambda: kernels.check(getattr(lib, cname)(*cargs), cname)}
+        for level, fn in calls.items():
+            ms, host_ms = cuda_ms(fn, reps)
+            _emit({"tree": label, "case": mlad_name(q, t), "level": level, "ms": ms, "host_ms": host_ms})
+        del bases, cargs, keep, calls
     for case in (fri_deep_cases(rng, limbs, only) if {"FRI", "DEEP"} & set(only) else []):
         cname, cargs, keep = capture_entry(kernels, case["launch"], None)
         calls = {
@@ -857,6 +908,16 @@ def sweep(tree, label, kernels_to_sweep, reps=20):
         elif kernel in ("FRI", "DEEP"):
             cases = [(c["name"], c["plain"](), lambda lib, f=c["launch"]: f(lib, stream))
                      for c in fri_deep_cases(rng, lambda shape: _limbs(rng, shape, dev), (kernel,))]
+        elif kernel == "MLAD":
+            from zkvm_torch.field.limbs import from_numpy, to_limbs
+            from zkvm_torch.prover import multi_eval as me
+
+            flat = lambda lad: torch.cat([lad.digits.flatten().int(), lad.cells.flatten()])
+            cases = []
+            for q, t in MLAD_CASES:
+                bases = from_numpy(to_limbs(meval_points(rng, q)), dev)
+                cases.append((mlad_name(q, t), flat(me.ladders_plain(bases, t)),
+                              lambda lib, b=bases, t=t: flat(me.launch_ladders(lib, stream, b, t))))
         elif kernel == "MEVAL":
             from zkvm_torch.prover import multi_eval as me
 
@@ -980,9 +1041,9 @@ def main(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", type=Path, default=ROOT, help="checkout whose zkvm_torch is timed")
     ap.add_argument("--label", default="this", help="name of the tree in the output")
-    ap.add_argument("--only", nargs="+", default=["K1", "K2", "K3", "K4", "Merkle", "BINV", "FOPS", "MEVAL", "FRI",
-                                                  "DEEP"],
-                    choices=["K1", "K2", "K3", "K4", "Merkle", "BINV", "FOPS", "MEVAL", "FRI", "DEEP"],
+    ap.add_argument("--only", nargs="+", default=["K1", "K2", "K3", "K4", "Merkle", "BINV", "FOPS", "MEVAL", "MLAD",
+                                                  "FRI", "DEEP"],
+                    choices=["K1", "K2", "K3", "K4", "Merkle", "BINV", "FOPS", "MEVAL", "MLAD", "FRI", "DEEP"],
                     help="kernels to time")
     ap.add_argument("--large", action="store_true", help="the cases of the 2^20-row path")
     ap.add_argument("--sweep", nargs="*", choices=list(SWEEPS), help="time these kernels at each shape of SWEEPS")

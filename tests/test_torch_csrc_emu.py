@@ -122,6 +122,22 @@ def test_mul32_emulated(emu):
     assert got == [f128.fmul(x, y) for x, y in zip(a, b)]
 
 
+def test_sqr32_emulated(emu):
+    """zk::sqr32, the ladders' squaring from 10 limb products, alone (its
+    probe kernel) against the golden f128.fmul(a, a) on the edge values
+    (words of all ones or zeros, each word's top bit, p - 1, eps) and on
+    random elements."""
+    edges = [0, 1, 2, 2**32 - 1, 2**32, 2**64 - 1, 2**64, 2**96 - 1, 2**127, f128.P - 2**32, f128.P - 1, f128.P - 2,
+             45 * 2**40 - 1, 45 * 2**40, 2**96 + 2**32 - 1, f128.P - 2**64, sum(2**(32 * i + 31) for i in range(4))]
+    rng = np.random.default_rng(129)
+    rand = [int(a) << 64 | int(b) for a, b in zip(*rng.integers(0, 2**63, size=(2, 500), dtype=np.int64))]
+    a = edges + [(v << 1 | (v & 1)) % f128.P for v in rand]
+    xa = np.array([[v & (2**64 - 1), v >> 64] for v in a], dtype=np.uint64)
+    out = np.zeros_like(xa)
+    assert emu.zk_sqr32(xa.ctypes.data, out.ctypes.data, len(a), None) == 0
+    assert [int(hi) << 64 | int(lo) for lo, hi in out] == [f128.fmul(x, x) for x in a]
+
+
 @pytest.mark.parametrize("c,n", [(28, 300), (8, 64), (1, 5), (8, 256), (28, 1), (1, 600)])
 def test_blake3_rows_emulated(emu, c, n):
     """K2 at its shipped launch shape (256 threads a block): one full block

@@ -6,9 +6,10 @@ for the fold, the JAX ``zkvm.prover.fri._fold_core_t`` at the ladder of
 
 Each source is built twice: at its shipped launch shape and at a small
 one (``SMALL``: 4 threads a block and 2 lanes a thread, the fold at one
-lane a thread up to n = 2^10 only), so that small inputs cross blocks,
-partial blocks, the ladder's step between a thread's lanes and both of
-the fold's instances.  The plain versions launch nothing (the dispatching field
+lane a thread up to n = 2^10 only, the host-constant ladder at 3 lanes a
+thread from n = 128 on), so that small inputs cross blocks, partial
+blocks, the ladders' step between a thread's lanes and both instances of
+the fold and of the host-constant ladder.  The plain versions launch nothing (the dispatching field
 ops and K1 patched to raise); the T = 128 conformance proves in the three
 modes, and FRI over two layers, run with every call of the four entries
 through the emulation; a failing launch raises and nothing falls back.
@@ -42,8 +43,9 @@ from zkvm_torch.prover.transcript import RandomCoin
 torch.set_num_threads(1)
 
 VECTORS = Path(__file__).resolve().parent.parent / "conformance" / "vectors_e2e.json"
-SMALL = ("ZK_FOLD_THREADS=4", "ZK_FOLD_LANES=2", "ZK_FOLD_ONE_LANE_MAX=1024", "ZK_DEEP_THREADS=4")
-ENTRIES = ("zk_fri_fold", "zk_ladder", "zk_weighted_sum", "zk_deep_quotient")
+SMALL = ("ZK_FOLD_THREADS=4", "ZK_FOLD_LANES=2", "ZK_FOLD_ONE_LANE_MAX=1024", "ZK_LADDER_LANES=3",
+         "ZK_LADDER_ONE_LANE_MAX=64", "ZK_DEEP_THREADS=4")
+ENTRIES = ("zk_fri_fold", "zk_ladder", "zk_ladder_const", "zk_weighted_sum", "zk_deep_quotient")
 EDGES = (0, 1, f128.P - 1, 2**64 - 1, 2**112 - 1, 45 * 2**40 - 1, 2**127)
 
 
@@ -132,8 +134,8 @@ def test_fold_power_table():
     four words an element."""
     rng = np.random.default_rng(50)
     for base in [int(x) for x in _rand(rng, (3,))] + [f128.finv(f128.get_root_of_unity(1 << 19))]:
-        squares, powers = fri.power_table(base)
-        assert len(squares) == fri.FOLD_LEVELS == 48 and len(powers) == fri.WARP_POWERS == 32
+        squares, powers = nt.power_table(base)
+        assert len(squares) == nt.LADDER_LEVELS == 48 and len(powers) == nt.WARP_POWERS == 32
         assert list(squares) == [pow(base, 2**e, f128.P) for e in range(48)]
         assert list(powers) == [pow(base, i, f128.P) for i in range(32)]
         words = list(fri.fold_scalars(7, base))
@@ -157,6 +159,29 @@ def test_fold_launch_builds_no_tensor_from_host_data(emu, monkeypatch):
     assert built == [], f"the fold's launch built {built}"
 
 
+def test_ladder_const_launch_builds_no_tensor_from_host_data(emu, monkeypatch):
+    """The host-constant ladder's launch (``ladder_t_host`` on a card)
+    builds no tensor from host data, so nothing is copied to the card, and
+    a second call of a (base, scale) reuses the cached table: its table is
+    ``ladder_table``, the scale and ``power_table`` of the base, four
+    words an element."""
+    base, scale = 0xC0FFEE, f128.P - 1
+    table = nt.ladder_table(base, scale)
+    squares, powers = nt.power_table(base)
+    assert list(table) == list(kernels.words([scale, *squares, *powers]))
+    built = []
+    for name in ("tensor", "from_numpy", "as_tensor"):
+        fn = getattr(torch, name)
+        monkeypatch.setattr(torch, name, lambda *a, _n=name, _f=fn, **k: built.append(_n) or _f(*a, **k))
+    x = torch.zeros((2, 8, 64), dtype=torch.int32)
+    hits = nt.ladder_table.cache_info().hits
+    for lib in emu.values():
+        nt.launch_ladder_const(lib, None, base, scale, 64, device="cpu")
+        nt.launch_ladder_const(lib, None, base, scale, 64, x=x)
+    assert built == [], f"the ladder's launch built {built}"
+    assert nt.ladder_table.cache_info().hits - hits == 4 and nt.ladder_table(base, scale) is table
+
+
 def test_ladder_kernel_emulated(emu):
     """The ladder entry in both builds equals the doubling (``ladder_plain``)
     for n = 1 .. 2^12, with and without x, and over rows: (B, 8) bases
@@ -178,6 +203,25 @@ def test_ladder_kernel_emulated(emu):
         for name, lib in emu.items():
             got = nt.launch_ladder(lib, None, bases, scale, n, xs)
             np.testing.assert_array_equal(to_numpy(got), to_numpy(want), err_msg=f"{name} rows n={n}")
+
+
+@pytest.mark.parametrize("base", [0, 1, f128.P - 1, 0x1234_5678_9ABC_DEF0_0FED_CBA9_8765_4321])
+@pytest.mark.parametrize("n", [1, 2, 32, 64, 1 << 10, 1 << 12])
+def test_ladder_const_kernel_emulated(emu, n, base):
+    """The host-constant ladder entry (``launch_ladder_const``) in both
+    builds equals ``ladder_plain`` on the same base and scale as limbs,
+    without x, with one row of x and with 3 rows (the sharded coset LDE's
+    columns), at bases 0, 1, p - 1 and a random one."""
+    rng = np.random.default_rng(n + base % 1000)
+    scale = int(_rand(rng, (1,))[0])
+    ops = tensor([base, scale])  # (2, 8)
+    x = _t(_rand(rng, (3, n)))
+    for xs in (None, x[1], x):
+        want = nt.ladder_plain(ops[0], ops[1], n, xs)
+        for name, lib in emu.items():
+            got = nt.launch_ladder_const(lib, None, base, scale, n, xs, device="cpu")
+            assert got.shape == want.shape, name
+            np.testing.assert_array_equal(to_numpy(got), to_numpy(want), err_msg=f"{name} n={n}")
 
 
 @pytest.mark.parametrize("k", [1, 2, 3])
@@ -251,12 +295,17 @@ def through_emu(emu, monkeypatch):
     def ladder(base, scale, n, x=None):
         return nt.ladder_kernel(lib, None, base, scale, n, x)
 
+    def ladder_host(base, n, scale=1, device="cpu", x=None):
+        return nt.ladder_const_kernel(lib, None, base, scale, n, x, torch.device(device))
+
     monkeypatch.setattr(nt, "ladder_t", ladder)
+    monkeypatch.setattr(nt, "ladder_t_host", ladder_host)
     monkeypatch.setattr(fri, "fold_t", lambda v, scale, base: fri.fold_kernel(lib, None, v.contiguous(), scale,
                                                                                base))
     monkeypatch.setattr(dp, "weighted_sum", lambda c, w, out=None: dp.weighted_sum_kernel(lib, None, c, w, out))
     monkeypatch.setattr(dp, "deep_quotient", lambda v, at, inv: dp.deep_quotient_kernel(lib, None, v, at, inv))
-    return lambda: (fri.fold_launches, nt.ladder_launches, dp.sum_launches, dp.quotient_launches)
+    return lambda: (fri.fold_launches, nt.ladder_launches, nt.ladder_const_launches, dp.sum_launches,
+                    dp.quotient_launches)
 
 
 @pytest.mark.parametrize("mode", ["tmode", "mono", "cls"])
@@ -271,11 +320,12 @@ def test_provers_through_the_emulated_fri_deep_kernels(through_emu, mode):
     inputs = vm.ProgramInputs(tuple(vec["public_inputs_tape"]), (key.encrypt(2),), key)
     _, _, proof = vm.prove(program, inputs, device="cpu", mode=mode)
     assert proof.to_wire_bytes().hex() == vec["proof_bytes_hex"]
-    fold, ladder, sums, quotients = (a - b for a, b in zip(through_emu(), before))
+    fold, ladder, ladder_const, sums, quotients = (a - b for a, b in zip(through_emu(), before))
     # the DEEP: two sums and a quotient a class (T-mode, cls) or a row block
-    # (mono, one block at T = 128); the remainder's scale a ladder
+    # (mono, one block at T = 128); the remainder's scale a host-constant
+    # ladder (and the constants' ladders, where not cached yet)
     assert (fold, sums, quotients) == (0, 2, 1 if mode == "mono" else 8)
-    assert ladder >= 1
+    assert ladder_const >= 1
 
 
 def test_fri_through_the_emulated_kernels(through_emu):
@@ -293,21 +343,26 @@ def test_fri_through_the_emulated_kernels(through_emu):
 
     before = through_emu()
     got = run()
-    fold, ladder = [a - b for a, b in zip(through_emu(), before)][:2]
-    assert fold == 2 and ladder >= 1  # and the remainder iNTT's twiddles where not cached yet
-    torch_fold, torch_ladder = fri.fold_t, nt.ladder_t
+    fold, _, ladder_const = [a - b for a, b in zip(through_emu(), before)][:3]
+    assert fold == 2 and ladder_const >= 1  # and the remainder iNTT's twiddles where not cached yet
+
+    def ladder_host_plain(base, n, scale=1, device="cpu", x=None):
+        ops = nt.host_limbs([base, scale], device if x is None else x.device)
+        return nt.ladder_plain(ops[0], ops[1], n, x)
+
+    torch_fold, torch_ladder, torch_ladder_host = fri.fold_t, nt.ladder_t, nt.ladder_t_host
     try:
-        fri.fold_t, nt.ladder_t = fri.fold_plain, nt.ladder_plain
+        fri.fold_t, nt.ladder_t, nt.ladder_t_host = fri.fold_plain, nt.ladder_plain, ladder_host_plain
         want = run()
     finally:
-        fri.fold_t, nt.ladder_t = torch_fold, torch_ladder
+        fri.fold_t, nt.ladder_t, nt.ladder_t_host = torch_fold, torch_ladder, torch_ladder_host
     assert got[0] == want[0] and got[1] == want[1] and got[3] == want[3]
     for a, b in zip(got[2], want[2]):
         np.testing.assert_array_equal(a, b)
 
 
 class _FailingLib:
-    """A kernel library whose four entries report a failed launch."""
+    """A kernel library whose five entries report a failed launch."""
 
     def __init__(self):
         self.calls = 0
@@ -316,11 +371,11 @@ class _FailingLib:
         self.calls += 1
         return 700  # cudaErrorIllegalAddress
 
-    zk_fri_fold = zk_ladder = zk_weighted_sum = zk_deep_quotient = _fail
+    zk_fri_fold = zk_ladder = zk_ladder_const = zk_weighted_sum = zk_deep_quotient = _fail
 
 
 def test_fri_deep_kernels_refuse_and_never_fall_back(monkeypatch, emu):
-    """A failing launch of any of the four entries raises, through the
+    """A failing launch of any of the five entries raises, through the
     wrapper the prover calls, and reaches no plain version; the entries
     refuse what they cannot take (-1, no launch), and the wrappers refuse
     bad operands on the CPU too and a device with no kernel."""
@@ -337,19 +392,24 @@ def test_fri_deep_kernels_refuse_and_never_fall_back(monkeypatch, emu):
     cols = torch.zeros((3, 8, 16), dtype=torch.int32)
     calls = [("zk_fri_fold", lambda: fri.fold_kernel(failing, None, v, 1, 2)),
              ("zk_ladder", lambda: nt.ladder_kernel(failing, None, one, one, 16)),
+             ("zk_ladder_const", lambda: nt.ladder_const_kernel(failing, None, 3, 5, 16, device="cpu")),
              ("zk_weighted_sum", lambda: dp.weighted_sum_kernel(failing, None, cols, [[1, 2, 3]])),
              ("zk_deep_quotient", lambda: dp.deep_quotient_kernel(failing, None, cols, [1, 2, 3], cols))]
-    before = (fri.fold_launches, nt.ladder_launches, dp.sum_launches, dp.quotient_launches)
+    counts = lambda: (fri.fold_launches, nt.ladder_launches, nt.ladder_const_launches, dp.sum_launches,
+                      dp.quotient_launches)
+    before = counts()
     for entry, call in calls:
         with pytest.raises(RuntimeError, match=f"{entry}: CUDA launch failed with error 700"):
             call()
-    assert failing.calls == 4
-    assert (fri.fold_launches, nt.ladder_launches, dp.sum_launches, dp.quotient_launches) == before
+    assert failing.calls == 5
+    assert counts() == before
     meta = torch.zeros((fri.FOLD, 8, 16), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel for device meta"):
         fri.fold_t(meta, 1, 2)
     with pytest.raises(ValueError, match="no kernel for device meta"):
         nt.ladder_t(one.to("meta"), one.to("meta"), 16)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        nt.ladder_t_host(3, 16, device="meta")
     with pytest.raises(ValueError, match="no kernel for device meta"):
         dp.weighted_sum(cols.to("meta"), [[1, 2, 3]])
     with pytest.raises(ValueError, match="no kernel for device meta"):
@@ -358,6 +418,10 @@ def test_fri_deep_kernels_refuse_and_never_fall_back(monkeypatch, emu):
         fri.fold_t(v[:4], 1, 2)
     with pytest.raises(ValueError, match="power of two"):
         nt.ladder_t(one, one, 12)
+    with pytest.raises(ValueError, match="power of two"):
+        nt.ladder_t_host(3, 12)
+    with pytest.raises(ValueError, match="expected int32 \\(..., 8, 16\\)"):
+        nt.ladder_t_host(3, 16, x=cols.long())
     with pytest.raises(ValueError, match="do not broadcast"):
         nt.ladder_t(torch.zeros((2, 8), dtype=torch.int32), torch.zeros((3, 8), dtype=torch.int32), 4)
     with pytest.raises(ValueError, match="weights for 3 columns"):
@@ -373,6 +437,10 @@ def test_fri_deep_kernels_refuse_and_never_fall_back(monkeypatch, emu):
     assert lib.zk_fri_fold(p, p, 0, kernels.words([0] * 85), p) == -1
     assert lib.zk_ladder(p, 0, 0, p, 0, 1, p, 0, 1, p, 0, 16, p) == -1
     assert lib.zk_ladder(p, 0, 0, p, 0, 1, p, 0, 1, p, 65536, 16, p) == -1
+    table = nt.ladder_table(3, 5)
+    assert lib.zk_ladder_const(p, 0, 0, table, p, 0, 16, p) == -1
+    assert lib.zk_ladder_const(p, 0, 0, table, p, 65536, 16, p) == -1
+    assert lib.zk_ladder_const(p, 0, 0, table, p, 1, 0, p) == -1
     assert lib.zk_weighted_sum(p, 0, 1, kernels.words([0] * 5), p, 5, 1, 16, p) == -1
     assert lib.zk_weighted_sum(p, 0, 1, kernels.words([0] * 129), p, 1, 129, 16, p) == -1
     assert lib.zk_deep_quotient(p, 0, 1, p, 0, 1, kernels.words([0]), p, 0, 16, p) == -1

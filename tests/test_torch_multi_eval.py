@@ -7,9 +7,12 @@ emulation (``csrc/host_emu.h``, which emulates the m16n8k32 u8
 
 The kernel is built twice: at its shipped tile (8 groups of one column a
 block; 16 points for Q >= 3 over 8 warps, 1 or 2 points for the OOD's Q;
-chunks of 64 t, 3 in flight) and at a small one (``SMALL``: one group a block, 2
-points over 2 warps, chunks of 32 t), so that point tiles and slices
-cross and S < 32 leaves the one chunk partial; the contract cases add
+chunks of 64 t, 3 in flight; the ladders' warp of four outputs a
+thread, 128 a block) and at a small one (``SMALL``: one group a block, 2
+points over 2 warps, chunks of 32 t; the ladders' two warps of one
+output a thread, 64 a block),
+so that point tiles and slices cross and S < 32 leaves the one chunk
+partial; the contract cases add
 odd T, S of 1-256 (several chunks, T ending inside a chunk) and S = 2^12
 with every digit 0xFF where the byte products are largest.  The T = 128
 conformance proves in T-mode and cls run with every multi-eval call
@@ -38,7 +41,8 @@ from zkvm_torch.prover import multi_eval as me
 torch.set_num_threads(1)
 
 VECTORS = Path(__file__).resolve().parent.parent / "conformance" / "vectors_e2e.json"
-SMALL = ("ZK_MEVAL_WM=1", "ZK_MEVAL_BM=1", "ZK_MEVAL_WQ=1", "ZK_MEVAL_BN=2", "ZK_MEVAL_KC=32")  # the second tile
+SMALL = ("ZK_MEVAL_WM=1", "ZK_MEVAL_BM=1", "ZK_MEVAL_WQ=1", "ZK_MEVAL_BN=2", "ZK_MEVAL_KC=32",  # the second tile
+         "ZK_MLAD_THREADS=64", "ZK_MLAD_LANES=1")
 # coefficient edge values: 0, 1, p - 1, low limbs all 0xFFFF (4 and 7 of
 # them), eps; the points' edge values 0, 1, p - 1 sit among random ones
 EDGES = (0, 1, f128.P - 1, 2**64 - 1, 2**112 - 1, 45 * 2**40 - 1)
@@ -193,11 +197,16 @@ def test_multi_eval_kernel_holds_all_ones_digits_at_s_4096(emu, c, q):
         np.testing.assert_array_equal(to_numpy(got), want, err_msg=name)
 
 
-@pytest.mark.parametrize("q,t", [(1, 1), (2, 16), (3, 128), (32, 1024), (2, 1 << 14)])
+@pytest.mark.parametrize("q,t", [(1, 1), (2, 16), (3, 128), (32, 1024), (2, 1 << 14), (3, 1 << 16), (2, 1 << 15),
+                                 (1, 1 << 13)])
 def test_ladder_kernel_equals_ladders_split(emu, q, t):
     """The ladder entry (``launch_ladders``) equals ``ladders_split`` in the
     plain arithmetic taken to bytes (``ladders_plain``), byte for byte and
-    limb for limb, with the points 0, 1 and p - 1 among random ones."""
+    limb for limb, with the points 0, 1 and p - 1 among random ones: a
+    point's factor in one block and across several (T = 2^14-2^16: 2 to 4
+    tiles of a factor at 64 outputs a block, 2 at 128), and tiles that the
+    factor fills only in part (N2 = 64 of T = 2^13 at the shipped 128
+    outputs a block)."""
     rng = np.random.default_rng(q + t)
     points = [int(v) for v in _rand(rng, (q,))]
     points[: min(q, 3)] = [0, f128.P - 1, 1][: min(q, 3)]
@@ -209,6 +218,32 @@ def test_ladder_kernel_equals_ladders_split(emu, q, t):
         assert got.s == want.s, name
         assert torch.equal(got.digits, want.digits), name
         assert torch.equal(got.cells, want.cells), name
+
+
+@pytest.mark.parametrize("q,s,n2,ldb", [(3, 64, 100, 128), (2, 1, 1, 64), (1, 8, 70, 64), (2, 256, 129, 320),
+                                         (1, 32, 65, 192)])
+def test_ladder_kernel_takes_any_factors(emu, q, s, n2, ldb):
+    """The ladder entry at factors no power-of-two T gives: N2 not a
+    multiple of a block's outputs (its last tile partial) and byte rows
+    longer than S (whole tiles of zeros past S), against the powers in host
+    ints, at the points 0, p - 1 and 1 and random ones."""
+    rng = np.random.default_rng(q * s + n2)
+    points = [int(v) for v in _rand(rng, (q,))]
+    points[: min(q, 3)] = [0, f128.P - 1, 1][: min(q, 3)]
+    want_digits = np.zeros((q, 16, ldb), dtype=np.uint8)
+    for qi, b in enumerate(points):
+        for lo in range(s):
+            want_digits[qi, :, lo] = list(pow(b, lo, f128.P).to_bytes(16, "little"))
+    want_cells = to_limbs([[pow(b, s * hi, f128.P) for hi in range(n2)] for b in points])  # (Q, N2, 8)
+    want_cells = (want_cells[..., 0::2] | want_cells[..., 1::2] << 16).view(np.int32)
+    bases = from_numpy(to_limbs(points))
+    for name, lib in emu.items():
+        digits = torch.full((q * 16, ldb), 0xAB, dtype=torch.uint8)
+        cells = torch.zeros((q, n2, 4), dtype=torch.int32)
+        p = kernels.ptr
+        assert lib.zk_meval_ladders(p(bases), p(digits), ldb, p(cells), q, s, n2, None) == 0, name
+        np.testing.assert_array_equal(digits.numpy().reshape(q, 16, ldb), want_digits, err_msg=name)
+        np.testing.assert_array_equal(cells.numpy(), want_cells, err_msg=name)
 
 
 def test_multi_eval_evaluates_tensors_at_one_point_set(emu):
@@ -226,6 +261,31 @@ def test_multi_eval_evaluates_tensors_at_one_point_set(emu):
     rows_a, rows_b = me.multi_eval_rows_many([a, b], points)  # the plain version, on the CPU
     assert rows_a == me.multi_eval_rows_plain(a, points) and rows_b == me.multi_eval_rows_plain(b, points)
     assert [[int(v) for v in row] for row in from_limbs(to_numpy(both[1]))] == rows_b
+
+
+def test_ood_ladders_in_one_launch(emu):
+    """The OOD frame's shape: the trace columns at z and z g and the
+    composition columns at z^8 from one ladder launch of the three points,
+    each tensor reading its span's rows of the one ``Ladders``; the rows
+    equal those of one point set a tensor (the two ladder launches before),
+    and on the CPU ``multi_eval_rows_many`` with the spans equals the plain
+    version at each span's points."""
+    vals, points = _inputs(128)
+    trace, comp = _t(vals), _t(vals[5:13].copy())
+    pts = [points[0], f128.fmul(points[0], 7), pow(points[0], 8, f128.P)]
+    bases = from_numpy(to_limbs(pts))
+    spans = ((0, 2), (2, 3))
+    for name, lib in emu.items():
+        before = (me.ladder_launches, me.launches)
+        cur, at_zm = me.evaluate(lib, None, [trace, comp], bases, spans)
+        assert (me.ladder_launches - before[0], me.launches - before[1]) == (1, 2), name
+        assert torch.equal(cur, me.evaluate(lib, None, [trace], bases[:2])[0]), name
+        assert torch.equal(at_zm, me.evaluate(lib, None, [comp], bases[2:])[0]), name
+    rows = me.multi_eval_rows_many([trace, comp], pts, spans=spans)  # the plain version, on the CPU
+    assert rows == [me.multi_eval_rows_plain(trace, pts[:2]), me.multi_eval_rows_plain(comp, pts[2:])]
+    for bad in (((0, 2),), ((0, 2), (2, 4)), ((1, 1), (0, 3))):
+        with pytest.raises(ValueError, match="point spans"):
+            me.multi_eval_rows_many([trace, comp], pts, spans=bad)
 
 
 @pytest.mark.parametrize("c,q,t", [(28, 32, 1 << 20), (28, 2, 1 << 20), (8, 1, 1 << 16), (28, 32, 16),
@@ -255,21 +315,22 @@ def test_multi_eval_slices_cover_t(emu, c, q, t):
     assert lib.zk_multi_eval_smem(32) >= lib.zk_multi_eval_smem(2) > 0
 
 
-@pytest.mark.parametrize("mode", ["tmode", "cls"])
+@pytest.mark.parametrize("mode", ["tmode", "cls", "mono"])
 def test_provers_through_the_emulated_multi_eval_kernel(emu, monkeypatch, mode):
-    """Every multi-eval call of a T = 128 prove (the OOD frame's two and the
-    query rows' two) through the kernel's emulation at the shipped launch
-    shape, the card's (the small one is the grid's above; its thousands of
-    64-thread blocks a call, each ending in a barrier, made this test the
-    suite's slowest on a loaded host): the proof equals the conformance
-    vector's bytes."""
+    """Every multi-eval call of a T = 128 prove (the OOD frame's two and, in
+    T-mode and cls, the query rows' two) through the kernel's emulation at
+    the shipped launch shape, the card's (the small one is the grid's
+    above; its thousands of 64-thread blocks a call, each ending in a
+    barrier, made this test the suite's slowest on a loaded host): the
+    proof equals the conformance vector's bytes, and the OOD frame's three
+    points take one ladder launch."""
     calls = []
 
-    def through_kernel(coeffs_ts, points):
-        calls.append((tuple(x.shape[0] for x in coeffs_ts), len(points)))
+    def through_kernel(coeffs_ts, points, spans=None):
+        calls.append((tuple(x.shape[0] for x in coeffs_ts), len(points), spans))
         for x in coeffs_ts:
             me._checked(x, points)
-        outs = me.evaluate(emu["shipped"], None, coeffs_ts, from_numpy(to_limbs(list(points))))
+        outs = me.evaluate(emu["shipped"], None, coeffs_ts, from_numpy(to_limbs(list(points))), spans)
         return [[[int(v) for v in row] for row in from_limbs(to_numpy(out))] for out in outs]
 
     monkeypatch.setattr(me, "multi_eval_rows_many", through_kernel)
@@ -280,9 +341,14 @@ def test_provers_through_the_emulated_multi_eval_kernel(emu, monkeypatch, mode):
     inputs = vm.ProgramInputs(tuple(vec["public_inputs_tape"]), (key.encrypt(2),), key)
     _, _, proof = vm.prove(program, inputs, device="cpu", mode=mode)
     assert proof.to_wire_bytes().hex() == vec["proof_bytes_hex"]
-    # the OOD frame's two point sets, then the query rows' one for both tensors
-    assert [(cs, q > 1) for cs, q in calls] == [((28,), True), ((8,), False), ((28, 8), True)], calls
-    assert (me.plain_calls, me.ladder_launches - before[1]) == (before[0], 3)
+    # the OOD frame's one point set (z, z g for the trace, z^8 for the
+    # composition), then the query rows' one for both tensors
+    ood = ((28, 8), 3, ((0, 2), (2, 3)))
+    if mode == "mono":
+        assert calls == [ood], calls
+    else:
+        assert calls[0] == ood and calls[1][0] == (28, 8) and calls[1][1] > 3 and len(calls) == 2, calls
+    assert (me.plain_calls, me.ladder_launches - before[1]) == (before[0], len(calls))
 
 
 class _FailingLib:

@@ -57,17 +57,17 @@ def test_transforms_match_golden(log_n):
     base = (0xC0FFEE * n + 7) % f128.P
     assert _ints(tnt.ntt_t(x)) == [gntt.ntt(r) for r in vals]
     assert _ints(tnt.intt_t(x)) == [gntt.intt(r) for r in vals]
-    assert _ints(tnt.class_ntt_t(x, from_numpy(tlimbs(base)))) == _coset(vals, base)
+    assert _ints(tnt.class_ntt_t(x, base)) == _coset(vals, base)
 
 
 def _check_reference(n):
     x = _t(_rand_vals(n, 2, n))
-    base = tlimbs((0xBEEF * n + 3) % f128.P)
+    base = (0xBEEF * n + 3) % f128.P
     _same(tnt.ntt_t(from_numpy(x)), jnt.ntt_t(jnp.asarray(x)))
     _same(tnt.intt_t(from_numpy(x)), jnt.intt_t(jnp.asarray(x)))
     _same(
-        tnt.class_ntt_t(from_numpy(x), from_numpy(base)),
-        jnt.class_ntt_t(jnp.asarray(x), jnp.asarray(base)),
+        tnt.class_ntt_t(from_numpy(x), base),
+        jnt.class_ntt_t(jnp.asarray(x), jnp.asarray(tlimbs(base))),
     )
 
 
@@ -106,7 +106,7 @@ def test_ladders_match_golden():
     lad = from_t(to_numpy(tnt.ladder_t_host(5, 512, 7)))
     assert [int(v) for v in lad] == [7 * pow(5, i, f128.P) % f128.P for i in range(512)]
     vals = [[v % f128.P for v in row] for row in _rand_vals(5, 2, 64)]
-    got = tnt.scale_by_ladder_t(from_numpy(_t(vals)), from_numpy(tlimbs(11)), 64)
+    got = tnt.scale_by_ladder_t(from_numpy(_t(vals)), 11, 64)
     assert _ints(got) == [[v * pow(11, i, f128.P) % f128.P for i, v in enumerate(r)] for r in vals]
 
 
@@ -122,7 +122,7 @@ def test_coset_lde_t_fuses_the_offset(monkeypatch, max_axis, t):
     monkeypatch.setattr(tnt, "MAX_AXIS", max_axis)
     vals = _rand_vals(31, 3, t)
     coeffs = from_numpy(_t(vals))
-    scaled = tnt.scale_by_ladder_t(coeffs, from_numpy(tlimbs(f128.DOMAIN_OFFSET)), t)
+    scaled = tnt.scale_by_ladder_t(coeffs, f128.DOMAIN_OFFSET, t)
     unfused = tnt.ntt_t(torch.nn.functional.pad(scaled, (0, 7 * t)))
     got = tnt.coset_lde_t(coeffs, 8)
     np.testing.assert_array_equal(to_numpy(got), to_numpy(unfused))

@@ -73,7 +73,7 @@ def test_recursion_branch(monkeypatch):
     """MAX_AXIS = 4 in both packages forces N2 > MAX_AXIS (flat recursion:
     n = 32 splits 8 x 4, and the 8-point pass recurses 2 x 4)."""
     from zkvm.ntt import golden as gntt
-    from zkvm_torch.field.limbs import from_t, tlimbs
+    from zkvm_torch.field.limbs import from_t
 
     monkeypatch.setattr(jnt, "MAX_AXIS", 4)
     monkeypatch.setattr(tnt, "MAX_AXIS", 4)
@@ -85,13 +85,13 @@ def test_recursion_branch(monkeypatch):
     ints = lambda t: [[int(v) for v in row] for row in from_t(to_numpy(t))]
     assert ints(tnt.intt_t(from_numpy(x))) == [gntt.intt(r) for r in vals]
     base = 0xABCDEF
-    got = tnt.class_ntt_t(from_numpy(x), from_numpy(tlimbs(base)))
+    got = tnt.class_ntt_t(from_numpy(x), base)
     assert ints(got) == [
         gntt.ntt([v * pow(base, i, f128.P) % f128.P for i, v in enumerate(r)]) for r in vals
     ]
     # the recursion path takes the coset scale cached by the provers too
-    scale = tnt.class_scale(from_numpy(tlimbs(base)), 32)
-    np.testing.assert_array_equal(to_numpy(tnt.class_ntt_t(from_numpy(x), from_numpy(tlimbs(base)), scale)),
+    scale = tnt.class_scale(base, 32, "cpu")
+    np.testing.assert_array_equal(to_numpy(tnt.class_ntt_t(from_numpy(x), base, scale)),
                                   to_numpy(got))
 
 

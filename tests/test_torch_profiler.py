@@ -156,17 +156,19 @@ def test_kernel_health_reset_zeroes_the_counters():
     me.launches_by_shape[(28, 32, 1 << 16)] += 4
     me.ladder_launches_by_shape[(32, 1 << 16)] += 3
     fri.fold_launches, nt.ladder_launches, dp.sum_launches, dp.quotient_launches = 3, 1, 2, 8
+    nt.ladder_const_launches = 1
     fri.fold_launches_by_shape[1 << 16] += 3
-    nt.ladder_launches_by_shape[(1, 1024)] += 1
+    nt.ladder_launches_by_shape[(1024, 512)] += 1
+    nt.ladder_const_launches_by_shape[(1, 1024)] += 1
     dp.sum_launches_by_shape[(2, 28, 1 << 16)] += 2
     dp.quotient_launches_by_shape[(3, 1 << 16)] += 8
     try:
         rep = kernel_health.report()
         assert rep["launches"] == {"ntt_stages": 3, "blake3_rows": 2, "merkle": 5, "composition": 1,
                                    "transition": 1, "batch_inverse": 4, "field_ops": 6, "multi_eval": 4,
-                                   "meval_ladders": 3, "fri_fold": 3, "ladder": 1, "weighted_sum": 2,
-                                   "deep_quotient": 8}
-        assert rep["total"] == 43 and rep["plain_calls"] == {"multi_eval": 2}
+                                   "meval_ladders": 3, "fri_fold": 3, "ladder": 1, "ladder_const": 1,
+                                   "weighted_sum": 2, "deep_quotient": 8}
+        assert rep["total"] == 44 and rep["plain_calls"] == {"multi_eval": 2}
         assert rep["launches_by_shape"]["ntt_stages"] == {"M=256 B=28 NL=256 r1": 3}
         assert rep["launches_by_shape"]["merkle"] == {"N=524288 trees=1": 2}
         assert rep["launches_by_shape"]["transition"] == {"N=524288 step=8": 1}
@@ -175,7 +177,8 @@ def test_kernel_health_reset_zeroes_the_counters():
         assert rep["launches_by_shape"]["multi_eval"] == {"C=28 Q=32 T=65536": 4}
         assert rep["launches_by_shape"]["meval_ladders"] == {"Q=32 T=65536": 3}
         assert rep["launches_by_shape"]["fri_fold"] == {"n=65536": 3}
-        assert rep["launches_by_shape"]["ladder"] == {"B=1 n=1024": 1}
+        assert rep["launches_by_shape"]["ladder"] == {"B=1024 n=512": 1}
+        assert rep["launches_by_shape"]["ladder_const"] == {"B=1 n=1024": 1}
         assert rep["launches_by_shape"]["weighted_sum"] == {"K=2 C=28 N=65536": 2}
         assert rep["launches_by_shape"]["deep_quotient"] == {"K=3 N=65536": 8}
     finally:

@@ -3,7 +3,8 @@
 // p = 2^128 - eps with eps = 2^128 mod p = 45*2^40 - 1 (< 2^46).  A field
 // element (zk::fe) holds its value as two 64-bit halves, but all
 // arithmetic runs on its four 32-bit words: mul32 is a 4 x 4 schoolbook of
-// 32-bit limbs with two folds by eps, add32 / sub32 are 32-bit carry
+// 32-bit limbs with two folds by eps (sqr32 the square from 10 of its 16
+// products), add32 / sub32 are 32-bit carry
 // chains (PTX on the card, the same steps in C on the host, where the
 // kernels are emulated).  In device memory an element is the reference's
 // 8 little-endian 16-bit limbs, one per uint32 (the transposed (..., 8, N)
@@ -112,11 +113,101 @@ ZK_HD fe mul32_c(fe a, fe b) {
   return fold256(r);
 }
 
+// The square from 10 limb products, not mul32's 16: the six x_i x_j (i <
+// j) once, their sum doubled, then the four x_i^2 added at word 2i, and
+// fold256.  sqr32_c is the algorithm in C (the host's sqr32); on the card
+// sqr32 runs the same steps as one PTX carry chain.  The squaring chains
+// of the ladders (csrc/multi_eval.cu) are their kernels' floor.
+ZK_HD fe sqr32_c(fe a) {
+  const uint32_t x[4] = {(uint32_t)a.lo, (uint32_t)(a.lo >> 32), (uint32_t)a.hi,
+                         (uint32_t)(a.hi >> 32)};
+  // R = sum_{i<j} x_i x_j 2^(32 (i + j)) < 2^224 in r6..r1
+  uint32_t r[8];
+  uint64_t t = (uint64_t)x[0] * x[1];
+  r[0] = 0;
+  r[1] = (uint32_t)t;
+  t = (uint64_t)x[0] * x[2] + (t >> 32);
+  r[2] = (uint32_t)t;
+  t = (uint64_t)x[0] * x[3] + (t >> 32);
+  r[3] = (uint32_t)t;
+  r[4] = (uint32_t)(t >> 32);
+  t = (uint64_t)x[1] * x[2] + r[3];
+  r[3] = (uint32_t)t;
+  t = (uint64_t)x[1] * x[3] + r[4] + (t >> 32);
+  r[4] = (uint32_t)t;
+  t = (uint64_t)x[2] * x[3] + (t >> 32);
+  r[5] = (uint32_t)t;
+  r[6] = (uint32_t)(t >> 32);
+  r[7] = 0;
+  // 2 R + sum_i x_i^2 2^(64 i), a word at a time
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint64_t s = (uint64_t)x[i] * x[i];
+    c += ((uint64_t)r[2 * i] << 1) + (uint32_t)s;
+    r[2 * i] = (uint32_t)c;
+    c >>= 32;
+    c += ((uint64_t)r[2 * i + 1] << 1) + (s >> 32);
+    r[2 * i + 1] = (uint32_t)c;
+    c >>= 32;
+  }
+  return fold256(r);
+}
+
 #if defined(__CUDA_ARCH__)
 #define ZK_WORDS(v)                                                                 \
   "r"((uint32_t)(v).lo), "r"((uint32_t)((v).lo >> 32)), "r"((uint32_t)(v).hi), \
       "r"((uint32_t)((v).hi >> 32))
 #define ZK_JOIN(w) fe{(uint64_t)(w)[1] << 32 | (w)[0], (uint64_t)(w)[3] << 32 | (w)[2]}
+
+// the folds of mul32 and sqr32's 256-bit r7..r0 to a canonical value in
+// %0..%3 (fold 1 by H = r7..r4, fold 2 by the two words above 128 bits,
+// fold 3 and canon in one test), in their asm blocks' registers
+#define ZK_FOLD_PTX \
+  /* fold 1: g4..g0 = H * 0x2D00; r + (g << 32) - H into g4 g3 r3..r0 */ \
+  "mul.lo.u32 g0, r4, 0x2D00;\n\t" \
+  "mul.lo.u32 g1, r5, 0x2D00;\n\t" \
+  "mul.lo.u32 g2, r6, 0x2D00;\n\t" \
+  "mul.lo.u32 g3, r7, 0x2D00;\n\t" \
+  "mad.hi.cc.u32 g1, r4, 0x2D00, g1;\n\t" \
+  "madc.hi.cc.u32 g2, r5, 0x2D00, g2;\n\t" \
+  "madc.hi.cc.u32 g3, r6, 0x2D00, g3;\n\t" \
+  "madc.hi.u32 g4, r7, 0x2D00, 0;\n\t" \
+  "add.cc.u32 r1, r1, g0;\n\t" \
+  "addc.cc.u32 r2, r2, g1;\n\t" \
+  "addc.cc.u32 r3, r3, g2;\n\t" \
+  "addc.cc.u32 g3, g3, 0;\n\t" \
+  "addc.u32 g4, g4, 0;\n\t" \
+  "sub.cc.u32 r0, r0, r4;\n\t" \
+  "subc.cc.u32 r1, r1, r5;\n\t" \
+  "subc.cc.u32 r2, r2, r6;\n\t" \
+  "subc.cc.u32 r3, r3, r7;\n\t" \
+  "subc.cc.u32 g3, g3, 0;\n\t" \
+  "subc.u32 g4, g4, 0;\n\t" \
+  /* fold 2: H = g4:g3 (< 2^47); H * 0x2D00 = r5:r4; the carry in c */ \
+  "mul.lo.u32 r4, g3, 0x2D00;\n\t" \
+  "mul.hi.u32 r5, g3, 0x2D00;\n\t" \
+  "mad.lo.u32 r5, g4, 0x2D00, r5;\n\t" \
+  "add.cc.u32 r1, r1, r4;\n\t" \
+  "addc.cc.u32 r2, r2, r5;\n\t" \
+  "addc.cc.u32 r3, r3, 0;\n\t" \
+  "addc.u32 c, 0, 0;\n\t" \
+  "sub.cc.u32 r0, r0, g3;\n\t" \
+  "subc.cc.u32 r1, r1, g4;\n\t" \
+  "subc.cc.u32 r2, r2, 0;\n\t" \
+  "subc.cc.u32 r3, r3, 0;\n\t" \
+  "subc.u32 c, c, 0;\n\t" \
+  /* fold 3 and canon */ \
+  "add.cc.u32 r4, r0, 0xFFFFFFFF;\n\t" \
+  "addc.cc.u32 r5, r1, 0x2CFF;\n\t" \
+  "addc.cc.u32 r6, r2, 0;\n\t" \
+  "addc.cc.u32 r7, r3, 0;\n\t" \
+  "addc.u32 c, c, 0;\n\t" \
+  "setp.ne.u32 q, c, 0;\n\t" \
+  "selp.b32 %0, r4, r0, q;\n\t" \
+  "selp.b32 %1, r5, r1, q;\n\t" \
+  "selp.b32 %2, r6, r2, q;\n\t" \
+  "selp.b32 %3, r7, r3, q;\n\t"
 
 // mul32_c's steps in one asm block: the carry flag does not survive
 // between asm statements.  Row i of the schoolbook adds a_i * b at word i
@@ -163,53 +254,54 @@ ZK_HD fe mul32(fe a, fe b) {
       "madc.hi.cc.u32 r5, %7, %9, r5;\n\t"
       "madc.hi.cc.u32 r6, %7, %10, r6;\n\t"
       "madc.hi.u32 r7, %7, %11, r7;\n\t"
-      // fold 1: g4..g0 = H * 0x2D00; r + (g << 32) - H into g4 g3 r3..r0
-      "mul.lo.u32 g0, r4, 0x2D00;\n\t"
-      "mul.lo.u32 g1, r5, 0x2D00;\n\t"
-      "mul.lo.u32 g2, r6, 0x2D00;\n\t"
-      "mul.lo.u32 g3, r7, 0x2D00;\n\t"
-      "mad.hi.cc.u32 g1, r4, 0x2D00, g1;\n\t"
-      "madc.hi.cc.u32 g2, r5, 0x2D00, g2;\n\t"
-      "madc.hi.cc.u32 g3, r6, 0x2D00, g3;\n\t"
-      "madc.hi.u32 g4, r7, 0x2D00, 0;\n\t"
-      "add.cc.u32 r1, r1, g0;\n\t"
-      "addc.cc.u32 r2, r2, g1;\n\t"
-      "addc.cc.u32 r3, r3, g2;\n\t"
-      "addc.cc.u32 g3, g3, 0;\n\t"
-      "addc.u32 g4, g4, 0;\n\t"
-      "sub.cc.u32 r0, r0, r4;\n\t"
-      "subc.cc.u32 r1, r1, r5;\n\t"
-      "subc.cc.u32 r2, r2, r6;\n\t"
-      "subc.cc.u32 r3, r3, r7;\n\t"
-      "subc.cc.u32 g3, g3, 0;\n\t"
-      "subc.u32 g4, g4, 0;\n\t"
-      // fold 2: H = g4:g3 (< 2^47); H * 0x2D00 = r5:r4; the carry in c
-      "mul.lo.u32 r4, g3, 0x2D00;\n\t"
-      "mul.hi.u32 r5, g3, 0x2D00;\n\t"
-      "mad.lo.u32 r5, g4, 0x2D00, r5;\n\t"
-      "add.cc.u32 r1, r1, r4;\n\t"
-      "addc.cc.u32 r2, r2, r5;\n\t"
-      "addc.cc.u32 r3, r3, 0;\n\t"
-      "addc.u32 c, 0, 0;\n\t"
-      "sub.cc.u32 r0, r0, g3;\n\t"
-      "subc.cc.u32 r1, r1, g4;\n\t"
-      "subc.cc.u32 r2, r2, 0;\n\t"
-      "subc.cc.u32 r3, r3, 0;\n\t"
-      "subc.u32 c, c, 0;\n\t"
-      // fold 3 and canon
-      "add.cc.u32 r4, r0, 0xFFFFFFFF;\n\t"
-      "addc.cc.u32 r5, r1, 0x2CFF;\n\t"
-      "addc.cc.u32 r6, r2, 0;\n\t"
-      "addc.cc.u32 r7, r3, 0;\n\t"
-      "addc.u32 c, c, 0;\n\t"
-      "setp.ne.u32 q, c, 0;\n\t"
-      "selp.b32 %0, r4, r0, q;\n\t"
-      "selp.b32 %1, r5, r1, q;\n\t"
-      "selp.b32 %2, r6, r2, q;\n\t"
-      "selp.b32 %3, r7, r3, q;\n\t"
+      ZK_FOLD_PTX
       "}"
       : "=&r"(o[0]), "=&r"(o[1]), "=&r"(o[2]), "=&r"(o[3])
       : ZK_WORDS(a), ZK_WORDS(b));
+  return ZK_JOIN(o);
+}
+
+// sqr32_c's steps in one asm block: the off-diagonal rows x0 (x1, x2, x3)
+// at words 1-4, x1 (x2, x3) at 3-5 and x2 x3 at 5-6 (R < 2^224, so no
+// carry leaves word 6), R doubled into r7..r1, the squares x_i^2 added at
+// word 2i, then mul32's folds.
+ZK_HD fe sqr32(fe a) {
+  uint32_t o[4];
+  asm("{\n\t"
+      ".reg .u32 r0, r1, r2, r3, r4, r5, r6, r7, g0, g1, g2, g3, g4, c;\n\t"
+      ".reg .pred q;\n\t"
+      "mul.lo.u32 r1, %4, %5;\n\t"
+      "mul.lo.u32 r2, %4, %6;\n\t"
+      "mul.lo.u32 r3, %4, %7;\n\t"
+      "mad.hi.cc.u32 r2, %4, %5, r2;\n\t"
+      "madc.hi.cc.u32 r3, %4, %6, r3;\n\t"
+      "madc.hi.u32 r4, %4, %7, 0;\n\t"
+      "mad.lo.cc.u32 r3, %5, %6, r3;\n\t"
+      "madc.lo.cc.u32 r4, %5, %7, r4;\n\t"
+      "addc.u32 r5, 0, 0;\n\t"
+      "mad.hi.cc.u32 r4, %5, %6, r4;\n\t"
+      "madc.hi.u32 r5, %5, %7, r5;\n\t"
+      "mad.lo.cc.u32 r5, %6, %7, r5;\n\t"
+      "madc.hi.u32 r6, %6, %7, 0;\n\t"
+      "add.cc.u32 r1, r1, r1;\n\t"
+      "addc.cc.u32 r2, r2, r2;\n\t"
+      "addc.cc.u32 r3, r3, r3;\n\t"
+      "addc.cc.u32 r4, r4, r4;\n\t"
+      "addc.cc.u32 r5, r5, r5;\n\t"
+      "addc.cc.u32 r6, r6, r6;\n\t"
+      "addc.u32 r7, 0, 0;\n\t"
+      "mul.lo.u32 r0, %4, %4;\n\t"
+      "mad.hi.cc.u32 r1, %4, %4, r1;\n\t"
+      "madc.lo.cc.u32 r2, %5, %5, r2;\n\t"
+      "madc.hi.cc.u32 r3, %5, %5, r3;\n\t"
+      "madc.lo.cc.u32 r4, %6, %6, r4;\n\t"
+      "madc.hi.cc.u32 r5, %6, %6, r5;\n\t"
+      "madc.lo.cc.u32 r6, %7, %7, r6;\n\t"
+      "madc.hi.u32 r7, %7, %7, r7;\n\t"
+      ZK_FOLD_PTX
+      "}"
+      : "=&r"(o[0]), "=&r"(o[1]), "=&r"(o[2]), "=&r"(o[3])
+      : ZK_WORDS(a));
   return ZK_JOIN(o);
 }
 
@@ -263,8 +355,10 @@ ZK_HD fe sub32(fe a, fe b) {
 }
 #undef ZK_WORDS
 #undef ZK_JOIN
+#undef ZK_FOLD_PTX
 #else
 ZK_HD fe mul32(fe a, fe b) { return mul32_c(a, b); }
+ZK_HD fe sqr32(fe a) { return sqr32_c(a); }
 
 // add32 / sub32 on the host: the PTX chains' steps on 32-bit words
 ZK_HD void words(fe v, uint32_t w[4]) {

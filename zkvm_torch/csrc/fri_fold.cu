@@ -18,7 +18,9 @@
 // x[b][.][i] * scale[b] * base[b]^i over (B, 8, n), x absent meaning all
 // ones; base and scale come as device limbs (B rows each, any strides, a
 // row stride of 0 broadcasting one value), so a caller with device values
-// copies nothing.
+// copies nothing.  zk_ladder_const is the same function for one base and
+// one scale that the host knows (the domain offset, roots of unity, the
+// class bases: every caller but the mid twiddles), x of B rows.
 //
 // The ladder is kept in registers in both: thread t of block k takes the
 // lanes j = k L T + t + l T (l < L, T threads a block), so the warp's
@@ -29,11 +31,18 @@
 // squares and none waits for another.  Beside base^(2^e) (48 cells) the
 // fold takes base^i for i < 32 (32 cells), so the bits of j below 5,
 // which differ across a warp, cost one multiply and not five: a warp
-// multiplies wherever any of its lanes does.  zk_ladder's base is a
-// device value, so one thread of its block builds the table in shared
-// memory by squaring while the others wait.  No ladder tensor is built
-// and the fold's scalars travel by value, so the wrappers copy nothing to
-// the card.
+// multiplies wherever any of its lanes does.  zk_ladder_const takes the
+// same tables by value, with its scale, built on the host once a (base,
+// scale): a thread's first power costs 1 + (the set bits of j0 / 32)
+// multiplies, each next lane one, and above ZK_LADDER_ONE_LANE_MAX (2^15)
+// a thread takes ZK_LADDER_LANES (16) lanes, so a lane costs ~1.4
+// multiplies at n = 2^20 against the ~3 and the 20-squaring prelude of
+// zk_ladder (the lanes and the threshold from kernel_bench.py --sweep FRI
+// on an H100: 8 lanes were 0.0176 ms at 2^20, 16 0.0148, 32 0.0131 but
+// slower at 2^19 and 2^23).  zk_ladder's base is a device value, so one thread of its
+// block builds the table in shared memory by squaring while the others
+// wait.  No ladder tensor is built and the scalars and tables travel by
+// value, so the wrappers copy nothing to the card.
 //
 // The fold's shape follows n: at n <= ZK_FOLD_ONE_LANE_MAX (2^17) one lane
 // a thread, which puts n / T blocks on the card for the small layers (2^16
@@ -64,6 +73,14 @@
 #ifndef ZK_FOLD_ONE_LANE_MAX
 #define ZK_FOLD_ONE_LANE_MAX (1L << 17)
 #endif
+// lanes a thread of zk_ladder_const above the largest n it takes at one
+// lane a thread
+#ifndef ZK_LADDER_LANES
+#define ZK_LADDER_LANES 16
+#endif
+#ifndef ZK_LADDER_ONE_LANE_MAX
+#define ZK_LADDER_ONE_LANE_MAX (1L << 15)
+#endif
 
 namespace {
 
@@ -76,7 +93,7 @@ constexpr int kFold = 8;
 constexpr int kMaxLevels = 48;  // base^(2^e) for e < 48: lanes below 2^48
 constexpr int kWarpPowers = 32;  // the fold's base^i for i < 32: a lane's place in its warp
 static_assert(kThreads >= 1 && (kThreads & (kThreads - 1)) == 0, "a power of two threads a block");
-static_assert(kLanes >= 1, "a thread takes lanes");
+static_assert(kLanes >= 1 && ZK_LADDER_LANES >= 1, "a thread takes lanes");
 
 constexpr int log2i(long v) { return v <= 1 ? 0 : 1 + log2i(v / 2); }
 constexpr int kLogThreads = log2i(kThreads);
@@ -105,6 +122,13 @@ ZK_HD fe power_from(const cell* pw, fe scale, long j) {
   for (int e = 0; j; ++e, j >>= 1)
     if (j & 1) scale = zk::mul32(scale, zk::unpack(pw[e]));
   return scale;
+}
+
+// scale * base^j0 from the tables base^(2^e) and base^i, i < 32: one
+// multiply for the lane's place in its warp (a divergent read of the
+// table), then one a set bit of j0 / 32, the same across the warp
+ZK_HD fe first_power(const cell* pw, const cell* lane, fe scale, long j0) {
+  return power_from(pw + kLogWarp, zk::mul32(scale, zk::unpack(lane[j0 & (kWarpPowers - 1)])), j0 >> kLogWarp);
 }
 
 // the fold's scalars: q_0 = beta / offset, 1/8, the powers r, r^2, r^3 of
@@ -159,11 +183,7 @@ fri_fold_kernel(const uint32_t* __restrict__ v, uint32_t* __restrict__ out, long
   const long j0 = (long)blockIdx.x * LANES * kThreads + threadIdx.x;
   if (j0 >= n) return;
   const fe inv8 = zk::unpack(a.inv8);
-  // scale base^(j0 mod 32) base^(32 (j0 / 32)): one multiply for the
-  // lane's place in its warp (a divergent read of the table), then the
-  // set bits of j0 / 32, the same across the warp (one multiply each)
-  fe q = zk::mul32(zk::unpack(a.scale), zk::unpack(a.lane[j0 & (kWarpPowers - 1)]));
-  q = power_from(a.pw + kLogWarp, q, j0 >> kLogWarp);
+  fe q = first_power(a.pw, a.lane, zk::unpack(a.scale), j0);
   const long group = 8 * n;  // elements t and t + 1 of a group lie 8 n limbs apart
   for (int l = 0; l < LANES; ++l) {
     const long j = j0 + (long)l * kThreads;
@@ -213,7 +233,40 @@ __global__ void __launch_bounds__(kThreads) ladder_kernel(const LadderArgs a) {
   }
 }
 
+// zk_ladder_const's operands: the table by value (the scale, base^(2^e)
+// for e < kMaxLevels, base^i for i < 32), built on the host once a base and
+// scale
+struct LadderTable {
+  cell scale, pw[kMaxLevels], lane[kWarpPowers];
+};
+
+// out[b][.][j] = x[b][.][j] scale base^j (x null: scale base^j) over the
+// lanes j0 + l T, l < LANES, j0 = k LANES T + t, from the table by value:
+// no thread squares and none waits for another
+template <int LANES>
+__global__ void __launch_bounds__(kThreads)
+ladder_const_kernel(const uint32_t* __restrict__ x, long x_row, long x_limb, uint32_t* __restrict__ out, long n,
+                    const __grid_constant__ LadderTable a) {
+  const long row = blockIdx.y, j0 = (long)blockIdx.x * LANES * kThreads + threadIdx.x;
+  if (j0 >= n) return;
+  fe q = first_power(a.pw, a.lane, zk::unpack(a.scale), j0);
+  const uint32_t* xr = x ? x + row * x_row : nullptr;
+  uint32_t* o = out + row * 8 * n;
+  for (int l = 0; l < LANES; ++l) {
+    const long j = j0 + (long)l * kThreads;
+    if (j >= n) break;
+    if (l) q = zk::mul32(q, zk::unpack(a.pw[kLogThreads]));
+    zk::store(o + j, n, xr ? zk::mul32(zk::load(xr + j, x_limb), q) : q);
+  }
+}
+
 long lane_blocks(long n, int lanes = kLanes) { return (n + (long)lanes * kThreads - 1) / ((long)lanes * kThreads); }
+
+// packed element i of a host array of 32-bit words, least significant first
+cell cell_at(const uint32_t* words, int i) {
+  const uint32_t* w = words + 4 * i;
+  return cell{(uint64_t)w[1] << 32 | w[0], (uint64_t)w[3] << 32 | w[2]};
+}
 
 }  // namespace
 
@@ -227,10 +280,7 @@ long lane_blocks(long n, int lanes = kLanes) { return (n + (long)lanes * kThread
 // n < 1.  One launch on the stream.
 ZK_EXPORT int zk_fri_fold(const uint32_t* v, uint32_t* out, long n, const uint32_t* scalars, void* stream) {
   if (n < 1 || lane_blocks(n, 1) > 0x7fffffffL) return -1;
-  auto at = [scalars](int i) {
-    const uint32_t* w = scalars + 4 * i;
-    return cell{(uint64_t)w[1] << 32 | w[0], (uint64_t)w[3] << 32 | w[2]};
-  };
+  auto at = [scalars](int i) { return cell_at(scalars, i); };
   FoldArgs a{at(0), at(1), {at(2), at(3), at(4)}, {}, {}};
   for (int e = 0; e < kMaxLevels; ++e) a.pw[e] = at(5 + e);
   for (int i = 0; i < kWarpPowers; ++i) a.lane[i] = at(5 + kMaxLevels + i);
@@ -250,5 +300,29 @@ ZK_EXPORT int zk_ladder(const uint32_t* x, long x_row, long x_limb, const uint32
   if (B < 1 || B > 65535 || n < 1 || lane_blocks(n) > 0x7fffffffL) return -1;
   const LadderArgs a{x, x_row, x_limb, base, base_row, base_limb, scale, scale_row, scale_limb, out, n};
   ZK_LAUNCH(ladder_kernel, dim3((unsigned)lane_blocks(n), (unsigned)B), dim3(kThreads), 0, stream, a);
+  return ZK_LAST_ERROR();
+}
+
+// out (B, 8, n) contiguous = x * scale * base^i (x null: scale * base^i)
+// for a base and a scale that the host knows: table, 1 + 48 + 32 packed
+// elements (16 bytes each, its four 32-bit words least significant
+// first): the scale, base^(2^e) for e < 48, base^i for i < 32; row b of x
+// at x + b x_row (0: one row for all), limbs x_limb apart, lanes
+// contiguous.  One lane a thread for n <= ZK_LADDER_ONE_LANE_MAX, else
+// ZK_LADDER_LANES.  -1 with no launch for B outside 1..65535 or n < 1.
+// One launch on the stream.
+ZK_EXPORT int zk_ladder_const(const uint32_t* x, long x_row, long x_limb, const uint32_t* table, uint32_t* out,
+                              long B, long n, void* stream) {
+  constexpr int kMany = ZK_LADDER_LANES;
+  if (B < 1 || B > 65535 || n < 1 || lane_blocks(n, 1) > 0x7fffffffL) return -1;
+  LadderTable a{cell_at(table, 0), {}, {}};
+  for (int e = 0; e < kMaxLevels; ++e) a.pw[e] = cell_at(table, 1 + e);
+  for (int i = 0; i < kWarpPowers; ++i) a.lane[i] = cell_at(table, 1 + kMaxLevels + i);
+  if (n <= ZK_LADDER_ONE_LANE_MAX)
+    ZK_LAUNCH(ladder_const_kernel<1>, dim3((unsigned)lane_blocks(n, 1), (unsigned)B), dim3(kThreads), 0, stream, x,
+              x_row, x_limb, out, n, a);
+  else
+    ZK_LAUNCH(ladder_const_kernel<kMany>, dim3((unsigned)lane_blocks(n, kMany), (unsigned)B), dim3(kThreads), 0,
+              stream, x, x_row, x_limb, out, n, a);
   return ZK_LAST_ERROR();
 }

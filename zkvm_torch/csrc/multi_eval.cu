@@ -47,9 +47,15 @@
 // and writes the canonical limbs (Q, C, 8).  The slices fill the card at
 // every shape (896 blocks at (28, 2, 2^16)).
 //
-// The ladder operands come from zk_meval_ladders, one thread an element
-// by square-and-multiply on zk::mul32: B's byte matrix (Q 16, ldb), byte j
-// of l1[q][lo] at row 16 q + j, zeros past S, and l2 as packed cells.
+// The ladder operands come from zk_meval_ladders: B's byte matrix (Q 16,
+// ldb), byte j of l1[q][lo] at row 16 q + j, zeros past S, and l2 as
+// packed cells.  A block takes one point and a tile of one factor, a warp
+// 32 L consecutive outputs: each warp runs one squaring chain of the
+// point (zk::sqr32, 10 limb products), its lanes multiplying their power
+// by each level their exponent's bits name as the chain passes it, off
+// the chain's critical path; each next output is one multiply.  Its floor
+// is the launch and the ~log2 T dependent squarings of the chain (the
+// bound, a multiply an output, is far below it).
 //
 // What bounds it on an H100: bytes.  The coefficients are read once from
 // device memory, C T 32 bytes (0.94 GB, 0.28 ms at 3.35 TB/s for 28
@@ -315,36 +321,95 @@ meval_sum_kernel(const zk::cell* __restrict__ work, uint32_t* __restrict__ out, 
   if (tid == 0) zk::store(out + 8 * p, 1, zk::unpack(red[0]));
 }
 
-// b^e by square-and-multiply
-__device__ zk::fe power(zk::fe b, uint64_t e) {
-  zk::fe r{1, 0};
-  while (e) {
-    if (e & 1) r = zk::mul32(r, b);
-    e >>= 1;
-    if (e) b = zk::mul32(b, b);
-  }
-  return r;
+// the ladder kernel: ZK_MLAD_THREADS threads a block, ZK_MLAD_LANES
+// outputs a thread (a tile of a multiple of 64 outputs a block); a warp of
+// 4 outputs a thread was the best shape of kernel_bench.py --sweep MLAD on
+// an H100 (at 32 points and 2^20 lanes; within 0.0002 ms of the others
+// elsewhere).  Other values are for the tests' emulation and for timing
+// other shapes
+#ifndef ZK_MLAD_THREADS
+#define ZK_MLAD_THREADS 32
+#endif
+#ifndef ZK_MLAD_LANES
+#define ZK_MLAD_LANES 4
+#endif
+constexpr int kLadThreads = ZK_MLAD_THREADS;
+constexpr int kLadLanes = ZK_MLAD_LANES;
+constexpr int kLadTile = kLadThreads * kLadLanes;  // outputs of one factor a block
+static_assert(kLadThreads % 32 == 0 && kLadLanes >= 1, "whole warps");
+static_assert(kLadTile % kLdbAlign == 0, "a tile of l1 is whole 16-byte vectors of each byte row");
+
+ZK_HD int bit_length(long v) {
+  int n = 0;
+  for (; v > 0; v >>= 1) ++n;
+  return n;
 }
 
-constexpr int kLadderThreads = 256;
-
-// one thread an element: (q, k < ldb) -> the 16 bytes of bases[q]^k (zeros
-// from k = S on) down column k of rows 16 q .. 16 q + 15; (q, ldb + hi) ->
-// l2[q][hi] = bases[q]^(S hi)
-__global__ void __launch_bounds__(kLadderThreads)
+// block (q, tile) -> one tile of kLadTile outputs k0 + i of one factor of
+// point q: of l1, the 16 bytes of bases[q]^k (zeros from k = S on) down
+// column k of rows 16 q .. 16 q + 15; of l2, l2[q][k] = bases[q]^(S k).
+// With b = bases[q]^(2^e0) (e0 = 0 for l1, log2 S for l2), an output is
+// b^k.  Thread t of warp w takes k = k0 + 32 (w L + l) + t, l < L.  Each
+// warp squares the base itself, every lane alike, up to the levels its
+// outputs need (no table, no barrier, no warp waiting for another): at
+// level e0 + i, i < 5, the lanes with bit i of t multiply their power by
+// it (a select: the bits differ across the warp), at e0 + 5 + i the warp
+// does where bit i of its k / 32 is set (the same across the warp), each
+// multiply off the chain's critical path, so a warp's first output is
+// ready one multiply after its last squaring; each next output is one
+// multiply by b^32.  l1's bytes are staged in shared memory and written
+// as 16-byte vectors of each byte row; l2's cells one 16-byte store each.
+__global__ void __launch_bounds__(kLadThreads)
 meval_ladders_kernel(const uint32_t* __restrict__ bases, uint8_t* __restrict__ l1d, long ldb,
-                     zk::cell* __restrict__ l2, int Q, long S, long N2) {
-  const long per = ldb + N2, i = (long)blockIdx.x * kLadderThreads + threadIdx.x;
-  if (i >= Q * per) return;
-  const long q = i / per, k = i % per;
-  const zk::fe base = zk::load(bases + 8 * q, 1);
-  if (k < ldb) {
-    const zk::fe v = k < S ? power(base, k) : zk::fe{0, 0};
-    uint8_t* col = l1d + 16 * q * ldb + k;
+                     zk::cell* __restrict__ l2, long S, int log_s, long N2, int tiles1, int tiles2) {
+  __shared__ u32x4 staged[16][kLadTile / 16];  // l1's byte rows of the tile
+  const int tid = threadIdx.x, warp = tid / 32, ln = tid % 32;
+  const long q = blockIdx.x / (tiles1 + tiles2);
+  const int tile = (int)(blockIdx.x % (tiles1 + tiles2));
+  const bool is_l1 = tile < tiles1;
+  const long k0 = (long)(is_l1 ? tile : tile - tiles1) * kLadTile;
+  const long count = is_l1 ? S : N2;  // outputs with a power; l1 past S is zeros
+  const int e0 = is_l1 ? 0 : log_s;
+  const long kw = k0 + 32L * warp * kLadLanes, hi = kw >> 5;  // the warp's first output, less the lane
+  zk::fe v{1, 0}, step{0, 0};
+  if (kw < count) {
+    const int bits = bit_length(hi);  // levels used: the lanes' 5, k / 32's bits, b^32 for the next outputs
+    const int top = e0 + 5 + (kLadLanes > 1 && bits == 0 ? 1 : bits);
+    zk::fe b = zk::load(bases + 8 * q, 1);
+    for (int e = 0; e < top; ++e) {
+      const int i = e - e0;
+      if (i >= 0 && i < 5) {
+        const zk::fe m = zk::mul32(v, b);
+        if (ln >> i & 1) v = m;
+      } else if (i >= 5) {
+        if (i == 5) step = b;
+        if (hi >> (i - 5) & 1) v = zk::mul32(v, b);
+      }
+      if (e + 1 < top) b = zk::sqr32(b);
+    }
+  }
+  uint8_t* rows = reinterpret_cast<uint8_t*>(staged);
 #pragma unroll
-    for (int j = 0; j < 16; ++j) col[j * ldb] = (uint8_t)((j < 8 ? v.lo >> (8 * j) : v.hi >> (8 * j - 64)) & 0xFF);
-  } else {
-    l2[q * N2 + k - ldb] = zk::pack(power(base, (uint64_t)S * (k - ldb)));
+  for (int l = 0; l < kLadLanes; ++l) {
+    const long k = kw + 32L * l + ln;
+    if (l && kw + 32L * l < count) v = zk::mul32(v, step);
+    if (is_l1) {
+      const zk::fe x = k < S ? v : zk::fe{0, 0};
+      const int col = (int)(k - k0);
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        rows[j * kLadTile + col] = (uint8_t)((j < 8 ? x.lo >> (8 * j) : x.hi >> (8 * j - 64)) & 0xFF);
+    } else if (k < N2) {
+      l2[q * N2 + k] = zk::pack(v);
+    }
+  }
+  if (is_l1) {  // the block's whole tile is l1 or l2: the barrier is uniform
+    __syncthreads();
+    const int vecs = (int)((ldb - k0 < kLadTile ? ldb - k0 : kLadTile) / 16);  // 16-byte vectors a row
+    for (int i = tid; i < 16 * vecs; i += kLadThreads) {
+      const int j = i / vecs, x = i % vecs;
+      *reinterpret_cast<u32x4*>(l1d + (16 * q + j) * ldb + k0 + 16 * x) = staged[j][x];
+    }
   }
 }
 
@@ -407,13 +472,18 @@ ZK_EXPORT int zk_multi_eval(const uint32_t* coeffs, const uint8_t* l1d, long ldb
 // The ladder operands of Q points bases (Q, 8) limbs at S (a power of two)
 // and N2: l1d (Q 16, ldb) bytes, byte j of bases[q]^lo at row 16 q + j and
 // column lo < S, zeros in columns S .. ldb - 1 (ldb a multiple of 64, at
-// least S); l2 (Q, N2) packed, bases[q]^(S hi).  -1 with no launch for
-// anything else.  One launch on the stream.
+// least S; l1d 16-byte aligned); l2 (Q, N2) packed, bases[q]^(S hi).  -1
+// with no launch for anything else (S or N2 above 2^31 included).  One
+// launch on the stream: a block a tile of one factor of one point.
 ZK_EXPORT int zk_meval_ladders(const uint32_t* bases, uint8_t* l1d, long ldb, zk::cell* l2, int Q, long S, long N2,
                                void* stream) {
-  if (Q < 1 || S < 1 || (S & (S - 1)) || N2 < 1 || ldb < S || ldb % kLdbAlign) return -1;
-  const long n = (long)Q * (ldb + N2);
-  ZK_LAUNCH(meval_ladders_kernel, dim3((unsigned)((n + kLadderThreads - 1) / kLadderThreads)),
-            dim3(kLadderThreads), 0, stream, bases, l1d, ldb, l2, Q, S, N2);
+  if (Q < 1 || S < 1 || (S & (S - 1)) || S > (1L << 31) || N2 < 1 || N2 > (1L << 31) || ldb < S ||
+      ldb % kLdbAlign || reinterpret_cast<uintptr_t>(l1d) % 16)
+    return -1;
+  const long tiles1 = (ldb + kLadTile - 1) / kLadTile, tiles2 = (N2 + kLadTile - 1) / kLadTile;
+  const long blocks = Q * (tiles1 + tiles2);
+  if (blocks > 0x7fffffffL) return -1;
+  ZK_LAUNCH(meval_ladders_kernel, dim3((unsigned)blocks), dim3(kLadThreads), 0, stream, bases, l1d, ldb, l2, S,
+            bit_length(S) - 1, N2, (int)tiles1, (int)tiles2);
   return ZK_LAST_ERROR();
 }

@@ -279,3 +279,16 @@ ZK_EXPORT int zk_mul32(const uint32_t* a, const uint32_t* b, uint32_t* out, int 
             reinterpret_cast<cell*>(out), n);
   return ZK_LAST_ERROR();
 }
+
+// zk::sqr32 alone, as zk_mul32 checks zk::mul32: out[i] = a[i]^2.
+extern "C" __global__ void zk_sqr32_probe(const cell* __restrict__ a, cell* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = pack(zk::sqr32(unpack(a[i])));
+}
+
+ZK_EXPORT int zk_sqr32(const uint32_t* a, uint32_t* out, int n, void* stream) {
+  constexpr int kThreads = 128;
+  ZK_LAUNCH(zk_sqr32_probe, dim3((n + kThreads - 1) / kThreads), dim3(kThreads), 0, stream,
+            reinterpret_cast<const cell*>(a), reinterpret_cast<cell*>(out), n);
+  return ZK_LAST_ERROR();
+}

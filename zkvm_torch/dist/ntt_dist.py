@@ -12,8 +12,9 @@ and an output row k = k1 + P k2,
 2. the P-point NTTs along n1 (kernel K1 at M = P, ``ntt_t._axis_ntt``);
 3. exchange 2: rank q takes k1 = q for all n2;
 4. the twiddles w^(n2 k1) = (w^q)^n2 and the L-point NTT along n2 (K1):
-   on rank q the twiddles are a coset scale of base w^q, built from
-   ``ntt_t.ladder_t`` ladders and fused into K1 as its premultiplier
+   on rank q the twiddles are a coset scale of the host int w^q, built
+   from host-constant ladders (``ntt_t.ladder_t_host``) and fused into K1
+   as its premultiplier
    (``ntt_t.premultiplier``: pass 1's where it is one launch; where it
    recurses, L > 2^18, the inner transform's and pass 2's).  The reference
    multiplies them in before exchange 2, from P host starts
@@ -37,7 +38,6 @@ import functools
 import torch
 
 from zkvm_torch.field import f128
-from zkvm_torch.field import f128t as ft
 from zkvm_torch.ntt import ntt_t as nt
 from . import comm
 
@@ -50,8 +50,7 @@ def _twiddle_scale(n: int, p: int, q: int, inverse: bool, device, max_axis: int)
     w = f128.get_root_of_unity(n)
     if inverse:
         w = f128.finv(w)
-    col = lambda v: ft.const_col(v, device)[:, 0]
-    return nt.premultiplier(col(pow(w, q, f128.P)), n // p, inverse, col(f128.finv(p)) if inverse else None)
+    return nt.premultiplier(pow(w, q, f128.P), n // p, inverse, device, f128.finv(p) if inverse else 1)
 
 
 def _twiddled_transform(y: torch.Tensor, n: int, p: int, q: int, inverse: bool) -> torch.Tensor:

@@ -48,6 +48,8 @@ SIGNATURES = {
     "zk_ntt_stages": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # a, b, out (packed elements), n, stream: zk::mul32 alone (a check)
     "zk_mul32": (_P, _P, _P, _I, _P),
+    # a, out (packed elements), n, stream: zk::sqr32 alone (a check)
+    "zk_sqr32": (_P, _P, _I, _P),
     # x, out, C, N, stream
     "zk_blake3_rows": (_P, _P, _I, _L, _P),
     # leaves, heap, N, counters, n_counters, launches (a host int, set to the kernel launches made), stream
@@ -78,6 +80,9 @@ SIGNATURES = {
     "zk_fri_fold": (_P, _P, _L, _UP, _P),
     # x, x_row, x_limb, base, base_row, base_limb, scale, scale_row, scale_limb, out, B, n, stream
     "zk_ladder": (_P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P),
+    # x, x_row, x_limb, table (a host array of (1 + 48 + 32) x 4 words), out, B, n, stream: the ladder of a
+    # base and a scale known on the host
+    "zk_ladder_const": (_P, _L, _L, _UP, _P, _L, _L, _P),
     # cols, col_stride, limb_stride, weights (a host array of K C x 4 words), out, K, C, N, stream
     "zk_weighted_sum": (_P, _L, _L, _UP, _P, _I, _I, _L, _P),
     # vals, vals_row, vals_limb, inv, inv_row, inv_limb, at (a host array of K x 4 words), out, K, N, stream

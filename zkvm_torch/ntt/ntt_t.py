@@ -141,10 +141,15 @@ def _ladder_impl(base: torch.Tensor, scale: torch.Tensor, n: int) -> torch.Tenso
     return prod.transpose(0, 1).reshape(8, n)
 
 
-# launches of the ladder kernel (csrc/fri_fold.cu zk_ladder) in this
-# process, and by (B, n)
+# launches of the ladder kernel's two entries (csrc/fri_fold.cu) in this
+# process, and by (B, n): zk_ladder (device bases and scales) and
+# zk_ladder_const (a base and a scale known on the host)
 ladder_launches = 0
 ladder_launches_by_shape = collections.Counter()
+ladder_const_launches = 0
+ladder_const_launches_by_shape = collections.Counter()
+LADDER_LEVELS = 48  # the tables of the fold and zk_ladder_const: base^(2^e) for e < 48 (kMaxLevels)
+WARP_POWERS = 32  # and base^i for i < 32 (kWarpPowers)
 
 
 def _ladder_rows(base, scale, n, x):
@@ -248,10 +253,83 @@ def host_limbs(values, device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+@functools.lru_cache(maxsize=256)
+def power_table(base: int):
+    """(base^(2^e) mod p for e < LADDER_LEVELS, by squaring; base^i mod p
+    for i < WARP_POWERS) on the host: the ladder tables of the fold kernel
+    and of ``zk_ladder_const``, built once a base."""
+    squares = [base % f128.P]
+    for _ in range(LADDER_LEVELS - 1):
+        squares.append(squares[-1] * squares[-1] % f128.P)
+    powers = [1]
+    for _ in range(WARP_POWERS - 1):
+        powers.append(powers[-1] * base % f128.P)
+    return tuple(squares), tuple(powers)
+
+
+@functools.lru_cache(maxsize=256)
+def ladder_table(base: int, scale: int):
+    """``zk_ladder_const``'s table by value, a host array of 4 (1 + 48 + 32)
+    32-bit words: the scale, then :func:`power_table` of the base; built
+    once a (base, scale) and shared (never written)."""
+    squares, powers = power_table(base % f128.P)
+    return kernels.words([scale % f128.P, *squares, *powers])
+
+
+def _ladder_const_rows(n: int, x):
+    """(B, x as (B, 8, n) or None) of a host-constant ladder, after the
+    checks its kernel's wrapper makes on every device."""
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"ladder: n = {n}, expected a power of two")
+    if x is None:
+        return 1, None
+    if x.dtype != torch.int32 or x.dim() < 2 or x.shape[-2:] != (8, n):
+        raise ValueError(f"ladder: x of shape {tuple(x.shape)} and type {x.dtype}, expected int32 (..., 8, {n})")
+    x = x.reshape(-1, 8, n)
+    return x.shape[0], x
+
+
+def launch_ladder_const(lib, stream, base: int, scale: int, n: int, x=None, device=None) -> torch.Tensor:
+    """Call the host-constant ladder entry point of ``lib``: scale * base^i
+    for i < n (host ints) times x (..., 8, n) where given, in one launch,
+    shaped as x, else (8, n) on ``device``.  The table goes by value
+    (:func:`ladder_table`), so it copies nothing to the device and never
+    waits for the stream."""
+    b, rows_x = _ladder_const_rows(n, x)
+    if b > 65535:
+        raise ValueError(f"ladder: {b} rows, at most 65535")
+    if rows_x is not None and rows_x.stride(-1) != 1:
+        rows_x = rows_x.contiguous()
+    dev = device if rows_x is None else rows_x.device
+    out = torch.empty((b, 8, n), dtype=torch.int32, device=dev)
+    xr, xl = (0, 0) if rows_x is None else (rows_x.stride(0), rows_x.stride(1))
+    rc = lib.zk_ladder_const(kernels.ptr(rows_x), xr, xl, ladder_table(base, scale), kernels.ptr(out), b, n, stream)
+    kernels.check(rc, "zk_ladder_const")
+    return out[0] if x is None else out.reshape(x.shape)
+
+
+def ladder_const_kernel(lib, stream, base: int, scale: int, n: int, x=None, device=None) -> torch.Tensor:
+    """:func:`launch_ladder_const`, counted."""
+    global ladder_const_launches
+    out = launch_ladder_const(lib, stream, base, scale, n, x, device)
+    ladder_const_launches += 1
+    ladder_const_launches_by_shape[(out.numel() // (8 * n), n)] += 1
+    return out
+
+
 def ladder_t_host(base: int, n: int, scale: int = 1, device="cpu", x=None) -> torch.Tensor:
-    """:func:`ladder_t` of host ints base and scale (x on ``device``)."""
-    ops = host_limbs([base, scale], device)
-    return ladder_t(ops[0], ops[1], n, x)
+    """:func:`ladder_t` of host ints base and scale, on x's device where x
+    is given, else on ``device``: a CUDA device launches the host-constant
+    entry ``zk_ladder_const`` once (or it raises), the CPU takes
+    :func:`ladder_plain`."""
+    dev = torch.device(device if x is None else x.device)
+    _ladder_const_rows(n, x)
+    if dev.type == "cpu":
+        ops = host_limbs([base, scale], dev)
+        return ladder_plain(ops[0], ops[1], n, x)
+    if dev.type != "cuda":
+        raise ValueError(f"ladder: no kernel for device {dev}")
+    return ladder_const_kernel(kernels.lib(), torch.cuda.current_stream(dev).cuda_stream, base, scale, n, x, dev)
 
 
 def ladders_split(bases: torch.Tensor, n: int, arith: ft.Arith = ft.DISPATCH):
@@ -485,24 +563,22 @@ class Recursed(NamedTuple):
     pre: torch.Tensor
 
 
-def premultiplier(base: torch.Tensor, n: int, inverse: bool, factor=None, top: bool = True):
-    """``factor`` * base^i (i < n; ``factor`` an (8,) limb tensor, 1 by
-    default) in the form :func:`_ntt_t_core`'s ``scale_r1`` takes for a
-    size-n (i)NTT: the two ladders of :func:`class_scale` where pass 1 is
-    one launch, else a :class:`Recursed` form, so the scale is fused
-    into the kernels at every size.  Holds an O(n) table where pass 1
-    recurses: cache it."""
+def premultiplier(base: int, n: int, inverse: bool, device, factor: int = 1, top: bool = True):
+    """``factor`` * base^i (i < n; host ints) on ``device`` in the form
+    :func:`_ntt_t_core`'s ``scale_r1`` takes for a size-n (i)NTT: the two
+    ladders of :func:`class_scale` where pass 1 is one launch, else a
+    :class:`Recursed` form, so the scale is fused into the kernels at
+    every size.  Holds an O(n) table where pass 1 recurses: cache it."""
     n2, n1 = _split(n)
-    one = _one(base.device)
-    lad_lane = ladder_t(base, one if factor is None else factor, n1)  # factor * base^n1
-    base_m = _pow2k(base, n1.bit_length() - 1)  # base^N1
+    lad_lane = ladder_t_host(base, n1, factor, device)  # factor * base^n1
+    base_m = pow(base, n1, f128.P)  # base^N1
     if n2 <= MAX_AXIS:
-        return ladder_t(base_m, one, n2), lad_lane
+        return ladder_t_host(base_m, n2, device=device), lad_lane
     if n1 > 1:  # pass 2's rows are in its initial layout order
-        lad_lane = lad_lane.index_select(1, _layout_dev(n1, base.device)[0])
-    mid = unpack_t(_mid_twiddles(n, inverse, inverse and top, base.device))  # (N1, 8, N2)
+        lad_lane = lad_lane.index_select(1, _layout_dev(n1, lad_lane.device)[0])
+    mid = unpack_t(_mid_twiddles(n, inverse, inverse and top, device))  # (N1, 8, N2)
     pre = pack_t(ft.fmul(mid, lad_lane.transpose(0, 1)[:, :, None]))
-    return Recursed(premultiplier(base_m, n2, inverse, top=False), pre)
+    return Recursed(premultiplier(base_m, n2, inverse, device, top=False), pre)
 
 
 def ntt_t(x: torch.Tensor) -> torch.Tensor:
@@ -519,45 +595,37 @@ def intt_t(x: torch.Tensor) -> torch.Tensor:
     return _ntt_t_core(x, True)
 
 
-def _pow2k(base: torch.Tensor, k: int) -> torch.Tensor:
-    """base^(2^k) for an (8,) limb tensor."""
-    for _ in range(k):
-        base = ft.fsquare(base[:, None])[:, 0]
-    return base
-
-
-def scale_by_ladder_t(x: torch.Tensor, base: torch.Tensor, n: int, scale=None) -> torch.Tensor:
-    """x[..., 8, n] * base^i along the lane axis, via the index split
-    n = n1 + N1*n2 (two broadcast multiplies, O(sqrt N) ladder memory).
-    ``scale``: the two ladders, :func:`class_scale` of the same base."""
+def scale_by_ladder_t(x: torch.Tensor, base: int, n: int, scale=None) -> torch.Tensor:
+    """x[..., 8, n] * base^i along the lane axis (``base`` a host int), via
+    the index split n = n1 + N1*n2 (two broadcast multiplies, O(sqrt N)
+    ladder memory).  ``scale``: the two ladders, :func:`class_scale` of
+    the same base."""
     n2, n1 = _split(n)
     batch = tuple(x.shape[:-2])
-    lad2, lad1 = class_scale(base, n) if scale is None else scale  # (8, N2), (8, N1)
+    lad2, lad1 = class_scale(base, n, x.device) if scale is None else scale  # (8, N2), (8, N1)
     y = x.reshape(batch + (8, n2, n1)).transpose(-3, -2)  # (..., N2, 8, N1)
     y = ft.fmul(ft.fmul(y, lad1), lad2.transpose(0, 1)[:, :, None])
     return y.transpose(-3, -2).reshape(batch + (8, n))
 
 
-def class_scale(base: torch.Tensor, t: int):
-    """The rank-1 premultiplier of a size-t coset NTT at ``base``:
-    ((base^N1)^n2 over N2 rows, base^n1 over N1 lanes).  When the transform
-    recurses, :func:`class_ntt_t` applies it unfused."""
+def class_scale(base: int, t: int, device):
+    """The rank-1 premultiplier of a size-t coset NTT at ``base`` (a host
+    int), on ``device``: ((base^N1)^n2 over N2 rows, base^n1 over N1
+    lanes), two host-constant ladders.  When the transform recurses,
+    :func:`class_ntt_t` applies it unfused."""
     n2, n1 = _split(t)
-    one = _one(base.device)
-    lad_lane = ladder_t(base, one, n1)  # (8, N1)
-    lad_m = ladder_t(_pow2k(base, n1.bit_length() - 1), one, n2)  # (8, N2)
-    return lad_m, lad_lane
+    return ladder_t_host(pow(base, n1, f128.P), n2, device=device), ladder_t_host(base, n1, device=device)
 
 
-def class_ntt_t(coeffs_t: torch.Tensor, base: torch.Tensor, scale=None) -> torch.Tensor:
+def class_ntt_t(coeffs_t: torch.Tensor, base: int, scale=None) -> torch.Tensor:
     """Evaluate degree-<T polynomials on the coset base*<w_T>: the base^n
-    scale fused into the pass-1 kernel.  coeffs_t (..., 8, T); base (8,)
-    limbs; ``scale`` = a cached :func:`class_scale` of the same base."""
+    scale fused into the pass-1 kernel.  coeffs_t (..., 8, T); base a host
+    int; ``scale`` = a cached :func:`class_scale` of the same base."""
     t = coeffs_t.shape[-1]
     if t == 1:
         return coeffs_t
     if scale is None:
-        scale = class_scale(base, t)
+        scale = class_scale(base, t, coeffs_t.device)
     if _split(t)[0] > MAX_AXIS:  # recursion path: apply the scale unfused
         return _ntt_t_core(scale_by_ladder_t(coeffs_t, base, t, scale), False)
     return _ntt_t_core(coeffs_t, False, scale_r1=scale)
@@ -568,7 +636,7 @@ def _coset_premultiplier(offset: int, d: int, max_axis: int, device):
     """:func:`premultiplier` of offset^i for a size-d transform; the key
     holds MAX_AXIS, which shapes the form (tests patch it).  An O(d) table
     where pass 1 recurses (128 MiB at d = 2^23)."""
-    return premultiplier(ft.const_col(offset, device)[:, 0], d, False)
+    return premultiplier(offset, d, False, device)
 
 
 def coset_lde_t(coeffs_t: torch.Tensor, blowup: int, offset: int = f128.DOMAIN_OFFSET) -> torch.Tensor:

@@ -7,8 +7,9 @@ warm up, once with per-stage synchronised wall clocks and peak device
 memory, and once under ``torch.profiler`` (CPU and CUDA activity).  Prints
 one JSON line: the card, the stage seconds and peaks, the profiled prove's
 wall time, device-busy seconds (the union of kernel intervals) and idle
-share, the number of device kernels per prove, and the kernels with the
-most device time, and the kernel-health report of the synced prove
+share, the number of device kernels per prove, the kernels with the
+most device time, the copies by direction and kind (host-to-device from
+pinned or pageable memory, ...), and the kernel-health report of the synced prove
 (:mod:`zkvm_torch.utils.kernel_health`: each hand-written kernel's
 launches, by shape).  ``--tree DIR`` proves with the ``zkvm_torch`` of
 another checkout (e.g. the parent unpacked with ``git archive`` into
@@ -102,6 +103,7 @@ def main():
         "device_busy_seconds": busy, "device_idle_share": 1.0 - busy / wall,
         "device_kernels": len(kernels),
         "top_kernels": [{"name": k[:90], "ms": us / 1e3, "count": n} for k, (us, n) in top],
+        "copies": {k: n for k, (_, n) in sorted(by_name.items()) if k.startswith("Memcpy")},
         "kernel_health": health,
     }))
 

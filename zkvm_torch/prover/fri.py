@@ -11,7 +11,8 @@ on a card one launch of ``csrc/fri_fold.cu``'s fold a layer
 (:func:`fold_t`; the ladder of the x_j made in its registers from a table
 of powers built on the host and passed by value), on the CPU
 the plain version (K1's plain version at M = 8, a ladder and 15 plain
-field ops).  The remainder's inverse-offset scale is one ladder launch.
+field ops).  The remainder's inverse-offset scale is one launch of the
+host-constant ladder (``ntt_t.ladder_t_host``).
 """
 
 from __future__ import annotations
@@ -71,34 +72,18 @@ def fold_plain(v: torch.Tensor, scale: int, base: int) -> torch.Tensor:
 
 _R8 = f128.finv(f128.get_root_of_unity(FOLD))  # the inverse DFT's root
 _FOLD_CONSTANTS = [f128.finv(FOLD), _R8, pow(_R8, 2, f128.P), pow(_R8, 3, f128.P)]
-FOLD_LEVELS = 48  # the kernel's table: base^(2^e) for e < 48 (kMaxLevels)
-WARP_POWERS = 32  # and base^i for i < 32 (kWarpPowers)
-
-
-@functools.lru_cache(maxsize=64)
-def power_table(base: int):
-    """(base^(2^e) mod p for e < FOLD_LEVELS, by squaring; base^i mod p for
-    i < WARP_POWERS) on the host: the fold kernel's ladder tables, built
-    once a base (a layer's w_D^(-1))."""
-    squares = [base % f128.P]
-    for _ in range(FOLD_LEVELS - 1):
-        squares.append(squares[-1] * squares[-1] % f128.P)
-    powers = [1]
-    for _ in range(WARP_POWERS - 1):
-        powers.append(powers[-1] * base % f128.P)
-    return tuple(squares), tuple(powers)
 
 
 @functools.lru_cache(maxsize=64)
 def _table_words(base: int):
-    squares, powers = power_table(base)
+    squares, powers = nt.power_table(base)
     return tuple(kernels.words([*_FOLD_CONSTANTS, *squares, *powers]))
 
 
 def fold_scalars(scale: int, base: int):
     """The fold kernel's 5 + 48 + 32 scalars, as a host array of their
     32-bit words: q_0 = scale, 1/8, r, r^2, r^3 for r = w_8^(-1), then the
-    ladder's tables base^(2^e) and base^i (:func:`power_table`)."""
+    ladder's tables base^(2^e) and base^i (``ntt_t.power_table``)."""
     words = (*kernels.words([scale]), *_table_words(base))
     return (ctypes.c_uint32 * len(words))(*words)
 

@@ -10,7 +10,10 @@ tensor cores, l2 packed; :class:`Ladders`) and launches ``zk_multi_eval``
 once a coefficient tensor, both in ``csrc/multi_eval.cu``: a u8 ``mma``
 contraction over l1 with the sums mod p and the l2 factors on the card,
 returning canonical (Q, C, 8) limbs; the host copies those Q C 32 bytes
-once a call and turns them into ints (or it raises: no fallback).  On a
+once a call and turns them into ints (or it raises: no fallback).  A
+tensor may take a span of the point set (``spans``), so the OOD frame's
+z, z g and z^8 share one ladder launch: the trace at the first two, the
+composition at the third.  On a
 CPU tensor it takes the plain version, :func:`multi_eval_rows_plain`; any
 other device raises.
 
@@ -217,29 +220,44 @@ def launch_multi_eval(lib, stream, coeffs_t: torch.Tensor, lad: Ladders) -> torc
     return out
 
 
-def evaluate(lib, stream, coeffs_ts: Sequence[torch.Tensor], bases: torch.Tensor) -> List[torch.Tensor]:
+def _spans(spans, q: int, k: int):
+    """The (start, stop) point rows of each of ``k`` tensors at a set of
+    ``q`` points: ``spans`` checked, or every point for each."""
+    if spans is None:
+        return [(0, q)] * k
+    spans = [tuple(sp) for sp in spans]
+    if len(spans) != k or any(not 0 <= a < b <= q for a, b in spans):
+        raise ValueError(f"multi_eval: point spans {spans} for {k} tensors at {q} points")
+    return spans
+
+
+def evaluate(lib, stream, coeffs_ts: Sequence[torch.Tensor], bases: torch.Tensor, spans=None) -> List[torch.Tensor]:
     """Through the entry points of ``lib``: the ladder operands of the (Q, 8)
     bases in one launch, then for each coefficient tensor (one T for all)
-    its (Q, C, 8) canonical limbs in one multi-eval call; counted."""
+    its (Q', C, 8) canonical limbs in one multi-eval call at the points of
+    its span (``spans``: one (start, stop) a tensor, every point by
+    default; a span reads its rows of the one :class:`Ladders`); counted."""
     global launches, ladder_launches
     q, t = bases.shape[0], coeffs_ts[0].shape[-1]
+    spans = _spans(spans, q, len(coeffs_ts))
     lad = launch_ladders(lib, stream, bases, t)
     ladder_launches += 1
     ladder_launches_by_shape[(q, t)] += 1
     outs = []
-    for x in coeffs_ts:
-        outs.append(launch_multi_eval(lib, stream, x, lad))
+    for x, (a, b) in zip(coeffs_ts, spans):
+        view = lad if (a, b) == (0, q) else Ladders(lad.digits[16 * a:16 * b], lad.cells[a:b], lad.s)
+        outs.append(launch_multi_eval(lib, stream, x, view))
         launches += 1
-        launches_by_shape[(x.shape[0], q, t)] += 1
+        launches_by_shape[(x.shape[0], b - a, t)] += 1
     return outs
 
 
-def multi_eval_many_t(coeffs_ts: Sequence[torch.Tensor], points: Sequence[int]) -> List[torch.Tensor]:
+def multi_eval_many_t(coeffs_ts: Sequence[torch.Tensor], points: Sequence[int], spans=None) -> List[torch.Tensor]:
     """The card's part of :func:`multi_eval_rows_many`: for each coefficient
-    tensor (one T for all) its (Q, C, 8) canonical limbs on the card, by
-    :func:`evaluate`.  The points go to the card by one copy from pinned
-    memory that does not wait for the stream, so nothing here waits for
-    it."""
+    tensor (one T for all) its (Q', C, 8) canonical limbs at the points of
+    its span on the card, by :func:`evaluate`.  The points go to the card
+    by one copy from pinned memory that does not wait for the stream, so
+    nothing here waits for it."""
     lengths = [_checked(x, points)[2] for x in coeffs_ts]
     dev = coeffs_ts[0].device
     if any(x.device != dev for x in coeffs_ts) or len(set(lengths)) != 1:
@@ -247,8 +265,9 @@ def multi_eval_many_t(coeffs_ts: Sequence[torch.Tensor], points: Sequence[int]) 
                          f"{[str(x.device) for x in coeffs_ts]}, expected one length on one device")
     if dev.type != "cuda":
         raise ValueError(f"multi_eval: no kernel for device {dev}")
+    _spans(spans, len(points), len(coeffs_ts))
     bases = torch.from_numpy(to_limbs(list(points)).view(np.int32)).pin_memory()
-    return evaluate(kernels.lib(), kernels.stream_of(coeffs_ts[0]), coeffs_ts, bases.to(dev, non_blocking=True))
+    return evaluate(kernels.lib(), kernels.stream_of(coeffs_ts[0]), coeffs_ts, bases.to(dev, non_blocking=True), spans)
 
 
 def multi_eval_t(coeffs_t: torch.Tensor, points: Sequence[int]) -> torch.Tensor:
@@ -256,22 +275,25 @@ def multi_eval_t(coeffs_t: torch.Tensor, points: Sequence[int]) -> torch.Tensor:
     return multi_eval_many_t([coeffs_t], points)[0]
 
 
-def multi_eval_rows_many(coeffs_ts: Sequence[torch.Tensor], points: Sequence[int]) -> List[List[List[int]]]:
-    """Evaluate each tensor's C transposed column polynomials at each point;
-    host ints as rows[q][c], one list a tensor: on CUDA tensors one ladder
-    launch and the kernel a tensor (or it raises), on CPU tensors the plain
-    version."""
+def multi_eval_rows_many(coeffs_ts: Sequence[torch.Tensor], points: Sequence[int],
+                         spans=None) -> List[List[List[int]]]:
+    """Evaluate each tensor's C transposed column polynomials at the points
+    of its span (``spans``: one (start, stop) a tensor, every point by
+    default); host ints as rows[q][c], one list a tensor: on CUDA tensors
+    one ladder launch for all the points and the kernel a tensor (or it
+    raises), on CPU tensors the plain version."""
+    spans = _spans(spans, len(points), len(coeffs_ts))
     if coeffs_ts and all(x.device.type == "cpu" for x in coeffs_ts):
         for x in coeffs_ts:
             _checked(x, points)
-        return [multi_eval_rows_plain(x, points) for x in coeffs_ts]
-    outs = multi_eval_many_t(coeffs_ts, points)
-    vals = from_limbs(to_numpy(torch.cat(outs, dim=1)))  # (Q, sum C) ints, one copy to the host
-    rows, c0 = [], 0
+        return [multi_eval_rows_plain(x, points[a:b]) for x, (a, b) in zip(coeffs_ts, spans)]
+    outs = multi_eval_many_t(coeffs_ts, points, spans)
+    vals = from_limbs(to_numpy(torch.cat([o.reshape(-1, NLIMBS) for o in outs])))  # one copy to the host
+    rows, i = [], 0
     for out in outs:
-        c1 = c0 + out.shape[1]
-        rows.append([[int(v) for v in row[c0:c1]] for row in vals])
-        c0 = c1
+        q, c = out.shape[:2]
+        rows.append([[int(v) for v in vals[i + r * c:i + (r + 1) * c]] for r in range(q)])
+        i += q * c
     return rows
 
 

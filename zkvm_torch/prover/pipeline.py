@@ -89,13 +89,12 @@ def _class_base_t(t_len: int, blowup: int, device):
     s_t = pow(offset, t_len, f128.P)
     w_b = f128.get_root_of_unity(blowup)
     mask_cls, ark_cls = periodic_class_patterns(t_len, blowup)
-    class_bases_t = tensor(bases, device)  # (B, 8)
     dct = dict(
         d=d,
         g_trace=g_trace,
         w_d=w_d,
-        class_bases_t=class_bases_t,
-        class_scales=[nt.class_scale(class_bases_t[r], t_len) for r in range(blowup)],
+        class_bases=bases,
+        class_scales=[nt.class_scale(bases[r], t_len, device) for r in range(blowup)],
         mask_cls_t=from_numpy(np.swapaxes(mask_cls, -1, -2), device),  # (B, 8, 16)
         ark_cls_t=from_numpy(np.swapaxes(ark_cls, -1, -2), device),  # (B, 8, 8, 16)
         inv_off_t=nt.ladder_t_host(f128.finv(offset), d, device=device),  # (8, D)
@@ -104,15 +103,14 @@ def _class_base_t(t_len: int, blowup: int, device):
         e2=pow(g_trace, t_len - 2, f128.P),
         x_last=pow(g_trace, t_len - NUM_EXEMPTIONS, f128.P),
     )
-    dct["x_cls_t"] = torch.stack([class_points(dct, r) for r in range(blowup)])
+    dct["x_cls_t"] = torch.stack([class_points(dct, r, device) for r in range(blowup)])
     return dct
 
 
-def class_points(dct, r):
+def class_points(dct, r, device):
     """Class r's domain points base_r * g^k, (8, T)."""
-    bases = dct["class_bases_t"]
-    t = dct["d"] // bases.shape[0]
-    return nt.ladder_t(nt.host_limbs([dct["g_trace"]], bases.device)[0], bases[r], t)
+    bases = dct["class_bases"]
+    return nt.ladder_t_host(dct["g_trace"], dct["d"] // len(bases), bases[r], device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -134,7 +132,7 @@ def _class_constants_t(t_len: int, blowup: int, device):
 
 
 def _class_ntt(coeffs_t, dct, r):
-    return nt.class_ntt_t(coeffs_t, dct["class_bases_t"][r], dct["class_scales"][r])
+    return nt.class_ntt_t(coeffs_t, dct["class_bases"][r], dct["class_scales"][r])
 
 
 def _interleave(per_class):
@@ -473,9 +471,12 @@ def prove(trace, pub_inputs: PublicInputs, options: ProofOptions = ProofOptions(
     zg = f128.fmul(z, stages.g_trace)
     z_m = pow(z, NUM_COMP_COLUMNS, f128.P)
     with stage("ood"):
-        ood_cur, ood_nxt = me.multi_eval_rows(coeffs_t, [z, zg])
+        # one ladder operand for z, z g and z^8 (all known before the first
+        # reseed): the trace columns at the first two, the composition's at
+        # the third
+        (ood_cur, ood_nxt), (ood_comp,) = me.multi_eval_rows_many((coeffs_t, h_t), [z, zg, z_m],
+                                                                   spans=((0, 2), (2, 3)))
         coin.reseed_with_elements(ood_cur + ood_nxt)
-        ood_comp = me.multi_eval_rows(h_t, [z_m])[0]
         coin.reseed_with_elements(ood_comp)
 
     # winterfell 0.9 DEEP coefficients: one per trace column (shared by the

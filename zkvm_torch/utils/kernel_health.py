@@ -18,8 +18,10 @@ and mul of ``f128t`` (by operation and output elements),
 ``meval_ladders``, the multi-eval's ladder operands (one launch a point
 set; by (Q, T)), and the kernels of ``csrc/fri_fold.cu`` and
 ``csrc/deep.cu``, a family an entry: ``fri_fold`` (one launch a FRI
-layer; by n), ``ladder`` (``ntt_t.ladder_t``; by (B, n)),
-``weighted_sum`` (the DEEP's column sums; by (K, C, N)) and
+layer; by n), ``ladder`` (``ntt_t.ladder_t``, the entry of device bases
+and scales: the mid twiddles; by (B, n)), ``ladder_const``
+(``ntt_t.ladder_t_host``, the entry of a base and a scale known on the
+host: every other ladder; by (B, n)), ``weighted_sum`` (the DEEP's column sums; by (K, C, N)) and
 ``deep_quotient`` (by (K, N)).  Beside
 them, :func:`plain_calls` counts the calls of the plain versions that a
 prove on a card must never take (the multi-eval's float64 product).
@@ -42,7 +44,7 @@ from zkvm_torch.prover import fri
 from zkvm_torch.prover import multi_eval as me
 
 FAMILIES = ("ntt_stages", "blake3_rows", "merkle", "composition", "transition", "batch_inverse", "field_ops",
-            "multi_eval", "meval_ladders", "fri_fold", "ladder", "weighted_sum", "deep_quotient")
+            "multi_eval", "meval_ladders", "fri_fold", "ladder", "ladder_const", "weighted_sum", "deep_quotient")
 _COUNTED = {"blake3_rows": b3t, "merkle": mk, "composition": cp, "transition": tr, "batch_inverse": ft,
             "multi_eval": me}
 
@@ -51,12 +53,13 @@ def reset() -> None:
     """Every launch counter of every family to 0."""
     for mod in _COUNTED.values():
         mod.launches = 0
-    me.ladder_launches = me.plain_calls = fri.fold_launches = nt.ladder_launches = 0
+    me.ladder_launches = me.plain_calls = fri.fold_launches = nt.ladder_launches = nt.ladder_const_launches = 0
     dp.sum_launches = dp.quotient_launches = 0
     for counter in (nt.launches, b3t.launches_by_shape, cp.launches_by_shape, tr.launches_by_shape,
                     ft.launches_by_shape, mk.launches_by_size, mk.trees_by_size, ft.op_launches,
                     ft.op_launches_by_shape, me.launches_by_shape, me.ladder_launches_by_shape,
-                    fri.fold_launches_by_shape, nt.ladder_launches_by_shape, dp.sum_launches_by_shape,
+                    fri.fold_launches_by_shape, nt.ladder_launches_by_shape, nt.ladder_const_launches_by_shape,
+                    dp.sum_launches_by_shape,
                     dp.quotient_launches_by_shape):
         counter.clear()
 
@@ -66,7 +69,8 @@ def launches() -> Dict[str, int]:
     (the Merkle heap: entry calls, one a tree)."""
     return {"ntt_stages": sum(nt.launches.values()), **{name: mod.launches for name, mod in _COUNTED.items()},
             "field_ops": sum(ft.op_launches.values()), "meval_ladders": me.ladder_launches,
-            "fri_fold": fri.fold_launches, "ladder": nt.ladder_launches, "weighted_sum": dp.sum_launches,
+            "fri_fold": fri.fold_launches, "ladder": nt.ladder_launches, "ladder_const": nt.ladder_const_launches,
+            "weighted_sum": dp.sum_launches,
             "deep_quotient": dp.quotient_launches}
 
 
@@ -84,6 +88,7 @@ def launches_by_shape() -> Dict[str, Dict[str, int]]:
         "meval_ladders": {f"Q={q} T={t}": k for (q, t), k in sorted(me.ladder_launches_by_shape.items())},
         "fri_fold": {f"n={n}": k for n, k in sorted(fri.fold_launches_by_shape.items())},
         "ladder": {f"B={b} n={n}": k for (b, n), k in sorted(nt.ladder_launches_by_shape.items())},
+        "ladder_const": {f"B={b} n={n}": k for (b, n), k in sorted(nt.ladder_const_launches_by_shape.items())},
         "weighted_sum": {f"K={k} C={c} N={n}": m for (k, c, n), m in sorted(dp.sum_launches_by_shape.items())},
         "deep_quotient": {f"K={k} N={n}": m for (k, n), m in sorted(dp.quotient_launches_by_shape.items())},
     }
