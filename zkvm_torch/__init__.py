@@ -23,7 +23,7 @@ Layer map (mirrors :mod:`zkvm`):
              collectives, four-step NTT, ranks spawned on one host
   verifier/  the host verifier
   isa/, processor/, fhe/  assembler, golden processor, LWE
-  utils/     serde, the per-phase profiler and the kernel-health report
+  utils/     serde, the prover's spans (profiler) and the kernel-health report
              (each kernel's launches, by shape)
   csrc/      the CUDA C++ sources, built with nvcc at first use
   convert.py build the port's trace, key and public inputs from plain data

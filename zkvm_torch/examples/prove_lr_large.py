@@ -18,7 +18,12 @@ port's verifier, and expect a one-byte tamper to be rejected.
 
 Each phase prints one JSON line with its seconds and the card's name and
 power limit (``nvidia-smi``); the proves add their per-stage seconds and
-peak device memory, and rows/s.
+peak device memory, and rows/s.  With ``ZKVM_PROFILE=1``
+(``config.from_env()``) the profiler records the proves' spans and prints
+their tree at the end (:mod:`zkvm_torch.utils.profiler`); with
+``ZKVM_PROFILE_DIR=DIR`` too, a ``torch.profiler`` trace of the run, its
+``zkvm.*`` spans on the clock of the device's activity, is written to
+``DIR/zkvm_trace_<pid>.json``.
 """
 
 from __future__ import annotations
@@ -34,11 +39,13 @@ import torch
 
 from zkvm_torch import vm
 from zkvm_torch.air.layout import PublicInputs
+from zkvm_torch.config import from_env
 from zkvm_torch.fhe import FheUInt8, LweParameters, ServerKey
 from zkvm_torch.isa import Program, ProgramInputs
 from zkvm_torch.prover import limits
 from zkvm_torch.prover.pipeline import prove as stark_prove
 from zkvm_torch.runtime import NativeProcessor, native_available
+from zkvm_torch.utils.profiler import profiler
 from zkvm_torch.verifier import VerificationError
 
 
@@ -150,6 +157,9 @@ def main(argv=None):
     card = card_name(args.device)
     print(card, flush=True)
     emit = lambda obj: print(json.dumps({**obj, "card": card}), flush=True)
+    profiled = from_env().runtime.profile
+    if profiled:
+        profiler.enable()
 
     run = LrRun(args.log2_rows)
     run.prepare()
@@ -165,6 +175,9 @@ def main(argv=None):
     clear, verify_seconds, rejected = run.check(proof)
     emit({"phase": "verify", "verify_seconds": verify_seconds, "decrypted": clear, "expected": run.expected,
           "tampered_rejected": rejected, "proof_bytes": len(proof.to_wire_bytes())})
+    if profiled:
+        profiler.report()
+        profiler.disable()
 
 
 if __name__ == "__main__":

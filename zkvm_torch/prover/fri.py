@@ -32,6 +32,7 @@ from zkvm_torch.field.limbs import from_t, to_numpy
 from zkvm_torch.hash import blake3_t as b3t
 from zkvm_torch.hash.merkle import DeviceMerkleTree, merkle_flat
 from zkvm_torch.ntt import ntt_t as nt
+from zkvm_torch.utils.profiler import profiler
 
 FOLD = 8
 
@@ -152,24 +153,26 @@ def fri_prove_t(coin, evals_t: torch.Tensor, offset: int, options) -> FriProverR
     dev = evals_t.device
     size = evals_t.shape[-1]
     while size > options.max_remainder_size:
-        nodes, v = _commit_core_t(evals_t)
-        tree = DeviceMerkleTree(nodes)
-        res.trees.append(tree)
-        res.groups.append(v)
-        coin.reseed(tree.root)
-        beta = coin.draw()
-        res.betas.append(beta)
-        w_d = f128.get_root_of_unity(size)
-        evals_t = fold_t(v, f128.fmul(beta, f128.finv(offset)), f128.finv(w_d))
+        with profiler.phase("fri.layer"):
+            nodes, v = _commit_core_t(evals_t)
+            tree = DeviceMerkleTree(nodes)
+            res.trees.append(tree)
+            res.groups.append(v)
+            coin.reseed(tree.root)
+            beta = coin.draw()
+            res.betas.append(beta)
+            w_d = f128.get_root_of_unity(size)
+            evals_t = fold_t(v, f128.fmul(beta, f128.finv(offset)), f128.finv(w_d))
         offset = pow(offset, FOLD, f128.P)
         size //= FOLD
-    coeffs = nt.ladder_t_host(f128.finv(offset), size, device=dev, x=nt.intt_t(evals_t))
-    host = from_t(to_numpy(coeffs))
-    max_len = size // options.blowup
-    res.remainder = [int(v) for v in host[:max_len]]
-    if any(int(v) != 0 for v in host[max_len:]):
-        raise ProverError("FRI remainder degree overflow")
-    coin.reseed_with_elements(res.remainder)
+    with profiler.phase("fri.remainder"):
+        coeffs = nt.ladder_t_host(f128.finv(offset), size, device=dev, x=nt.intt_t(evals_t))
+        host = from_t(to_numpy(coeffs))
+        max_len = size // options.blowup
+        res.remainder = [int(v) for v in host[:max_len]]
+        if any(int(v) != 0 for v in host[max_len:]):
+            raise ProverError("FRI remainder degree overflow")
+        coin.reseed_with_elements(res.remainder)
     return res
 
 

@@ -51,6 +51,7 @@ from zkvm_torch.field.limbs import from_numpy, from_t, tensor, to_numpy
 from zkvm_torch.hash import blake3_t as b3t
 from zkvm_torch.hash.merkle import merkle_flat, merkle_forest_flat
 from zkvm_torch.ntt import ntt_t as nt
+from zkvm_torch.utils.profiler import profiler
 from . import deep, limits
 from .pipeline import comp_columns, weighted_host
 
@@ -187,8 +188,9 @@ class MonoStages:
         y = []
         for blk in blocks:
             vals = torch.empty((3, 8, blk.stop - blk.start), dtype=torch.int32, device=dev)
-            deep.weighted_sum(self.lde[..., blk], [gammas, deltas], out=vals[:2])
-            deep.weighted_sum(self.comp_lde[..., blk], [epsilons], out=vals[2:])
+            with profiler.phase("deep.sums"):
+                deep.weighted_sum(self.lde[..., blk], [gammas, deltas], out=vals[:2])
+                deep.weighted_sum(self.comp_lde[..., blk], [epsilons], out=vals[2:])
             y.append(deep.deep_quotient(vals, at, inv[..., blk]))
         return torch.cat(y, dim=-1)
 

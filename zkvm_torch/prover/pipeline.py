@@ -59,7 +59,7 @@ from zkvm_torch.field.limbs import from_limbs, from_numpy, tensor, to_limbs
 from zkvm_torch.hash import blake3_t as b3t
 from zkvm_torch.hash.merkle import DeviceMerkleTree, ShardedMerkleTree, merkle_flat
 from zkvm_torch.ntt import ntt_t as nt
-from zkvm_torch.utils.profiler import profiler
+from zkvm_torch.utils.profiler import ROOT, profiler
 from . import deep
 from . import limits
 from . import multi_eval as me
@@ -272,40 +272,40 @@ PROFILE_PHASES = {"constants": "constants", "trace_commit": "trace_lde_commit", 
 
 
 class _Stages:
-    """The one stage timer of :func:`prove`, when asked for: the device is
-    synchronised at the end of each stage, so a stage's time includes its
-    kernels.  ``seconds`` receives each stage's wall clock; on a card,
-    ``peaks`` each stage's peak allocated device bytes (the allocator's
-    peak is reset at each stage's start); and while the process-wide
-    profiler is enabled, it records each stage under its
-    :data:`PROFILE_PHASES` name, with ``rows`` where the reference gives
-    them."""
+    """The one stage timer of :func:`prove`: each stage is the span
+    ``zkvm.<stage>`` of the profiler (:mod:`zkvm_torch.utils.profiler`),
+    recorded under its :data:`PROFILE_PHASES` name, with ``rows`` where the
+    reference gives them.  When asked for stage seconds or peaks, or while
+    the profiler is enabled, the device is synchronised at the end of each
+    stage, so a stage's time includes its kernels: ``seconds`` receives
+    each stage's wall clock and, on a card, ``peaks`` each stage's peak
+    allocated device bytes (the allocator's peak is reset at each stage's
+    start)."""
 
     def __init__(self, seconds, device, peaks=None):
         self.seconds = seconds
         self.device = torch.device(device)
         self.sync = self.device.type == "cuda"
         self.peaks = peaks if self.sync else None
-        self.profile = profiler.enabled
+        self.timed = seconds is not None or self.peaks is not None or profiler.enabled
 
     @contextlib.contextmanager
     def __call__(self, name, rows=None):
-        if self.seconds is None and self.peaks is None and not self.profile:
+        with profiler.phase(name, rows, PROFILE_PHASES[name], self.device):
+            if not self.timed:
+                yield
+                return
+            if self.peaks is not None:
+                torch.cuda.reset_peak_memory_stats(self.device)
+            t0 = time.perf_counter()
             yield
-            return
-        if self.peaks is not None:
-            torch.cuda.reset_peak_memory_stats(self.device)
-        t0 = time.perf_counter()
-        yield
-        if self.sync:
-            torch.cuda.synchronize(self.device)
-        dt = time.perf_counter() - t0
-        if self.seconds is not None:
-            self.seconds[name] = self.seconds.get(name, 0.0) + dt
-        if self.peaks is not None:
-            self.peaks[name] = max(self.peaks.get(name, 0), torch.cuda.max_memory_allocated(self.device))
-        if self.profile:
-            profiler.record(PROFILE_PHASES[name], dt, rows, self.device)
+            if self.sync:
+                torch.cuda.synchronize(self.device)
+            dt = time.perf_counter() - t0
+            if self.seconds is not None:
+                self.seconds[name] = self.seconds.get(name, 0.0) + dt
+            if self.peaks is not None:
+                self.peaks[name] = max(self.peaks.get(name, 0), torch.cuda.max_memory_allocated(self.device))
 
 
 class ClassStages:
@@ -331,16 +331,18 @@ class ClassStages:
         dev = coeffs_t.device
         dct = self.dct
         abc = torch.empty((3, 8, coeffs_t.shape[-1]), dtype=torch.int32, device=dev)  # the combined coefficients
-        deep.weighted_sum(coeffs_t, [gammas, deltas], out=abc[:2])
-        deep.weighted_sum(h_t, [epsilons], out=abc[2:])
+        with profiler.phase("deep.sums"):
+            deep.weighted_sum(coeffs_t, [gammas, deltas], out=abc[:2])
+            deep.weighted_sum(h_t, [epsilons], out=abc[2:])
         ood_cur, ood_nxt, ood_comp = ood
         at = [weighted_host(gammas, ood_cur), weighted_host(deltas, ood_nxt), weighted_host(epsilons, ood_comp)]
         pts = tensor(list(points), dev)[:, :, None]  # z, z g, z^8: (3, 8, 1)
         y = []
         for r in range(len(dct["class_scales"])):
-            vals = _class_ntt(abc, dct, r)  # (3, 8, T)
-            inv = ft.batch_inverse(ft.fsub(dct["x_cls_t"][r], pts))
-            y.append(deep.deep_quotient(vals, at, inv))
+            with profiler.phase("deep.class"):
+                vals = _class_ntt(abc, dct, r)  # (3, 8, T)
+                inv = ft.batch_inverse(ft.fsub(dct["x_cls_t"][r], pts))
+                y.append(deep.deep_quotient(vals, at, inv))
         return _interleave(y)
 
     def query_rows(self, coeffs_t, h_t, positions):
@@ -385,9 +387,15 @@ def prove(trace, pub_inputs: PublicInputs, options: ProofOptions = ProofOptions(
     ``stage_peaks`` (on a card) each stage's peak allocated device bytes;
     the device is synchronised per stage only when one is given or the
     profiler (:mod:`zkvm_torch.utils.profiler`) is enabled, which then
-    records each stage under the reference's phase name.  T-mode, cls and
+    records each stage under the reference's phase name; the whole prove is
+    the profiler's root span ``zkvm.prove``.  T-mode, cls and
     mono take T <= 2^20, and mono over P ranks T <= 2^17 P
     (:mod:`.limits`)."""
+    with profiler.phase(ROOT):
+        return _prove(trace, pub_inputs, options, device, stage_seconds, mode, stage_peaks, mesh)
+
+
+def _prove(trace, pub_inputs, options, device, stage_seconds, mode, stage_peaks, mesh) -> Proof:
     t_len = trace.length
     ranks = 1
     if mesh is not None:
@@ -436,16 +444,25 @@ def prove(trace, pub_inputs: PublicInputs, options: ProofOptions = ProofOptions(
 
     # ---- 1. trace LDE + commitment -----------------------------------
     with stage("trace_commit", rows=d):
-        cols_t = from_numpy(_trace_limbs_t(trace), device)
-        coeffs_t, trace_nodes = stages.trace_commit(cols_t)
-        trace_tree = tree(trace_nodes)
-        del cols_t
-        trace_root = trace_tree.root
+        with profiler.phase("trace_commit.transpose"):
+            limbs = _trace_limbs_t(trace)
+        with profiler.phase("trace_commit.upload"):
+            cols_t = from_numpy(limbs, device)
+            del limbs
+        with profiler.phase("trace_commit.lde"):
+            coeffs_t, trace_nodes = stages.trace_commit(cols_t)
+        with profiler.phase("trace_commit.tree"):
+            trace_tree = tree(trace_nodes)
+            del cols_t
+            trace_root = trace_tree.root
 
-    coin = RandomCoin(wire.coin_seed(t_len, TRACE_WIDTH, options, pub_inputs))
-    coin.reseed(trace_root)
-    alphas = coin.draw_elements(NUM_TRANSITION_CONSTRAINTS)
-    betas = coin.draw_elements(NUM_ASSERTIONS)
+    # the transcript's draws between the stages run on the host (BLAKE3 in
+    # Python), with the card idle: a span of their own
+    with profiler.phase("transcript"):
+        coin = RandomCoin(wire.coin_seed(t_len, TRACE_WIDTH, options, pub_inputs))
+        coin.reseed(trace_root)
+        alphas = coin.draw_elements(NUM_TRANSITION_CONSTRAINTS)
+        betas = coin.draw_elements(NUM_ASSERTIONS)
 
     # ---- 2. constraint composition -----------------------------------
     vals0 = [v for (c, s, v) in assertions if s == 0]
@@ -464,12 +481,13 @@ def prove(trace, pub_inputs: PublicInputs, options: ProofOptions = ProofOptions(
         comp_tree = tree(comp_nodes)
         del comp_t
         comp_root = comp_tree.root
-    coin.reseed(comp_root)
 
     # ---- 4. OOD frame -------------------------------------------------
-    z = coin.draw()
-    zg = f128.fmul(z, stages.g_trace)
-    z_m = pow(z, NUM_COMP_COLUMNS, f128.P)
+    with profiler.phase("transcript"):
+        coin.reseed(comp_root)
+        z = coin.draw()
+        zg = f128.fmul(z, stages.g_trace)
+        z_m = pow(z, NUM_COMP_COLUMNS, f128.P)
     with stage("ood"):
         # one ladder operand for z, z g and z^8 (all known before the first
         # reseed): the trace columns at the first two, the composition's at
@@ -481,9 +499,10 @@ def prove(trace, pub_inputs: PublicInputs, options: ProofOptions = ProofOptions(
 
     # winterfell 0.9 DEEP coefficients: one per trace column (shared by the
     # z and z*g terms) and one per composition column
-    gammas = coin.draw_elements(TRACE_WIDTH)
-    deltas = gammas
-    epsilons = coin.draw_elements(NUM_COMP_COLUMNS)
+    with profiler.phase("transcript"):
+        gammas = coin.draw_elements(TRACE_WIDTH)
+        deltas = gammas
+        epsilons = coin.draw_elements(NUM_COMP_COLUMNS)
 
     # ---- 5. DEEP ------------------------------------------------------
     with stage("deep", rows=d):
@@ -494,19 +513,23 @@ def prove(trace, pub_inputs: PublicInputs, options: ProofOptions = ProofOptions(
     with stage("fri", rows=d):
         fri = fri_prove_t(coin, y_t, f128.DOMAIN_OFFSET, options)
 
-    nonce = 0
-    while coin.leading_zeros(nonce) < options.grinding_factor:
-        nonce += 1
-    # winterfell sorts and deduplicates the drawn positions
-    positions = sorted(set(coin.draw_integers(options.num_queries, d, nonce)))
+    with profiler.phase("transcript"):
+        nonce = 0
+        while coin.leading_zeros(nonce) < options.grinding_factor:
+            nonce += 1
+        # winterfell sorts and deduplicates the drawn positions
+        positions = sorted(set(coin.draw_integers(options.num_queries, d, nonce)))
 
     # ---- 7. queries ---------------------------------------------------
     with stage("queries"):
-        trace_rows, comp_rows = stages.query_rows(coeffs_t, h_t, positions)
-        trace_paths = trace_tree.open_many(positions)
-        comp_paths = comp_tree.open_many(positions)
-        proof = _assemble_proof(
-            t_len, options, trace_tree, comp_tree, ood_cur, ood_nxt, ood_comp,
-            fri, nonce, positions, trace_rows, trace_paths, comp_rows, comp_paths, d,
-        )
+        with profiler.phase("queries.rows"):
+            trace_rows, comp_rows = stages.query_rows(coeffs_t, h_t, positions)
+        with profiler.phase("queries.paths"):
+            trace_paths = trace_tree.open_many(positions)
+            comp_paths = comp_tree.open_many(positions)
+        with profiler.phase("queries.assemble"):
+            proof = _assemble_proof(
+                t_len, options, trace_tree, comp_tree, ood_cur, ood_nxt, ood_comp,
+                fri, nonce, positions, trace_rows, trace_paths, comp_rows, comp_paths, d,
+            )
     return proof

@@ -1,3 +1,3 @@
 """Host utilities: byte-level (de)serialization (``serde.py``), the
-per-phase profiler (``profiler.py``) and the kernel-health report
+prover's spans (``profiler.py``) and the kernel-health report
 (``kernel_health.py``)."""

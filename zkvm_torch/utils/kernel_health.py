@@ -5,8 +5,8 @@ family once per shape and can latch an XLA fallback, so its report says
 which families are live.  The port has no probe and no fallback (a CUDA
 tensor launches the kernel or raises), so what it reports is what ran:
 the launch counters that each kernel's wrapper keeps, per family.  This
-module is the one place that reads and resets them (``chip_smoke.py``,
-``zkvm_torch.dist.run`` and ``zkvm_torch.profile_prove`` call it).
+module is the one place that reads and resets them (``chip_smoke.py`` and
+``zkvm_torch.dist.run`` call it).
 
 Families: K1 ``ntt_stages`` (counted by (M, B, NL, variant) only), K2
 ``blake3_rows`` (by (C, N)), ``merkle`` (entry calls, one a tree; by leaf

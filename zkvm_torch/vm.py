@@ -52,10 +52,13 @@ def read_add_chain(n_ops: int, key) -> Tuple[Program, ProgramInputs]:
 def run(program: Program, inputs: ProgramInputs, use_native: bool = True, seed: int = DEFAULT_SEED):
     """Execute a program; returns its ExecutionTrace: by the native trace
     generator when it is available and ``use_native`` is true, else by the
-    golden processor (the same trace).  ``seed``: the randomizer rows'."""
-    if use_native and native_available():
-        return NativeProcessor.run(program, inputs, seed=seed)
-    return Processor.run(program, inputs).trace(seed=seed)
+    golden processor (the same trace).  ``seed``: the randomizer rows'.
+    The run is the profiler's span ``zkvm.trace_gen``
+    (:mod:`zkvm_torch.utils.profiler`)."""
+    with profiler.phase("trace_gen"):
+        if use_native and native_available():
+            return NativeProcessor.run(program, inputs, seed=seed)
+        return Processor.run(program, inputs).trace(seed=seed)
 
 
 def prove(
@@ -76,7 +79,7 @@ def prove(
     it): the options, ``use_native`` and the randomizer seed where they are
     not given; ``config.runtime.profile`` enables the process-wide
     profiler (:mod:`zkvm_torch.utils.profiler`), which records
-    ``trace_gen`` here and the prover's phases; ``config.mesh.rows > 1``
+    ``trace_gen`` (:func:`run`) and the prover's spans; ``config.mesh.rows > 1``
     proves mono sharded over the initialised process group (every rank
     calls ``prove``; it raises if no group is initialised or its size
     differs).  T-mode, mono and cls take T <= 2^20 in one process."""
@@ -92,8 +95,7 @@ def prove(
     if cfg.mesh.rows > 1:
         mesh = make_mesh(cfg.mesh.rows, axis=cfg.mesh.axis_name, device=device)
         device = None
-    with profiler.phase("trace_gen"):
-        trace = run(program, inputs, use_native, seed)
+    trace = run(program, inputs, use_native, seed)
     pub = PublicInputs(program.hash, trace.outputs, inputs.server_key)
     proof = stark_prove(trace, pub, options, device=device, mode=mode, mesh=mesh)
     return program.hash, trace.outputs, proof
