@@ -83,7 +83,13 @@ Phases, each printing one JSON line:
       DEEP sums and quotients of T-mode, cls and mono at 2^16 and 2^20
       and a strided row block of each; ms at the C entry and the wrapper,
       the bound, the sync check, and a failing launch of each entry that
-      must raise without reaching a plain version;
+      must raise without reaching a plain version; then the trace's limb
+      transpose (csrc/limb_transpose.cu: limbs.limb_transpose, (C, N, 8) ->
+      (C, 8, N)) against its plain version at kernel_bench.LT_CASES (the
+      uploaded traces of the 2^16 and 2^20 proves, (28, T, 8)), exactly,
+      its ms at the C entry and the wrapper beside the bound (32 bytes an
+      element read, 32 written), the sync check, and a failing launch that
+      must raise without reaching the plain version;
   (d) conformance: the T = 128 program of conformance/vectors_e2e.json,
       proved in all three modes (T-mode, mono, cls), whose roots and proof
       bytes must match the vector byte for byte;
@@ -106,8 +112,10 @@ Phases, each printing one JSON line:
       2^20 prove of (g) must launch it), the DEEP sums twice and the
       quotient once a class
       (8; mono once a row block: 1 at 2^16, 16 at 2^20, with 32 sums), on
-      every path; and T-mode's field-op and K1 launches below the counts
-      before these kernels (230 and 74, PATH_BELOW);
+      every path; the limb transpose of the uploaded trace exactly once
+      (on every path below and every rank of (h)); and T-mode's field-op
+      and K1 launches below the counts before these kernels (230 and 74,
+      PATH_BELOW);
       the proof must verify and fail with one byte flipped;
   (f) the same chain in mono (full-LDE) mode: warm-up, timed prove, verify
       and tamper check; K1, K2, K4 and the Merkle heap must have launched
@@ -183,7 +191,7 @@ if not torch.cuda.is_available():
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from kernel_bench import (BINV_CASES, BINV_MONO_CASES, K1_CASES, K1_DIST_CASES, K1_LARGE_CASES,  # noqa: E402
-                          K1_MONO_CASES, K2_CASES, K2_DIST_CASES, K2_LARGE_CASES, K2_MONO_CASES, K3_LARGE_T,
+                          K1_MONO_CASES, K2_CASES, K2_DIST_CASES, K2_LARGE_CASES, K2_MONO_CASES, K3_LARGE_T, LT_CASES,
                           MERKLE_CASES, MERKLE_DIST_CASES, MERKLE_LARGE_CASES, MEVAL_CASES, MLAD_CASES, MONO_T,
                           air_calls, air_cases, binv_name, capture_entry, clock_ms, cuda_ms, fop_calls, fop_cases,
                           fop_name, fri_deep_cases, meval_name, meval_operands, meval_plain_t, meval_points,
@@ -194,6 +202,7 @@ from zkvm_torch.dist import run as dist_run  # noqa: E402
 from zkvm_torch.air import transition as tr  # noqa: E402
 from zkvm_torch.field import f128  # noqa: E402
 from zkvm_torch.field import f128t as ft  # noqa: E402
+from zkvm_torch.field import limbs as lm  # noqa: E402
 from zkvm_torch.examples.prove_lr_large import LrRun  # noqa: E402
 from zkvm_torch.field.limbs import from_numpy, from_t, to_limbs, to_numpy, ttensor  # noqa: E402
 from zkvm_torch.hash import blake3_t as b3t  # noqa: E402
@@ -641,6 +650,7 @@ def phase_kernels():
     results["field_ops"] = field_op_kernels(rng)
     results["multi_eval"], results["meval_ladders"] = meval_kernels(rng)
     results.update(fri_deep_kernels(rng))
+    results["limb_transpose"] = limb_transpose_kernels()
     return results
 
 
@@ -990,6 +1000,47 @@ def fri_deep_kernels(rng):
             for family, cases in out.items()}
 
 
+def limb_transpose_kernels():
+    """Phase (c) for csrc/limb_transpose.cu: the (28, T, 8) -> (28, 8, T)
+    transpose at kernel_bench.LT_CASES (the 2^16 chain's and the 2^20
+    regression's uploaded traces), on 32-bit words drawn on the card,
+    against its plain version (a transposed view made contiguous),
+    exactly; the C entry's and the wrapper's ms beside the bound (each
+    element's 32 bytes read once and written once), one wrapper call under
+    the sync check, and a failing launch that must raise without reaching
+    the plain version.  Returns the 2^20 case with the larger error of
+    the two."""
+    lib, res = kernels.lib(), []
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(21)
+    for c, n in LT_CASES:
+        x = torch.randint(-(1 << 31), 1 << 31, (c, n, 8), generator=gen, device=DEV, dtype=torch.int32)
+        name = f"limb transpose C={c} N=2^{n.bit_length() - 1}"
+        cname, cargs, keep = capture_entry(kernels, lm.launch_limb_transpose, x)
+        res.append(compare(name, lambda: lm.limb_transpose(x), lambda: lm.limb_transpose_plain(x),
+                           2 * LIMB_BYTES * c * n, 0,
+                           entry_fn=lambda: kernels.check(getattr(lib, cname)(*cargs), cname)))
+        sync_free(name, lambda: lm.limb_transpose(x))
+        del x, cargs, keep
+        torch.cuda.empty_cache()
+    x = torch.zeros(28, 1 << 10, 8, dtype=torch.int32, device=DEV)
+    real_lib, real_plain, ran = kernels.lib, lm.limb_transpose_plain, []
+    failing = _FailingLib(real_lib(), {"zk_limb_transpose"})
+    kernels.lib, lm.limb_transpose_plain = (lambda: failing), (lambda t: ran.append(t))
+    try:
+        lm.limb_transpose(x)
+        raised = None
+    except RuntimeError as err:
+        raised = str(err)
+    finally:
+        kernels.lib, lm.limb_transpose_plain = real_lib, real_plain
+    emit({"phase": "kernels", "check": "a failing zk_limb_transpose launch raises, no fall back", "raised": raised,
+          "plain_calls": len(ran)})
+    if raised is None or "zk_limb_transpose: CUDA launch failed with error 700" not in raised or ran:
+        raise AssertionError("a failing zk_limb_transpose launch did not raise, or fell back to the plain version")
+    return dict(res[-1], max_abs_err=max(r["max_abs_err"] for r in res))
+
+
 def phase_conformance():
     vec = json.loads((Path(__file__).resolve().parent / "conformance" / "vectors_e2e.json").read_text())
     key = vm.ServerKey(vm.DEMO_PARAMETERS, random.Random(7))
@@ -1048,6 +1099,10 @@ PATH_EXACT = {"tmode": {"transition": 0, "batch_inverse": 8, "multi_eval": 4, "m
               "lr_large_cls": {**CLS_EXACT, **FRI_DEEP_20},
               "lr_large_mono": {"composition": 0, "transition": 1, "batch_inverse": 2, "multi_eval": 2,
                                 "meval_ladders": 1, "fri_fold": 5, "weighted_sum": 32, "deep_quotient": 16}}
+# every prove, in every mode and on every rank, turns its uploaded trace on
+# the card: one limb transpose
+for _exact in PATH_EXACT.values():
+    _exact["limb_transpose"] = 1
 # the timed 2^16 T-mode prove launched fewer field ops and K1 than these
 # (the parent's counts before the FRI and DEEP kernels: PERF.md §4, one
 # H100, 230 field-op and 74 K1 launches)
@@ -1311,7 +1366,7 @@ def phase_dist(card, want):
             if r["launches"]["composition"] != 0:
                 raise AssertionError("K3 launched on the sharded mono path")
             for name, n in (("multi_eval", 2), ("meval_ladders", 1), ("fri_fold", 3), ("weighted_sum", 2),
-                            ("deep_quotient", 1), ("ladder", 0)):
+                            ("deep_quotient", 1), ("ladder", 0), ("limb_transpose", 1)):
                 if r["launches"][name] != n:
                     raise AssertionError(f"kernel {name} launched {r['launches'][name]} times on rank {r['rank']}, "
                                          f"expected {n} (the OOD frame's, a fold a layer, one row block's DEEP)")
@@ -1349,6 +1404,8 @@ SOURCES = {
                      "zkvm/prover/pipeline.py:630-632 _stage_deep_cls's column sums (XLA, no Pallas)"),
     "deep_quotient": ("zkvm_torch/csrc/deep.cu",
                       "zkvm/prover/pipeline.py:641-643 _stage_deep_cls's quotient (XLA, no Pallas)"),
+    "limb_transpose": ("zkvm_torch/csrc/limb_transpose.cu",
+                       "none: the reference transposes the trace on the host, zkvm/prover/pipeline.py:1199"),
 }
 
 

@@ -4,7 +4,7 @@ inverse, the field-op kernel and the multi-eval kernel on one CUDA card.
 
     python3 kernel_bench.py [--tree DIR] [--label NAME]
                             [--only K1 K2 K3 K4 Merkle BINV FOPS MEVAL MLAD FRI DEEP] [--large]
-    python3 kernel_bench.py --sweep [K1 K2 K3 K4 Merkle BINV FOPS MEVAL MLAD FRI DEEP] [--tree DIR] [--label NAME]
+    python3 kernel_bench.py --sweep [K1 K2 K3 K4 Merkle BINV FOPS MEVAL MLAD FRI DEEP LT] [--tree DIR] [--label NAME]
     python3 kernel_bench.py --sass [--tree DIR]
     python3 kernel_bench.py --profile [--only Merkle FRI] [--tree DIR] [--label NAME]
 
@@ -274,6 +274,9 @@ DEEP_BLOCK = (1 << 21, 1 << 19)
 # multiplies, 24 adds or subtracts), Horner (7 and 7), the 1/8 and the
 # ladder's step (2 multiplies)
 FOLD_MULS, FOLD_ADDS = 14, 31
+# the trace's limb transpose, (C, N, 8) -> (C, 8, N): the 2^16 chain's and the
+# 2^20 regression's uploaded traces (chip_smoke.py's phase (c), --sweep LT)
+LT_CASES = ((28, 1 << 16), (28, 1 << 20))
 SWEEPS = {
     "K1": ("ntt_stages.cu", "zk_ntt_stages", [
         {"ZK_K1_TILE": tile, "ZK_K1_LANES": lanes, "ZK_K1_PER_THREAD": k}
@@ -318,6 +321,7 @@ SWEEPS = {
                                                 (128, 4, 1 << 17, 16, 1 << 14), (128, 4, 1 << 17, 16, 1 << 16),
                                                 (128, 4, 1 << 17, 32, 1 << 15), (128, 4, 1 << 17, 16, 1 << 13)]]),
     "DEEP": ("deep.cu", "zk_weighted_sum", [{"ZK_DEEP_THREADS": th} for th in (256, 128, 512, 64)]),
+    "LT": ("limb_transpose.cu", "zk_limb_transpose", [{"ZK_LT_THREADS": th} for th in (256, 128, 512, 1024, 64)]),
 }
 
 
@@ -908,6 +912,14 @@ def sweep(tree, label, kernels_to_sweep, reps=20):
         elif kernel in ("FRI", "DEEP"):
             cases = [(c["name"], c["plain"](), lambda lib, f=c["launch"]: f(lib, stream))
                      for c in fri_deep_cases(rng, lambda shape: _limbs(rng, shape, dev), (kernel,))]
+        elif kernel == "LT":
+            from zkvm_torch.field import limbs as lm
+
+            cases = []
+            for c, n in LT_CASES:
+                x = torch.randint(-(1 << 31), 1 << 31, (c, n, 8), device=dev, dtype=torch.int32)
+                cases.append((f"LT C={c} N={n}", lm.limb_transpose_plain(x),
+                              lambda lib, x=x: lm.launch_limb_transpose(lib, stream, x)))
         elif kernel == "MLAD":
             from zkvm_torch.field.limbs import from_numpy, to_limbs
             from zkvm_torch.prover import multi_eval as me

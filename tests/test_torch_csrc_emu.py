@@ -8,9 +8,13 @@ plain PyTorch version exactly.  The kernels themselves, as nvcc builds them
 for sm_90a, are checked on the card by chip_smoke.py.
 """
 
+import collections
 import ctypes
+import json
+import random
 import shutil
 import subprocess
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,14 +22,16 @@ import pytest
 import torch
 
 from zkvm.field import f128
-from zkvm_torch import kernels
+from zkvm_torch import kernels, vm
 from zkvm_torch.field import f128t as tft
+from zkvm_torch.field import limbs as lm
 from zkvm_torch.field.limbs import from_numpy, from_t, tlimbs, to_limbs, to_numpy
 from zkvm.hash import blake3_jax as b3j
 from zkvm.hash import blake3_t as jb3t
 from zkvm_torch.hash import blake3_t as tb3t
 from zkvm_torch.hash import merkle as tmerkle
 from zkvm_torch.ntt import ntt_t as tnt
+from zkvm_torch.prover import pipeline as tpl
 
 torch.set_num_threads(1)
 
@@ -524,3 +530,91 @@ def test_field_ops_broadcast_emulated(emu, case):
         want = plain(a, b)
         assert got.shape == want.shape and got.is_contiguous()
         np.testing.assert_array_equal(to_numpy(got), to_numpy(want))
+
+
+# the trace's limb transpose, (C, N, 8) -> (C, 8, N), an element a thread:
+# the shipped block of 256 threads and one of 96
+LT_SHAPES = [None, ("ZK_LT_THREADS=96",)]
+
+
+def _lt_input(c, n, seed):
+    """(C, N, 8) int32 words, every bit random (the transpose moves words,
+    not field elements)."""
+    words = np.random.default_rng(seed).integers(0, 1 << 32, size=(c, n, 8), dtype=np.uint64).astype(np.uint32)
+    return torch.from_numpy(words.view(np.int32))
+
+
+@pytest.mark.parametrize("defines", LT_SHAPES, ids=["shipped", "96 threads"])
+@pytest.mark.parametrize("c,n", [(28, 1 << 4), (28, 1 << 10), (28, 1 << 12), (1, 1 << 12), (8, 1 << 12), (8, 37)])
+def test_limb_transpose_emulated(emu, emu_shape, defines, c, n):
+    """The limb transpose on the prover's 28 columns at N = 2^4, 2^10 and
+    2^12 (16 blocks a column at the shipped shape, the last of 96 threads
+    partial), on 1 and 8 columns, and at N = 37 (rows not 16-byte
+    aligned): exact against its plain version and numpy's swapaxes."""
+    lib = emu if defines is None else emu_shape("limb_transpose.cu", "zk_limb_transpose", defines)
+    x = _lt_input(c, n, 100 * c + n)
+    got = lm.launch_limb_transpose(lib, 0, x)
+    assert got.shape == (c, 8, n) and got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), lm.limb_transpose_plain(x).numpy())
+    np.testing.assert_array_equal(got.numpy(), np.swapaxes(x.numpy(), 1, 2))
+
+
+def test_limb_transpose_wrapper_on_the_cpu():
+    """On a CPU tensor the wrapper takes the plain version (no launch): the
+    same words as numpy's swapaxes, a new contiguous tensor."""
+    x = _lt_input(28, 1 << 10, 3)
+    before = lm.transpose_launches
+    got = lm.limb_transpose(x)
+    assert lm.transpose_launches == before and got.is_contiguous() and got.data_ptr() != x.data_ptr()
+    np.testing.assert_array_equal(got.numpy(), np.swapaxes(x.numpy(), 1, 2))
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("limbs of 4", ValueError, "expected \\(C, N, 8\\)"), ("two axes", ValueError, "expected \\(C, N, 8\\)"),
+    ("empty", ValueError, "not empty"), ("int64", TypeError, "int32"), ("transposed", ValueError, "contiguous"),
+    ("strided columns", ValueError, "contiguous"),
+])
+def test_limb_transpose_refusals(emu, case, error, match):
+    """The wrapper (on the CPU too) and the launch refuse what the kernel
+    does not take, before any launch: another limb count or rank, an empty
+    input, another dtype, a non-contiguous view."""
+    x = _lt_input(4, 64, 9)
+    bad = {"limbs of 4": x.reshape(4, 128, 4), "two axes": x.reshape(256, 8), "empty": x[:, :0],
+           "int64": x.long(), "transposed": x.transpose(0, 1), "strided columns": x[::2]}[case]
+    before = lm.transpose_launches
+    with pytest.raises(error, match=match):
+        lm.limb_transpose(bad)
+    with pytest.raises(error, match=match):
+        lm.launch_limb_transpose(emu, 0, bad)
+    assert lm.transpose_launches == before
+
+
+def test_limb_transpose_launch_refuses_a_misaligned_start(emu):
+    """A view that starts 4 bytes into its storage is contiguous but not
+    16-byte aligned: the launch raises, and the C entry alone returns -1."""
+    flat = _lt_input(1, 65, 5).reshape(-1)
+    x = flat[1: 1 + 2 * 32 * 8].view(2, 32, 8)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        lm.launch_limb_transpose(emu, 0, x)
+    out = torch.empty(2, 8, 32, dtype=torch.int32)
+    assert emu.zk_limb_transpose(x.data_ptr(), out.data_ptr(), 2, 32, None) == -1
+
+
+@pytest.mark.parametrize("mode", ["tmode", "cls"])
+def test_provers_through_the_emulated_limb_transpose(emu, monkeypatch, mode):
+    """The T = 128 conformance prove with the trace's transpose launched
+    through the kernel's host emulation, as the card would launch it on the
+    uploaded (28, T, 8) limbs: exactly one launch, of (28, 128), and the
+    proof's bytes are the conformance vector's."""
+    monkeypatch.setattr(tpl, "limb_transpose", lambda x: lm.limb_transpose_kernel(emu, 0, x))
+    monkeypatch.setattr(lm, "transpose_launches", 0)
+    monkeypatch.setattr(lm, "transpose_launches_by_shape", collections.Counter())
+    vec = json.loads((Path(__file__).resolve().parents[1] / "conformance" / "vectors_e2e.json").read_text())
+    key = vm.ServerKey(vm.DEMO_PARAMETERS, random.Random(7))
+    program = vm.Program.compile(vec["program_source"])
+    inputs = vm.ProgramInputs(tuple(vec["public_inputs_tape"]), (key.encrypt(2),), key)
+    _, _, proof = vm.prove(program, inputs, device="cpu", mode=mode)
+    assert lm.transpose_launches == 1 and lm.transpose_launches_by_shape == {(28, 128): 1}
+    assert proof.trace_root.hex() == vec["trace_root_hex"]
+    assert proof.to_wire_bytes().hex() == vec["proof_bytes_hex"]

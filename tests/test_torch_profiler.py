@@ -140,6 +140,7 @@ def test_kernel_health_reset_zeroes_the_counters():
     from zkvm_torch.air import composition as cp
     from zkvm_torch.air import transition as tr
     from zkvm_torch.field import f128t as ft
+    from zkvm_torch.field import limbs as lm
     from zkvm_torch.hash import blake3_t as b3t
     from zkvm_torch.hash import merkle as mk
     from zkvm_torch.ntt import ntt_t as nt
@@ -166,13 +167,15 @@ def test_kernel_health_reset_zeroes_the_counters():
     nt.ladder_const_launches_by_shape[(1, 1024)] += 1
     dp.sum_launches_by_shape[(2, 28, 1 << 16)] += 2
     dp.quotient_launches_by_shape[(3, 1 << 16)] += 8
+    lm.transpose_launches = 1
+    lm.transpose_launches_by_shape[(28, 1 << 16)] += 1
     try:
         rep = kernel_health.report()
         assert rep["launches"] == {"ntt_stages": 3, "blake3_rows": 2, "merkle": 5, "composition": 1,
                                    "transition": 1, "batch_inverse": 4, "field_ops": 6, "multi_eval": 4,
                                    "meval_ladders": 3, "fri_fold": 3, "ladder": 1, "ladder_const": 1,
-                                   "weighted_sum": 2, "deep_quotient": 8}
-        assert rep["total"] == 44 and rep["plain_calls"] == {"multi_eval": 2}
+                                   "weighted_sum": 2, "deep_quotient": 8, "limb_transpose": 1}
+        assert rep["total"] == 45 and rep["plain_calls"] == {"multi_eval": 2}
         assert rep["launches_by_shape"]["ntt_stages"] == {"M=256 B=28 NL=256 r1": 3}
         assert rep["launches_by_shape"]["merkle"] == {"N=524288 trees=1": 2}
         assert rep["launches_by_shape"]["transition"] == {"N=524288 step=8": 1}
@@ -185,6 +188,7 @@ def test_kernel_health_reset_zeroes_the_counters():
         assert rep["launches_by_shape"]["ladder_const"] == {"B=1 n=1024": 1}
         assert rep["launches_by_shape"]["weighted_sum"] == {"K=2 C=28 N=65536": 2}
         assert rep["launches_by_shape"]["deep_quotient"] == {"K=3 N=65536": 8}
+        assert rep["launches_by_shape"]["limb_transpose"] == {"C=28 N=65536": 1}
     finally:
         kernel_health.reset()
     assert kernel_health.launches() == dict.fromkeys(kernel_health.FAMILIES, 0)

@@ -36,7 +36,7 @@ STAGES = list(tpl.PROFILE_PHASES)  # proof order
 # the root's children: the stages, with the transcript's draws between them
 ROOT_CHILDREN = ["constants", "trace_commit", "transcript", "composition", "comp_commit", "transcript", "ood",
                  "transcript", "deep", "fri", "transcript", "queries"]
-CHILDREN = {"trace_commit": ["transpose", "upload", "lde", "tree"], "queries": ["rows", "paths", "assemble"]}
+CHILDREN = {"trace_commit": ["upload", "transpose", "lde", "tree"], "queries": ["rows", "paths", "assemble"]}
 
 
 def _trace():

@@ -6,13 +6,22 @@ A field element is 8 little-endian 16-bit limbs.  On the host the limbs are
 tensors (same bits, values < 2^16), usually in the transposed ``(..., 8, N)``
 layout.  :func:`from_numpy` / :func:`to_numpy` carry the JAX package's
 arrays across in tests.
+
+:func:`limb_transpose` turns (C, N, 8) limbs, the trace generator's layout,
+into (C, 8, N): the kernel ``csrc/limb_transpose.cu`` for a CUDA tensor (or
+it raises), its plain version :func:`limb_transpose_plain` for a CPU
+tensor.  The prover uploads a trace's limbs as they are and turns them on
+the card with it.
 """
 
 from __future__ import annotations
 
+import collections
+
 import numpy as np
 import torch
 
+from zkvm_torch import kernels
 from zkvm_torch.field import f128
 
 NLIMBS = 8
@@ -81,3 +90,61 @@ def tensor(vals, device="cpu") -> torch.Tensor:
 def ttensor(vals, device="cpu") -> torch.Tensor:
     """Python ints -> transposed int32 limb tensor: (8,) or (8, n...)."""
     return from_numpy(tlimbs(vals), device)
+
+
+# ---------------------------------------------------------------------------
+# (C, N, 8) -> (C, 8, N): the kernel csrc/limb_transpose.cu
+# ---------------------------------------------------------------------------
+
+transpose_launches = 0  # launches of zk_limb_transpose in this process
+transpose_launches_by_shape = collections.Counter()  # the same, by (C, N)
+
+
+def limb_transpose_plain(x: torch.Tensor) -> torch.Tensor:
+    """(C, N, 8) limbs -> contiguous (C, 8, N): the plain version."""
+    return x.transpose(-2, -1).contiguous()
+
+
+def _transpose_checked(x: torch.Tensor):
+    """(C, N) of a transpose, after the checks the kernel's wrapper makes on
+    every device: contiguous (C, N, 8) int32 limbs, not empty."""
+    if x.dtype != torch.int32:
+        raise TypeError(f"limb_transpose: expected int32 limbs, got {x.dtype}")
+    if x.dim() != 3 or x.shape[-1] != NLIMBS or 0 in x.shape:
+        raise ValueError(f"limb_transpose: shape {tuple(x.shape)}, expected (C, N, 8), not empty")
+    if not x.is_contiguous():
+        raise ValueError("limb_transpose: the limbs must be contiguous")
+    return x.shape[0], x.shape[1]
+
+
+def launch_limb_transpose(lib, stream, x: torch.Tensor) -> torch.Tensor:
+    """Call the transpose entry point of ``lib``: contiguous (C, 8, N) of
+    contiguous (C, N, 8) int32 limbs that start on a 16-byte boundary.  It
+    copies nothing to the device, so it never waits for the stream."""
+    c, n = _transpose_checked(x)
+    if x.data_ptr() % 16:
+        raise ValueError("limb_transpose: the limbs must start on a 16-byte boundary")
+    out = torch.empty((c, NLIMBS, n), dtype=torch.int32, device=x.device)
+    kernels.check(lib.zk_limb_transpose(kernels.ptr(x), kernels.ptr(out), c, n, stream), "zk_limb_transpose")
+    return out
+
+
+def limb_transpose_kernel(lib, stream, x: torch.Tensor) -> torch.Tensor:
+    """:func:`launch_limb_transpose`, counted."""
+    global transpose_launches
+    out = launch_limb_transpose(lib, stream, x)
+    transpose_launches += 1
+    transpose_launches_by_shape[(x.shape[0], x.shape[1])] += 1
+    return out
+
+
+def limb_transpose(x: torch.Tensor) -> torch.Tensor:
+    """(C, N, 8) limbs -> contiguous (C, 8, N): one launch of the kernel for
+    a CUDA tensor (or it raises), :func:`limb_transpose_plain` for a CPU
+    tensor."""
+    _transpose_checked(x)
+    if x.device.type == "cpu":
+        return limb_transpose_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"limb_transpose: no kernel for device {x.device}")
+    return limb_transpose_kernel(kernels.lib(), kernels.stream_of(x), x)

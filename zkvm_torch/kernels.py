@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
 SOURCES = (
     "ntt_stages.cu", "blake3_rows.cu", "merkle.cu", "composition.cu", "transition.cu", "batch_inverse.cu",
-    "field_ops.cu", "multi_eval.cu", "fri_fold.cu", "deep.cu",
+    "field_ops.cu", "multi_eval.cu", "fri_fold.cu", "deep.cu", "limb_transpose.cu",
 )
 HEADERS = ("zk_common.cuh", "f128.cuh", "transition.cuh", "blake3.cuh", "host_emu.h")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -87,6 +87,8 @@ SIGNATURES = {
     "zk_weighted_sum": (_P, _L, _L, _UP, _P, _I, _I, _L, _P),
     # vals, vals_row, vals_limb, inv, inv_row, inv_limb, at (a host array of K x 4 words), out, K, N, stream
     "zk_deep_quotient": (_P, _L, _L, _P, _L, _L, _UP, _P, _I, _L, _P),
+    # in (C, N, 8), out (C, 8, N), C, N, stream: the trace's limb transpose
+    "zk_limb_transpose": (_P, _P, _I, _L, _P),
 }
 
 build_seconds = 0.0  # wall time of the last nvcc build in this process

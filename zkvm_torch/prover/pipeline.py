@@ -7,8 +7,10 @@ coefficients, the AIR's next row is the next index within a class, and the
 periodic columns have period 16 within a class — so no stage ever holds
 the full (28, 8, D) LDE.  Stages, in proof order:
 
-1. trace commit: iNTT the 28 columns; per class, coset NTT (K1) and BLAKE3
-   row hashes (K2); Merkle heap;
+1. trace commit: upload the generator's (28, T, 8) limbs as they are and
+   turn them into (28, 8, T) on the card (``csrc/limb_transpose.cu``); iNTT
+   the 28 columns; per class, coset NTT (K1) and BLAKE3 row hashes (K2);
+   Merkle heap;
 2. composition: per class, coset NTT (K1) and the fused composition (K3);
 3. composition commit: size-D iNTT, split into 8 columns, per class coset
    NTT (K1) and row hashes (K2); Merkle heap;
@@ -55,7 +57,7 @@ from zkvm_torch.field import f128
 from zkvm_torch.air import composition as cp
 from zkvm_torch.air.periodic import periodic_class_patterns
 from zkvm_torch.field import f128t as ft
-from zkvm_torch.field.limbs import from_limbs, from_numpy, tensor, to_limbs
+from zkvm_torch.field.limbs import from_limbs, from_numpy, limb_transpose, tensor
 from zkvm_torch.hash import blake3_t as b3t
 from zkvm_torch.hash.merkle import DeviceMerkleTree, ShardedMerkleTree, merkle_flat
 from zkvm_torch.ntt import ntt_t as nt
@@ -255,15 +257,6 @@ def _assemble_proof(t_len, options, trace_tree, comp_tree, ood_cur, ood_nxt, ood
     return proof
 
 
-def _trace_limbs_t(trace) -> np.ndarray:
-    """(28, 8, T) uint32 limbs of an ExecutionTrace, converted from its
-    columns once and kept on the trace (as ``ExecutionTrace.as_limbs``
-    does, without its JAX import)."""
-    if trace.limbs is None:
-        trace.limbs = to_limbs(trace.columns)  # (28, T, 8)
-    return np.ascontiguousarray(np.swapaxes(np.asarray(trace.limbs), 1, 2))
-
-
 # The reference's profiler phase of each stage (``zkvm/prover/pipeline.py:
 # 1200-1291``); ``stage_seconds`` and ``stage_peaks`` keep the stage names
 PROFILE_PHASES = {"constants": "constants", "trace_commit": "trace_lde_commit", "composition": "constraint_eval",
@@ -444,10 +437,12 @@ def _prove(trace, pub_inputs, options, device, stage_seconds, mode, stage_peaks,
 
     # ---- 1. trace LDE + commitment -----------------------------------
     with stage("trace_commit", rows=d):
-        with profiler.phase("trace_commit.transpose"):
-            limbs = _trace_limbs_t(trace)
+        # the generator's (28, T, 8) limbs go up as they are, and the card
+        # turns them into (28, 8, T); only the result outlives the kernel
         with profiler.phase("trace_commit.upload"):
-            cols_t = from_numpy(limbs, device)
+            limbs = from_numpy(trace.as_limbs(), device)
+        with profiler.phase("trace_commit.transpose"):
+            cols_t = limb_transpose(limbs)
             del limbs
         with profiler.phase("trace_commit.lde"):
             coeffs_t, trace_nodes = stages.trace_commit(cols_t)

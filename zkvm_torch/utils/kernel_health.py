@@ -22,7 +22,9 @@ layer; by n), ``ladder`` (``ntt_t.ladder_t``, the entry of device bases
 and scales: the mid twiddles; by (B, n)), ``ladder_const``
 (``ntt_t.ladder_t_host``, the entry of a base and a scale known on the
 host: every other ladder; by (B, n)), ``weighted_sum`` (the DEEP's column sums; by (K, C, N)) and
-``deep_quotient`` (by (K, N)).  Beside
+``deep_quotient`` (by (K, N)), and ``limb_transpose``, the trace's
+(C, N, 8) -> (C, 8, N) limb transpose (``limbs.limb_transpose``: one
+launch a prove; by (C, N)).  Beside
 them, :func:`plain_calls` counts the calls of the plain versions that a
 prove on a card must never take (the multi-eval's float64 product).
 """
@@ -36,6 +38,7 @@ import torch
 from zkvm_torch.air import composition as cp
 from zkvm_torch.air import transition as tr
 from zkvm_torch.field import f128t as ft
+from zkvm_torch.field import limbs as lm
 from zkvm_torch.hash import blake3_t as b3t
 from zkvm_torch.hash import merkle as mk
 from zkvm_torch.ntt import ntt_t as nt
@@ -44,7 +47,8 @@ from zkvm_torch.prover import fri
 from zkvm_torch.prover import multi_eval as me
 
 FAMILIES = ("ntt_stages", "blake3_rows", "merkle", "composition", "transition", "batch_inverse", "field_ops",
-            "multi_eval", "meval_ladders", "fri_fold", "ladder", "ladder_const", "weighted_sum", "deep_quotient")
+            "multi_eval", "meval_ladders", "fri_fold", "ladder", "ladder_const", "weighted_sum", "deep_quotient",
+            "limb_transpose")
 _COUNTED = {"blake3_rows": b3t, "merkle": mk, "composition": cp, "transition": tr, "batch_inverse": ft,
             "multi_eval": me}
 
@@ -54,13 +58,13 @@ def reset() -> None:
     for mod in _COUNTED.values():
         mod.launches = 0
     me.ladder_launches = me.plain_calls = fri.fold_launches = nt.ladder_launches = nt.ladder_const_launches = 0
-    dp.sum_launches = dp.quotient_launches = 0
+    dp.sum_launches = dp.quotient_launches = lm.transpose_launches = 0
     for counter in (nt.launches, b3t.launches_by_shape, cp.launches_by_shape, tr.launches_by_shape,
                     ft.launches_by_shape, mk.launches_by_size, mk.trees_by_size, ft.op_launches,
                     ft.op_launches_by_shape, me.launches_by_shape, me.ladder_launches_by_shape,
                     fri.fold_launches_by_shape, nt.ladder_launches_by_shape, nt.ladder_const_launches_by_shape,
                     dp.sum_launches_by_shape,
-                    dp.quotient_launches_by_shape):
+                    dp.quotient_launches_by_shape, lm.transpose_launches_by_shape):
         counter.clear()
 
 
@@ -71,7 +75,7 @@ def launches() -> Dict[str, int]:
             "field_ops": sum(ft.op_launches.values()), "meval_ladders": me.ladder_launches,
             "fri_fold": fri.fold_launches, "ladder": nt.ladder_launches, "ladder_const": nt.ladder_const_launches,
             "weighted_sum": dp.sum_launches,
-            "deep_quotient": dp.quotient_launches}
+            "deep_quotient": dp.quotient_launches, "limb_transpose": lm.transpose_launches}
 
 
 def launches_by_shape() -> Dict[str, Dict[str, int]]:
@@ -91,6 +95,7 @@ def launches_by_shape() -> Dict[str, Dict[str, int]]:
         "ladder_const": {f"B={b} n={n}": k for (b, n), k in sorted(nt.ladder_const_launches_by_shape.items())},
         "weighted_sum": {f"K={k} C={c} N={n}": m for (k, c, n), m in sorted(dp.sum_launches_by_shape.items())},
         "deep_quotient": {f"K={k} N={n}": m for (k, n), m in sorted(dp.quotient_launches_by_shape.items())},
+        "limb_transpose": {f"C={c} N={n}": k for (c, n), k in sorted(lm.transpose_launches_by_shape.items())},
     }
 
 

@@ -23,8 +23,8 @@ opens the root span ``prove`` and, through its one stage timer
 under the reference's phase name; the stage timer synchronises the card at
 a stage's end when asked for stage seconds or peaks or while the profiler
 is enabled, so a recorded stage includes its kernels.  The stages open
-child spans where the host's time goes (``zkvm.trace_commit.transpose``,
-``.upload``, ``.lde``, ``.tree``; ``zkvm.queries.rows``, ``.paths``,
+child spans where the host's time goes (``zkvm.trace_commit.upload``,
+``.transpose``, ``.lde``, ``.tree``; ``zkvm.queries.rows``, ``.paths``,
 ``.assemble``; ``zkvm.fri.layer``, ``zkvm.fri.remainder``;
 ``zkvm.deep.sums``, ``zkvm.deep.class``), and :func:`zkvm_torch.vm.run`
 opens ``zkvm.trace_gen``.  A ``torch.profiler`` trace (CPU activity, and
