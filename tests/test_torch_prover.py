@@ -132,6 +132,18 @@ _DEVIATIONS = {
           '        subprocess.run(',
           '            ["g++", "-O3", "-shared", "-fPIC", _CSRC, "-o", tmp],']),
         (['        return True'], ['        os.replace(tmp, _SO)', '        return True']),
+        # on a machine with a card the trace's limbs are page-locked, so
+        # the prover uploads them by DMA (field/limbs.py::upload)
+        (["import numpy as np"], ["import numpy as np", "import torch"]),
+        (["        out = np.zeros((28, t_len, 8), dtype=np.uint32)"],
+         ["        # on a machine with a card the limbs are page-locked, from torch's",
+          "        # caching host allocator (a freed trace's block serves the next trace",
+          "        # of its size), so the prover uploads them by DMA; the array's base",
+          "        # keeps the block alive",
+          "        if torch.cuda.is_available():",
+          "            out = torch.zeros((28, t_len, 8), dtype=torch.int32, pin_memory=True).numpy().view(np.uint32)",
+          "        else:",
+          "            out = np.zeros((28, t_len, 8), dtype=np.uint32)"]),
     ],
     # run as a module of the port, on the device the caller names
     "examples/linear_regression/main.py": [

@@ -1,17 +1,22 @@
 """The port's native C++ trace generator (``zkvm_torch.runtime``) against the
 port's golden processor and the JAX package's native generator, limb for
-limb, on the cases of ``tests/test_native_trace.py``; its error paths; and
-the native program hash against the Python Rescue sponge."""
+limb, on the cases of ``tests/test_native_trace.py``; its error paths; the
+native program hash against the Python Rescue sponge; and, without a card,
+its plain pageable limbs and their upload (``tests/test_torch_upload_chip.py``
+holds the page-locked ones on a card)."""
 
+import collections
 import random
 
 import numpy as np
 import pytest
+import torch
 
 import zkvm.fhe
 import zkvm.isa
 from zkvm.runtime import NativeProcessor as JaxNativeProcessor
 from zkvm_torch import vm
+from zkvm_torch.field import limbs
 from zkvm_torch.field.limbs import to_limbs
 from zkvm_torch.fhe import LweParameters, ServerKey
 from zkvm_torch.hash.rescue import Rescue128
@@ -91,3 +96,38 @@ def test_native_program_hash_equals_python_sponge(n_pairs):
         sponge.update(op.code, op.value)
     assert native.program_hash(program.code) == sponge.hash() == program.hash
     assert program.hash == zkvm.isa.Program.compile(source).hash
+
+
+def _fhe_trace(key):
+    program = Program.compile("read2\nread\nsmul\nread2\nread\nsmul\nadd2\nread\nsadd")
+    inputs = ProgramInputs((3, 4, 1), (key.encrypt(2), key.encrypt(3)), key)
+    return program, inputs
+
+
+def test_native_limbs_without_a_card_are_a_plain_array(monkeypatch):
+    """Without CUDA the generator's limbs are a plain (28, T, 8) uint32
+    array of its own, in pageable memory, with the golden trace's bytes."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    key, _ = _keys()
+    program, inputs = _fhe_trace(key)
+    port = NativeProcessor.run(program, inputs, seed=vm.DEFAULT_SEED)
+    golden = Processor.run(program, inputs).trace(seed=vm.DEFAULT_SEED)
+    arr = port.as_limbs()
+    assert type(arr) is np.ndarray and arr.dtype == np.uint32 and arr.flags.c_contiguous
+    assert arr.shape == (28, port.length, 8) and port.length <= 128 and arr.base is None
+    assert not torch.from_numpy(arr.view(np.int32)).is_pinned()
+    np.testing.assert_array_equal(arr, to_limbs(golden.columns))
+
+
+def test_upload_of_pageable_limbs_is_from_numpy_counted(monkeypatch):
+    """``limbs.upload`` gives a pageable array (the native trace's, and a
+    strided view that must be copied) the int32 bits ``from_numpy`` gives,
+    and counts each upload ``pageable``."""
+    monkeypatch.setattr(limbs, "uploads", collections.Counter())
+    key, _ = _keys()
+    arr = NativeProcessor.run(*_fhe_trace(key)).as_limbs()
+    for host in (arr, arr.transpose(0, 2, 1)):
+        got = limbs.upload(host, "cpu")
+        assert got.dtype == torch.int32 and torch.equal(got, limbs.from_numpy(host, "cpu"))
+        np.testing.assert_array_equal(got.numpy().view(np.uint32), host)
+    assert limbs.uploads == {"pageable": 2}

@@ -10,8 +10,9 @@ arrays across in tests.
 :func:`limb_transpose` turns (C, N, 8) limbs, the trace generator's layout,
 into (C, 8, N): the kernel ``csrc/limb_transpose.cu`` for a CUDA tensor (or
 it raises), its plain version :func:`limb_transpose_plain` for a CPU
-tensor.  The prover uploads a trace's limbs as they are and turns them on
-the card with it.
+tensor.  The prover uploads a trace's limbs as they are with :func:`upload`
+(a DMA where the generator left them page-locked) and turns them on the
+card with it.
 """
 
 from __future__ import annotations
@@ -75,6 +76,22 @@ def from_t(arr) -> np.ndarray:
 def from_numpy(arr, device="cpu") -> torch.Tensor:
     """uint32 limb array (any layout) -> int32 tensor with the same bits."""
     return torch.from_numpy(np.ascontiguousarray(np.asarray(arr), dtype=np.uint32).view(np.int32)).to(device)
+
+
+uploads = collections.Counter()  # calls of upload in this process, by host memory kind: pinned, pageable
+
+
+def upload(arr, device) -> torch.Tensor:
+    """:func:`from_numpy` for a trace's limbs, counted in :data:`uploads`.
+
+    A contiguous uint32 array in page-locked memory (the native generator's
+    on a machine with a card) is copied by an asynchronous DMA on the current
+    stream, so the caller keeps the array alive until the stream has passed
+    the copy; any other array by the blocking copy of :func:`from_numpy`."""
+    host = from_numpy(arr)  # on the array's own memory where it is contiguous uint32
+    kind = "pinned" if host.is_pinned() else "pageable"
+    uploads[kind] += 1
+    return host.to(device, non_blocking=kind == "pinned")
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

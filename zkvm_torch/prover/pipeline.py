@@ -57,7 +57,7 @@ from zkvm_torch.field import f128
 from zkvm_torch.air import composition as cp
 from zkvm_torch.air.periodic import periodic_class_patterns
 from zkvm_torch.field import f128t as ft
-from zkvm_torch.field.limbs import from_limbs, from_numpy, limb_transpose, tensor
+from zkvm_torch.field.limbs import from_limbs, from_numpy, limb_transpose, tensor, upload
 from zkvm_torch.hash import blake3_t as b3t
 from zkvm_torch.hash.merkle import DeviceMerkleTree, ShardedMerkleTree, merkle_flat
 from zkvm_torch.ntt import ntt_t as nt
@@ -437,10 +437,12 @@ def _prove(trace, pub_inputs, options, device, stage_seconds, mode, stage_peaks,
 
     # ---- 1. trace LDE + commitment -----------------------------------
     with stage("trace_commit", rows=d):
-        # the generator's (28, T, 8) limbs go up as they are, and the card
-        # turns them into (28, 8, T); only the result outlives the kernel
+        # the generator's (28, T, 8) limbs go up as they are (by DMA where
+        # they are page-locked: the trace outlives the copy, which the root's
+        # read-back waits for), and the card turns them into (28, 8, T) on
+        # the same stream; only the result outlives the kernel
         with profiler.phase("trace_commit.upload"):
-            limbs = from_numpy(trace.as_limbs(), device)
+            limbs = upload(trace.as_limbs(), device)
         with profiler.phase("trace_commit.transpose"):
             cols_t = limb_transpose(limbs)
             del limbs

@@ -12,6 +12,7 @@ import subprocess
 from typing import Optional
 
 import numpy as np
+import torch
 
 from zkvm_torch.field import f128
 from zkvm_torch.field.limbs import to_limbs
@@ -163,7 +164,14 @@ class NativeProcessor:
         for i, ct in enumerate(inputs.secret):
             secret[i] = to_limbs(list(ct.ciphertext))
 
-        out = np.zeros((28, t_len, 8), dtype=np.uint32)
+        # on a machine with a card the limbs are page-locked, from torch's
+        # caching host allocator (a freed trace's block serves the next trace
+        # of its size), so the prover uploads them by DMA; the array's base
+        # keeps the block alive
+        if torch.cuda.is_available():
+            out = torch.zeros((28, t_len, 8), dtype=torch.int32, pin_memory=True).numpy().view(np.uint32)
+        else:
+            out = np.zeros((28, t_len, 8), dtype=np.uint32)
         outputs = np.zeros((16, 8), dtype=np.uint32)
         rc = lib.zkvm_run_trace(
             code.ctypes.data, values.ctypes.data, n_ops,
