@@ -27,8 +27,9 @@ Phases, each printing one JSON line:
       beforehand) and at their wrapper, and one wrapper call of each (and
       of the Merkle heap) runs under torch.cuda.set_sync_debug_mode("error"),
       so a wrapper that waits for the stream fails the run; the Merkle
-      heap must make one kernel launch a tree at every leaf count and
-      leave its counter scratch all zero; and zk::mul32
+      heap must make one kernel launch a tree at every leaf count (the
+      launch ledger's merkle launches by N against the trees the phase
+      built) and leave its counter scratch all zero; and zk::mul32
       alone against the plain multiply on every pair of edge values, and
       zk::sqr32 (the ladders' squaring) against it on the same elements; the
       batch inverse (csrc/batch_inverse.cu) against its plain Fermat
@@ -135,8 +136,8 @@ Phases, each printing one JSON line:
       launched 9 times in the cold prove (the constants once, the DEEP 8)
       and 8 in the steady one; K1, K2, K3 and the Merkle heap must have
       launched in the steady prove (printed by shape), the Merkle heap in
-      one launch a tree of 2^23 leaves (as on every path: one launch a
-      tree at every leaf count).
+      one launch a tree of 2^23 leaves (as on every path: as many launches
+      as the prove has trees, 5 at 2^16 and 7 at 2^20, so one a tree).
       Then the same trace proved once in cls and once in mono (each with
       its constants built in that prove), whose bytes must equal the
       T-mode proof's, with each stage's seconds and peaks and its launches
@@ -170,6 +171,7 @@ and every rank of (h)), and last
 Any failure raises and exits non-zero; there is no CPU fallback.
 """
 
+import collections
 import gc
 import itertools
 import json
@@ -502,8 +504,7 @@ def phase_kernels():
     results = {}
     # the yardsticks below run the plain arithmetic by name: across them
     # the field-op kernel must not launch
-    ft.op_launches.clear()
-    ft.op_launches_by_shape.clear()
+    field_ops_before = kernel_health.launches()["field_ops"]
     # K1 at the main paths' axes: M = 8 (FRI fold, D/8 lanes), 256 (both
     # passes of every T = 2^16 transform, 28 columns), 512 (pass 2 of the
     # size-2^19 transforms: the composition iNTT, and the mono coset LDE of
@@ -558,29 +559,34 @@ def phase_kernels():
         del x, cargs, keep
     results["blake3_rows"] = dict(k2[0], max_abs_err=max(r["max_abs_err"] for r in k2))
     # the Merkle heap over random digests, given as the provers give them:
-    # the (N, 8) transposed view of (8, N) words; one launch a tree, and its
-    # counters zero again after every tree
-    heaps = []
-    mk.launches_by_size.clear()
-    mk.trees_by_size.clear()
+    # the (N, 8) transposed view of (8, N) words; one launch a tree (the
+    # ledger's merkle launches at each N against the trees built here), and
+    # its counters zero again after every tree
+    heaps, trees = [], collections.Counter()
+    made = collections.Counter(kernel_health.launches_by_shape()["merkle"])
+
+    def tree(leaves):
+        trees[f"N={leaves.shape[-1]}"] += 1
+        return mk.merkle_flat(leaves.T)
+
     for n in MERKLE_CASES + MERKLE_LARGE_CASES + MERKLE_DIST_CASES:
         leaves = torch.from_numpy(rng.integers(0, 1 << 32, size=(8, n), dtype=np.uint64).astype(np.uint32)
                                   .view(np.int32)).to(DEV)
         cname, cargs, keep = capture_entry(kernels, mk.launch_heap, leaves)
-        heaps.append(compare(f"Merkle N={n}", lambda: mk.merkle_flat(leaves.T),
+        heaps.append(compare(f"Merkle N={n}", lambda: tree(leaves),
                              lambda: mk.merkle_flat_plain(leaves.T), MERKLE_BYTES_PER_LEAF * n,
                              (n - 1) * BLAKE3_BLOCK_OPS, plain_reps=1,
                              entry_fn=lambda: kernels.check(getattr(lib, cname)(*cargs), cname)))
-        sync_free(f"Merkle N={n}", lambda: mk.merkle_flat(leaves.T))
+        sync_free(f"Merkle N={n}", lambda: tree(leaves))
         del leaves, cargs, keep
     torch.cuda.synchronize()
+    made = collections.Counter(kernel_health.launches_by_shape()["merkle"]) - made
     stale = int(mk._counters[DEV].count_nonzero().item())
     emit({"phase": "kernels", "check": "Merkle: one launch a tree, counters zero after the trees",
-          "launches_by_size": dict(mk.launches_by_size), "trees_by_size": dict(mk.trees_by_size),
-          "nonzero_counters": stale})
-    if mk.launches_by_size != mk.trees_by_size or stale:
-        raise AssertionError(f"the Merkle heap: {dict(mk.launches_by_size)} launches for {dict(mk.trees_by_size)} "
-                             f"trees, {stale} counters left nonzero")
+          "launches_by_size": dict(made), "trees_by_size": dict(trees), "nonzero_counters": stale})
+    if made != trees or stale:
+        raise AssertionError(f"the Merkle heap: {dict(made)} launches for {dict(trees)} trees, {stale} counters "
+                             "left nonzero")
     results["merkle"] = dict(heaps[0], max_abs_err=max(r["max_abs_err"] for r in heaps))
     # K3 (one class at T = 2^16, the real boundary columns) and K4 (the
     # mono shape and one class): kernel_bench.air_cases; then K3 and K4's
@@ -643,7 +649,7 @@ def phase_kernels():
     # mono's shapes at T = 2^20: the max_abs_err of each kernel covers them
     for name, res in mono_kernels().items():
         results[name]["max_abs_err"] = max([results[name]["max_abs_err"]] + [r["max_abs_err"] for r in res])
-    yard = sum(ft.op_launches.values())
+    yard = kernel_health.launches()["field_ops"] - field_ops_before
     emit({"phase": "kernels", "check": "field_ops launches across the yardsticks", "launches": yard})
     if yard:
         raise AssertionError(f"the yardsticks of phase (c) launched the field-op kernel {yard} times")
@@ -850,9 +856,9 @@ def meval_kernels(rng):
 
     def plain(fn, *args):
         nonlocal plain_op_launches
-        before = sum(ft.op_launches.values())
+        before = kernel_health.launches()["field_ops"]
         res = fn(*args)
-        plain_op_launches += sum(ft.op_launches.values()) - before
+        plain_op_launches += kernel_health.launches()["field_ops"] - before
         return res
 
     big = max(MEVAL_CASES, key=lambda cqt: cqt[0] * cqt[1] * cqt[2])  # the 2^20 query shape
@@ -899,7 +905,7 @@ def meval_kernels(rng):
     coeffs, points = rand_limbs(rng, (8, 8, 1 << 10)), meval_points(rng, 4)
     real_lib = kernels.lib
     for entry in ("zk_meval_ladders", "zk_multi_eval"):
-        plain_before = me.plain_calls
+        plain_before = kernel_health.plain_calls()["multi_eval"]
         failing = _FailingLib(real_lib(), {entry})
         kernels.lib = lambda: failing
         try:
@@ -910,8 +916,9 @@ def meval_kernels(rng):
         finally:
             kernels.lib = real_lib
         emit({"phase": "kernels", "check": f"a failing {entry} launch raises, no fall back", "raised": raised,
-              "plain_calls": me.plain_calls - plain_before})
-        if raised is None or f"{entry}: CUDA launch failed with error 700" not in raised or me.plain_calls != plain_before:
+              "plain_calls": kernel_health.plain_calls()["multi_eval"] - plain_before})
+        if raised is None or f"{entry}: CUDA launch failed with error 700" not in raised or \
+                kernel_health.plain_calls()["multi_eval"] != plain_before:
             raise AssertionError(f"multi_eval_rows did not raise on a failing {entry} launch, or fell back to the "
                                  "plain version")
     return (dict(out[big], max_abs_err=max(r["max_abs_err"] for r in out.values())),
@@ -929,6 +936,11 @@ FRI_DEEP_REPORTED = {"fri_fold": "FRI fold n=2^16", "ladder": "FRI ladder B=1024
 # their plain versions, which a failing launch must not reach
 FRI_DEEP_PLAIN = ((fri, "fold_plain"), (nt, "ladder_plain"), (dp, "weighted_sum_plain"),
                   (dp, "deep_quotient_plain"))
+
+
+def field_op_and_k1_launches():
+    counts = kernel_health.launches()
+    return counts["field_ops"] + counts["ntt_stages"]
 
 
 def fri_deep_kernels(rng):
@@ -951,9 +963,9 @@ def fri_deep_kernels(rng):
 
         def plain(fn=case["plain"]):
             nonlocal plain_launches
-            before = sum(ft.op_launches.values()) + sum(nt.launches.values())
+            before = field_op_and_k1_launches()
             res = fn()
-            plain_launches += sum(ft.op_launches.values()) + sum(nt.launches.values()) - before
+            plain_launches += field_op_and_k1_launches() - before
             return res
 
         res = compare(case["name"], case["wrapper"], plain, case["nbytes"],
@@ -1100,9 +1112,13 @@ PATH_EXACT = {"tmode": {"transition": 0, "batch_inverse": 8, "multi_eval": 4, "m
               "lr_large_mono": {"composition": 0, "transition": 1, "batch_inverse": 2, "multi_eval": 2,
                                 "meval_ladders": 1, "fri_fold": 5, "weighted_sum": 32, "deep_quotient": 16}}
 # every prove, in every mode and on every rank, turns its uploaded trace on
-# the card: one limb transpose
-for _exact in PATH_EXACT.values():
+# the card: one limb transpose; and makes one Merkle launch a tree: the
+# trace's, the composition's and one a FRI layer (a rank of h its
+# subtrees and the layers), so 5 at D = 2^19 and 7 at 2^23
+MERKLE_TREES_16, MERKLE_TREES_20 = 5, 7
+for _path, _exact in PATH_EXACT.items():
     _exact["limb_transpose"] = 1
+    _exact["merkle"] = MERKLE_TREES_20 if _path.startswith("lr_large") else MERKLE_TREES_16
 # the timed 2^16 T-mode prove launched fewer field ops and K1 than these
 # (the parent's counts before the FRI and DEEP kernels: PERF.md §4, one
 # H100, 230 field-op and 74 K1 launches)
@@ -1115,22 +1131,11 @@ def check_plain(where, plain):
         raise AssertionError(f"plain versions ran {plain} times in {where}")
 
 
-def check_merkle(where, by_shape):
-    """One Merkle kernel launch a tree at every leaf count: the launches
-    the entry reported by N equal the trees (kernel_health's "N=n
-    trees=t": launches)."""
-    for key, made in by_shape["merkle"].items():
-        trees = int(key.split("trees=")[1])
-        if made != trees:
-            raise AssertionError(f"the Merkle heap in {where}: {made} launches for {key}, expected one a tree")
-
-
 def check_path(path, launches, by_shape, plain):
     """The kernels ``path`` must have launched, the counts it must have
-    made exactly, one Merkle launch a tree, for the cls paths K4 at step 1
-    alone, and no plain version in place of a kernel."""
+    made exactly (one Merkle launch a tree among them), for the cls paths
+    K4 at step 1 alone, and no plain version in place of a kernel."""
     check_plain(f"the {path} prove", plain)
-    check_merkle(f"the {path} prove", by_shape)
     for name in PATH_KERNELS[path]:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the {path} path")
@@ -1287,10 +1292,6 @@ def phase_lr_large(card):
               "launches": counts[path][0], "launches_by_shape": counts[path][1], "plain_calls": plain,
               "card": card})
         check_path(path, *counts[path], plain)
-        if path == "lr_large":
-            # the trace and the composition trees have 2^23 leaves each:
-            # the launches the Merkle entry reported for them, one a tree
-            trees, merkle_2_23 = mk.trees_by_size[1 << 23], mk.launches_by_size[1 << 23]
     steady = proofs["lr_large"].to_wire_bytes()
     for path in ("lr_large_cls", "lr_large_mono"):
         same = proofs[path].to_wire_bytes() == steady
@@ -1299,14 +1300,15 @@ def phase_lr_large(card):
             raise AssertionError(f"the {path} and T-mode proofs of the 2^20-row trace differ")
     launches, by_shape = counts["lr_large"]
     clear, verify_seconds, rejected = run.check(proofs["lr_large"])
-    per_tree, rest = divmod(merkle_2_23, max(trees, 1))
+    # the trace and the composition trees have 2^23 leaves each: the
+    # launches the Merkle entry reported for them, one a tree
+    merkle_2_23 = by_shape["merkle"].get(f"N={1 << 23}", 0)
     emit({"phase": "lr_large", "decrypted": clear, "expected": run.expected, "verified": True,
           "verify_seconds": verify_seconds, "tampered_rejected": rejected,
           "proof_bytes": len(steady), "launches": launches, "launches_by_shape": by_shape,
-          "merkle_launches_per_tree_2^23": per_tree, "card": card})
-    if trees != 2 or rest or per_tree != 1:
-        raise AssertionError(f"the Merkle heap of 2^23 leaves: {trees} trees in the prove, "
-                             f"{merkle_2_23} launches")
+          "merkle_launches_2^23": merkle_2_23, "card": card})
+    if merkle_2_23 != 2:
+        raise AssertionError(f"the Merkle heap of 2^23 leaves: {merkle_2_23} launches for the prove's 2 trees")
     return {path: launches for path, (launches, _) in counts.items()}
 
 
@@ -1366,12 +1368,13 @@ def phase_dist(card, want):
             if r["launches"]["composition"] != 0:
                 raise AssertionError("K3 launched on the sharded mono path")
             for name, n in (("multi_eval", 2), ("meval_ladders", 1), ("fri_fold", 3), ("weighted_sum", 2),
-                            ("deep_quotient", 1), ("ladder", 0), ("limb_transpose", 1)):
+                            ("deep_quotient", 1), ("ladder", 0), ("limb_transpose", 1),
+                            ("merkle", MERKLE_TREES_16)):
                 if r["launches"][name] != n:
                     raise AssertionError(f"kernel {name} launched {r['launches'][name]} times on rank {r['rank']}, "
-                                         f"expected {n} (the OOD frame's, a fold a layer, one row block's DEEP)")
+                                         f"expected {n} (the OOD frame's, a fold a layer, one row block's DEEP, "
+                                         "one Merkle launch a tree)")
             check_plain(f"rank {r['rank']} of the {world}-rank {backend} run", r["plain_calls"])
-            check_merkle(f"rank {r['rank']} of the {world}-rank {backend} run", r["launches_by_shape"])
             staged = r["comm"]["host_staged_bytes"]
             if (backend == "gloo") != (staged > 0):
                 raise AssertionError(f"dist: {staged} bytes staged through the host under {backend}")

@@ -121,6 +121,7 @@ Every form first prints the card's name and power limit.
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import itertools
 import json
@@ -654,8 +655,10 @@ def capture_entry(kernels, launch, *args):
     tensors whose pointers it passed (the output and any constants it
     built) are returned too, to keep them alive while the entry is timed.
     A launch that holds its operands itself takes ``args`` = (None,) and
-    the current stream of the card."""
+    the current stream of the card.  The recorded call adds nothing to the
+    tree's launch ledger (``kernels.launched``, where the tree has one)."""
     keep, real_ptr = [], kernels.ptr
+    ledger = getattr(kernels, "launched", None)
 
     def ptr(t):
         keep.append(t)
@@ -663,11 +666,15 @@ def capture_entry(kernels, launch, *args):
 
     rec = _Recorder(kernels.lib())
     kernels.ptr = ptr
+    if ledger is not None:
+        kernels.launched = collections.Counter()
     card = torch.empty(0, device="cuda") if args[0] is None else args[0]
     try:
         launch(rec, kernels.stream_of(card), *(a for a in args if a is not None))
     finally:
         kernels.ptr = real_ptr
+        if ledger is not None:
+            kernels.launched = ledger
     (name, cargs), = rec.calls
     return name, cargs, keep
 

@@ -32,6 +32,7 @@ from zkvm_torch.hash import blake3_t as tb3t
 from zkvm_torch.hash import merkle as tmerkle
 from zkvm_torch.ntt import ntt_t as tnt
 from zkvm_torch.prover import pipeline as tpl
+from zkvm_torch.utils import kernel_health
 
 torch.set_num_threads(1)
 
@@ -563,9 +564,9 @@ def test_limb_transpose_wrapper_on_the_cpu():
     """On a CPU tensor the wrapper takes the plain version (no launch): the
     same words as numpy's swapaxes, a new contiguous tensor."""
     x = _lt_input(28, 1 << 10, 3)
-    before = lm.transpose_launches
+    before = kernels.launched.copy()
     got = lm.limb_transpose(x)
-    assert lm.transpose_launches == before and got.is_contiguous() and got.data_ptr() != x.data_ptr()
+    assert kernels.launched == before and got.is_contiguous() and got.data_ptr() != x.data_ptr()
     np.testing.assert_array_equal(got.numpy(), np.swapaxes(x.numpy(), 1, 2))
 
 
@@ -581,12 +582,12 @@ def test_limb_transpose_refusals(emu, case, error, match):
     x = _lt_input(4, 64, 9)
     bad = {"limbs of 4": x.reshape(4, 128, 4), "two axes": x.reshape(256, 8), "empty": x[:, :0],
            "int64": x.long(), "transposed": x.transpose(0, 1), "strided columns": x[::2]}[case]
-    before = lm.transpose_launches
+    before = kernels.launched.copy()
     with pytest.raises(error, match=match):
         lm.limb_transpose(bad)
     with pytest.raises(error, match=match):
         lm.launch_limb_transpose(emu, 0, bad)
-    assert lm.transpose_launches == before
+    assert kernels.launched == before
 
 
 def test_limb_transpose_launch_refuses_a_misaligned_start(emu):
@@ -607,14 +608,94 @@ def test_provers_through_the_emulated_limb_transpose(emu, monkeypatch, mode):
     through the kernel's host emulation, as the card would launch it on the
     uploaded (28, T, 8) limbs: exactly one launch, of (28, 128), and the
     proof's bytes are the conformance vector's."""
-    monkeypatch.setattr(tpl, "limb_transpose", lambda x: lm.limb_transpose_kernel(emu, 0, x))
-    monkeypatch.setattr(lm, "transpose_launches", 0)
-    monkeypatch.setattr(lm, "transpose_launches_by_shape", collections.Counter())
+    monkeypatch.setattr(tpl, "limb_transpose", lambda x: lm.launch_limb_transpose(emu, 0, x))
+    monkeypatch.setattr(kernels, "launched", collections.Counter())
     vec = json.loads((Path(__file__).resolve().parents[1] / "conformance" / "vectors_e2e.json").read_text())
     key = vm.ServerKey(vm.DEMO_PARAMETERS, random.Random(7))
     program = vm.Program.compile(vec["program_source"])
     inputs = vm.ProgramInputs(tuple(vec["public_inputs_tape"]), (key.encrypt(2),), key)
     _, _, proof = vm.prove(program, inputs, device="cpu", mode=mode)
-    assert lm.transpose_launches == 1 and lm.transpose_launches_by_shape == {(28, 128): 1}
+    assert kernel_health.launches() == dict(dict.fromkeys(kernels.FAMILIES, 0), limb_transpose=1)
+    assert kernel_health.launches_by_shape()["limb_transpose"] == {"C=28 N=128": 1}
     assert proof.trace_root.hex() == vec["trace_root_hex"]
     assert proof.to_wire_bytes().hex() == vec["proof_bytes_hex"]
+
+
+class _Refusing:
+    """A kernel library whose ``entry`` refuses every launch (returns 1, as
+    a failed ``cudaGetLastError()`` would); its other entries are ``lib``'s."""
+
+    def __init__(self, lib, entry):
+        self.lib, self.entry = lib, entry
+
+    def __getattr__(self, name):
+        return (lambda *args: 1) if name == self.entry else getattr(self.lib, name)
+
+
+def _ledger_cases(emu):
+    """Per family of ``kernels.FAMILIES``: its C entry, its one ``launch_*``
+    call on a given library, and the shape that call counts under.  The
+    multi-eval's ladders are launched here, on ``emu``."""
+    from test_torch_composition import _ORDER, composition_inputs
+    from zkvm_torch.air import composition as tcp
+    from zkvm_torch.air import transition as ttr
+    from zkvm_torch.prover import deep as tdp
+    from zkvm_torch.prover import fri as tfri
+    from zkvm_torch.prover import multi_eval as tme
+
+    rng = np.random.default_rng(24)
+    limbs = lambda shape: from_numpy(rand_limbs(rng, shape))
+    one, cols = limbs((8, 1))[:, 0], limbs((3, 8, 16))
+    arrays, delta, bcols0, bcols1 = composition_inputs(24, t=32)
+    comp = [from_numpy(arrays[k]) for k in _ORDER]
+    lde, mask, ark, alphas, step = _transition_inputs("full", 16, 2, 24)
+    tw = tnt._stage_twiddles_dev(8, False, torch.device("cpu"))
+    bases = from_numpy(to_limbs([3, 5, 7]))
+    lad = tme.launch_ladders(emu, 0, bases, 16)
+    return {
+        "ntt_stages": ("zk_ntt_stages", lambda lib: tnt.launch_stages(lib, 0, limbs((2, 8, 8, 4)), tw),
+                       dict(M=8, B=2, NL=4, variant="plain")),
+        "blake3_rows": ("zk_blake3_rows", lambda lib: tb3t.launch_rows(lib, 0, limbs((8, 8, 32))), dict(C=8, N=32)),
+        "merkle": ("zk_merkle_heap", lambda lib: tmerkle.launch_heap(lib, 0, limbs((8, 8, 16))[0]), dict(N=16)),
+        "composition": ("zk_composition", lambda lib: tcp.launch_composition(lib, 0, *comp, delta, bcols0, bcols1),
+                        dict(T=32)),
+        "transition": ("zk_transition", lambda lib: ttr.launch_transition(lib, 0, lde, mask, ark, alphas, delta, step),
+                       dict(N=32, step=2)),
+        "batch_inverse": ("zk_batch_inverse", lambda lib: tft.launch_batch_inverse(lib, 0, cols), dict(R=3, N=16)),
+        "field_ops": ("zk_field_op", lambda lib: tft.launch_field_op(lib, 0, "mul", cols, one[:, None]),
+                      dict(op="mul", n=48)),
+        "multi_eval": ("zk_multi_eval", lambda lib: tme.launch_multi_eval(lib, 0, cols[:2].contiguous(), lad),
+                       dict(C=2, Q=3, T=16)),
+        "meval_ladders": ("zk_meval_ladders", lambda lib: tme.launch_ladders(lib, 0, bases, 16), dict(Q=3, T=16)),
+        "fri_fold": ("zk_fri_fold", lambda lib: tfri.launch_fold(lib, 0, limbs((tfri.FOLD, 8, 16)), 5, 7),
+                     dict(n=16)),
+        "ladder": ("zk_ladder", lambda lib: tnt.launch_ladder(lib, 0, one, one, 16), dict(B=1, n=16)),
+        "ladder_const": ("zk_ladder_const", lambda lib: tnt.launch_ladder_const(lib, 0, 3, 5, 16, device="cpu"),
+                         dict(B=1, n=16)),
+        "weighted_sum": ("zk_weighted_sum", lambda lib: tdp.launch_weighted_sum(lib, 0, cols, [[1, 2, 3]]),
+                         dict(K=1, C=3, N=16)),
+        "deep_quotient": ("zk_deep_quotient", lambda lib: tdp.launch_deep_quotient(lib, 0, cols, [1, 2, 3], cols),
+                          dict(K=3, N=16)),
+        "limb_transpose": ("zk_limb_transpose", lambda lib: lm.launch_limb_transpose(lib, 0, _lt_input(2, 16, 24)),
+                           dict(C=2, N=16)),
+    }
+
+
+@pytest.mark.parametrize("family", kernels.FAMILIES)
+def test_each_launch_adds_one_ledger_entry(emu, monkeypatch, family):
+    """One call of a family's ``launch_*`` through the emulated library adds
+    exactly one launch to the ledger (``kernels.launched``), under the
+    family and the shape it launched; the same call through a library
+    whose entry refuses the launch raises and adds nothing."""
+    ledger = collections.Counter()
+    monkeypatch.setattr(kernels, "launched", ledger)
+    entry, launch, shape = _ledger_cases(emu)[family]
+    assert entry in kernels.SIGNATURES
+    ledger.clear()
+    launch(emu)
+    assert ledger == {(family, tuple(shape.items())): 1}
+    assert kernel_health.report()["total"] == 1
+    ledger.clear()
+    with pytest.raises(RuntimeError, match=f"{entry}: CUDA launch failed"):
+        launch(_Refusing(emu, entry))
+    assert not ledger

@@ -38,6 +38,7 @@ from zkvm_torch.ntt import ntt_t as nt
 from zkvm_torch.prover import deep as dp
 from zkvm_torch.prover import fri
 from zkvm_torch.prover.options import ProofOptions
+from zkvm_torch.utils import kernel_health
 from zkvm_torch.prover.transcript import RandomCoin
 
 torch.set_num_threads(1)
@@ -286,26 +287,33 @@ def test_plain_versions_launch_nothing(monkeypatch, emu):
                                   to_numpy(dp.launch_deep_quotient(lib, None, vals, [1, 2, 3], inv)))
 
 
+def _fri_deep_launches():
+    """The ledger's launches of the fold, the two ladders, the sums and the
+    quotients, in that order."""
+    counts = kernel_health.launches()
+    return tuple(counts[f] for f in ("fri_fold", "ladder", "ladder_const", "weighted_sum", "deep_quotient"))
+
+
 @pytest.fixture
 def through_emu(emu, monkeypatch):
     """Route every call of the four entries' dispatchers through the small
-    build's emulation, counted by the wrappers' own counters."""
+    build's emulation; returns the launches the ledger counts for the five
+    families so far."""
     lib = emu["small"]
 
     def ladder(base, scale, n, x=None):
-        return nt.ladder_kernel(lib, None, base, scale, n, x)
+        return nt.launch_ladder(lib, None, base, scale, n, x)
 
     def ladder_host(base, n, scale=1, device="cpu", x=None):
-        return nt.ladder_const_kernel(lib, None, base, scale, n, x, torch.device(device))
+        return nt.launch_ladder_const(lib, None, base, scale, n, x, torch.device(device))
 
     monkeypatch.setattr(nt, "ladder_t", ladder)
     monkeypatch.setattr(nt, "ladder_t_host", ladder_host)
-    monkeypatch.setattr(fri, "fold_t", lambda v, scale, base: fri.fold_kernel(lib, None, v.contiguous(), scale,
+    monkeypatch.setattr(fri, "fold_t", lambda v, scale, base: fri.launch_fold(lib, None, v.contiguous(), scale,
                                                                                base))
-    monkeypatch.setattr(dp, "weighted_sum", lambda c, w, out=None: dp.weighted_sum_kernel(lib, None, c, w, out))
-    monkeypatch.setattr(dp, "deep_quotient", lambda v, at, inv: dp.deep_quotient_kernel(lib, None, v, at, inv))
-    return lambda: (fri.fold_launches, nt.ladder_launches, nt.ladder_const_launches, dp.sum_launches,
-                    dp.quotient_launches)
+    monkeypatch.setattr(dp, "weighted_sum", lambda c, w, out=None: dp.launch_weighted_sum(lib, None, c, w, out))
+    monkeypatch.setattr(dp, "deep_quotient", lambda v, at, inv: dp.launch_deep_quotient(lib, None, v, at, inv))
+    return _fri_deep_launches
 
 
 @pytest.mark.parametrize("mode", ["tmode", "mono", "cls"])
@@ -390,19 +398,17 @@ def test_fri_deep_kernels_refuse_and_never_fall_back(monkeypatch, emu):
     v = torch.zeros((fri.FOLD, 8, 16), dtype=torch.int32)
     one = torch.zeros(8, dtype=torch.int32)
     cols = torch.zeros((3, 8, 16), dtype=torch.int32)
-    calls = [("zk_fri_fold", lambda: fri.fold_kernel(failing, None, v, 1, 2)),
-             ("zk_ladder", lambda: nt.ladder_kernel(failing, None, one, one, 16)),
-             ("zk_ladder_const", lambda: nt.ladder_const_kernel(failing, None, 3, 5, 16, device="cpu")),
-             ("zk_weighted_sum", lambda: dp.weighted_sum_kernel(failing, None, cols, [[1, 2, 3]])),
-             ("zk_deep_quotient", lambda: dp.deep_quotient_kernel(failing, None, cols, [1, 2, 3], cols))]
-    counts = lambda: (fri.fold_launches, nt.ladder_launches, nt.ladder_const_launches, dp.sum_launches,
-                      dp.quotient_launches)
-    before = counts()
+    calls = [("zk_fri_fold", lambda: fri.launch_fold(failing, None, v, 1, 2)),
+             ("zk_ladder", lambda: nt.launch_ladder(failing, None, one, one, 16)),
+             ("zk_ladder_const", lambda: nt.launch_ladder_const(failing, None, 3, 5, 16, device="cpu")),
+             ("zk_weighted_sum", lambda: dp.launch_weighted_sum(failing, None, cols, [[1, 2, 3]])),
+             ("zk_deep_quotient", lambda: dp.launch_deep_quotient(failing, None, cols, [1, 2, 3], cols))]
+    before = _fri_deep_launches()
     for entry, call in calls:
         with pytest.raises(RuntimeError, match=f"{entry}: CUDA launch failed with error 700"):
             call()
     assert failing.calls == 5
-    assert counts() == before
+    assert _fri_deep_launches() == before
     meta = torch.zeros((fri.FOLD, 8, 16), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel for device meta"):
         fri.fold_t(meta, 1, 2)

@@ -37,6 +37,7 @@ from zkvm_torch.field import f128t as ft
 from zkvm_torch.field.limbs import from_limbs, from_numpy, to_limbs, to_numpy
 from zkvm_torch.prover import limits
 from zkvm_torch.prover import multi_eval as me
+from zkvm_torch.utils import kernel_health
 
 torch.set_num_threads(1)
 
@@ -246,6 +247,12 @@ def test_ladder_kernel_takes_any_factors(emu, q, s, n2, ldb):
         np.testing.assert_array_equal(cells.numpy(), want_cells, err_msg=name)
 
 
+def _launches():
+    """The ledger's (ladder, multi-eval) launches so far."""
+    counts = kernel_health.launches()
+    return counts["meval_ladders"], counts["multi_eval"]
+
+
 def test_multi_eval_evaluates_tensors_at_one_point_set(emu):
     """One ``evaluate`` of two coefficient tensors (28 and 8 columns, the
     query rows' trace and composition columns) at one point set makes one
@@ -253,9 +260,9 @@ def test_multi_eval_evaluates_tensors_at_one_point_set(emu):
     vals, points = _inputs(128)
     a, b = _t(vals), _t(vals[3:11][::-1].copy())
     bases = from_numpy(to_limbs(points))
-    before = (me.ladder_launches, me.launches)
+    before = _launches()
     both = me.evaluate(emu["shipped"], None, [a, b], bases)
-    assert (me.ladder_launches - before[0], me.launches - before[1]) == (1, 2)
+    assert tuple(x - y for x, y in zip(_launches(), before)) == (1, 2)
     for got, x in zip(both, (a, b)):
         assert torch.equal(got, me.evaluate(emu["shipped"], None, [x], bases)[0])
     rows_a, rows_b = me.multi_eval_rows_many([a, b], points)  # the plain version, on the CPU
@@ -276,9 +283,9 @@ def test_ood_ladders_in_one_launch(emu):
     bases = from_numpy(to_limbs(pts))
     spans = ((0, 2), (2, 3))
     for name, lib in emu.items():
-        before = (me.ladder_launches, me.launches)
+        before = _launches()
         cur, at_zm = me.evaluate(lib, None, [trace, comp], bases, spans)
-        assert (me.ladder_launches - before[0], me.launches - before[1]) == (1, 2), name
+        assert tuple(x - y for x, y in zip(_launches(), before)) == (1, 2), name
         assert torch.equal(cur, me.evaluate(lib, None, [trace], bases[:2])[0]), name
         assert torch.equal(at_zm, me.evaluate(lib, None, [comp], bases[2:])[0]), name
     rows = me.multi_eval_rows_many([trace, comp], pts, spans=spans)  # the plain version, on the CPU
@@ -334,7 +341,7 @@ def test_provers_through_the_emulated_multi_eval_kernel(emu, monkeypatch, mode):
         return [[[int(v) for v in row] for row in from_limbs(to_numpy(out))] for out in outs]
 
     monkeypatch.setattr(me, "multi_eval_rows_many", through_kernel)
-    before = me.plain_calls, me.ladder_launches
+    before = kernel_health.plain_calls()["multi_eval"], _launches()[0]
     vec = json.loads(VECTORS.read_text())
     key = vm.ServerKey(vm.DEMO_PARAMETERS, random.Random(7))
     program = vm.Program.compile(vec["program_source"])
@@ -348,7 +355,7 @@ def test_provers_through_the_emulated_multi_eval_kernel(emu, monkeypatch, mode):
         assert calls == [ood], calls
     else:
         assert calls[0] == ood and calls[1][0] == (28, 8) and calls[1][1] > 3 and len(calls) == 2, calls
-    assert (me.plain_calls, me.ladder_launches - before[1]) == (before[0], len(calls))
+    assert (kernel_health.plain_calls()["multi_eval"], _launches()[0] - before[1]) == (before[0], len(calls))
 
 
 class _FailingLib:
@@ -377,7 +384,7 @@ def test_multi_eval_refuses_and_never_falls_back(monkeypatch):
     these reaches the plain version or counts a launch."""
     coeffs = torch.zeros((2, 8, 16), dtype=torch.int32)
     lad = me.ladders_from(torch.zeros((3, 8, 4), dtype=torch.int32), torch.zeros((3, 8, 4), dtype=torch.int32))
-    before = (me.plain_calls, me.launches, me.ladder_launches)
+    before = kernels.launched.copy()
     failing = _FailingLib()
     with pytest.raises(RuntimeError, match="zk_multi_eval: CUDA launch failed with error 700"):
         me.launch_multi_eval(failing, None, coeffs, lad)
@@ -419,4 +426,4 @@ def test_multi_eval_refuses_and_never_falls_back(monkeypatch):
     with pytest.raises(ValueError, match="power of two"):
         me.multi_eval_rows(torch.zeros((2, 8, 12), dtype=torch.int32), [1])
     assert failing.calls == 3
-    assert (me.plain_calls, me.launches, me.ladder_launches) == before
+    assert kernels.launched == before

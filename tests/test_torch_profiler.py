@@ -8,11 +8,13 @@ reference's own checks (``tests/test_config_profiler.py``).
   every mode; ``ZKVM_PROFILE_DIR`` / ``enable(trace_dir)`` writes a
   ``torch.profiler`` trace; on the CPU ``live_bytes`` stays None;
 * :mod:`zkvm_torch.utils.kernel_health` lists every kernel family, with
-  0 launches after a CPU prove, and ``reset`` zeroes counters a test set;
+  0 launches after a CPU prove, formats and sums the launch ledger's
+  entries (``kernels.launched``), and ``reset`` clears it;
 * ``vm.verify`` / ``verify_bytes`` read ``min_security`` from ``config``.
 """
 
 import ast
+import collections
 import json
 import random
 from pathlib import Path
@@ -136,61 +138,45 @@ def test_kernel_health_on_the_cpu():
     assert rep["plain_calls"] == {"multi_eval": 2}  # mono's OOD frame, in the plain version on the CPU
 
 
-def test_kernel_health_reset_zeroes_the_counters():
-    from zkvm_torch.air import composition as cp
-    from zkvm_torch.air import transition as tr
-    from zkvm_torch.field import f128t as ft
-    from zkvm_torch.field import limbs as lm
-    from zkvm_torch.hash import blake3_t as b3t
-    from zkvm_torch.hash import merkle as mk
-    from zkvm_torch.ntt import ntt_t as nt
-    from zkvm_torch.prover import deep as dp
-    from zkvm_torch.prover import fri
-    from zkvm_torch.prover import multi_eval as me
+# one ledger entry a family (times, shape) and its formatted key; merkle
+# has two sizes
+_LEDGER = {
+    "ntt_stages": [(3, dict(M=256, B=28, NL=256, variant="r1"), "M=256 B=28 NL=256 variant=r1")],
+    "blake3_rows": [(2, dict(C=28, N=1 << 16), "C=28 N=65536")],
+    "merkle": [(2, dict(N=1 << 19), "N=524288"), (3, dict(N=1 << 16), "N=65536")],
+    "composition": [(1, dict(T=1 << 16), "T=65536")],
+    "transition": [(1, dict(N=1 << 19, step=8), "N=524288 step=8")],
+    "batch_inverse": [(4, dict(R=3, N=1 << 16), "R=3 N=65536")],
+    "field_ops": [(6, dict(op="mul", n=1 << 16), "op=mul n=65536")],
+    "multi_eval": [(4, dict(C=28, Q=32, T=1 << 16), "C=28 Q=32 T=65536")],
+    "meval_ladders": [(3, dict(Q=32, T=1 << 16), "Q=32 T=65536")],
+    "fri_fold": [(3, dict(n=1 << 16), "n=65536")],
+    "ladder": [(1, dict(B=1024, n=512), "B=1024 n=512")],
+    "ladder_const": [(1, dict(B=1, n=1024), "B=1 n=1024")],
+    "weighted_sum": [(2, dict(K=2, C=28, N=1 << 16), "K=2 C=28 N=65536")],
+    "deep_quotient": [(8, dict(K=3, N=1 << 16), "K=3 N=65536")],
+    "limb_transpose": [(1, dict(C=28, N=1 << 16), "C=28 N=65536")],
+}
 
-    nt.launches[(256, 28, 256, "r1")] += 3
-    b3t.launches, cp.launches, tr.launches, ft.launches, mk.launches = 2, 1, 1, 4, 5
-    b3t.launches_by_shape[(28, 1 << 16)] += 2
-    tr.launches_by_shape[(1 << 19, 8)] += 1
-    ft.launches_by_shape[(3, 1 << 16)] += 4
-    mk.launches_by_size[1 << 19] += 2
-    mk.trees_by_size[1 << 19] += 1
-    ft.op_launches["mul"] += 6
-    ft.op_launches_by_shape[("mul", 1 << 16)] += 6
-    me.launches, me.plain_calls, me.ladder_launches = 4, 2, 3
-    me.launches_by_shape[(28, 32, 1 << 16)] += 4
-    me.ladder_launches_by_shape[(32, 1 << 16)] += 3
-    fri.fold_launches, nt.ladder_launches, dp.sum_launches, dp.quotient_launches = 3, 1, 2, 8
-    nt.ladder_const_launches = 1
-    fri.fold_launches_by_shape[1 << 16] += 3
-    nt.ladder_launches_by_shape[(1024, 512)] += 1
-    nt.ladder_const_launches_by_shape[(1, 1024)] += 1
-    dp.sum_launches_by_shape[(2, 28, 1 << 16)] += 2
-    dp.quotient_launches_by_shape[(3, 1 << 16)] += 8
-    lm.transpose_launches = 1
-    lm.transpose_launches_by_shape[(28, 1 << 16)] += 1
-    try:
-        rep = kernel_health.report()
-        assert rep["launches"] == {"ntt_stages": 3, "blake3_rows": 2, "merkle": 5, "composition": 1,
-                                   "transition": 1, "batch_inverse": 4, "field_ops": 6, "multi_eval": 4,
-                                   "meval_ladders": 3, "fri_fold": 3, "ladder": 1, "ladder_const": 1,
-                                   "weighted_sum": 2, "deep_quotient": 8, "limb_transpose": 1}
-        assert rep["total"] == 45 and rep["plain_calls"] == {"multi_eval": 2}
-        assert rep["launches_by_shape"]["ntt_stages"] == {"M=256 B=28 NL=256 r1": 3}
-        assert rep["launches_by_shape"]["merkle"] == {"N=524288 trees=1": 2}
-        assert rep["launches_by_shape"]["transition"] == {"N=524288 step=8": 1}
-        assert rep["launches_by_shape"]["batch_inverse"] == {"R=3 N=65536": 4}
-        assert rep["launches_by_shape"]["field_ops"] == {"mul n=65536": 6}
-        assert rep["launches_by_shape"]["multi_eval"] == {"C=28 Q=32 T=65536": 4}
-        assert rep["launches_by_shape"]["meval_ladders"] == {"Q=32 T=65536": 3}
-        assert rep["launches_by_shape"]["fri_fold"] == {"n=65536": 3}
-        assert rep["launches_by_shape"]["ladder"] == {"B=1024 n=512": 1}
-        assert rep["launches_by_shape"]["ladder_const"] == {"B=1 n=1024": 1}
-        assert rep["launches_by_shape"]["weighted_sum"] == {"K=2 C=28 N=65536": 2}
-        assert rep["launches_by_shape"]["deep_quotient"] == {"K=3 N=65536": 8}
-        assert rep["launches_by_shape"]["limb_transpose"] == {"C=28 N=65536": 1}
-    finally:
-        kernel_health.reset()
+
+def test_kernel_health_reset_zeroes_the_counters(monkeypatch):
+    from zkvm_torch import kernels
+
+    monkeypatch.setattr(kernels, "launched", collections.Counter())
+    assert set(_LEDGER) == set(kernel_health.FAMILIES)
+    for family, entries in _LEDGER.items():
+        for times, shape, _ in entries:
+            kernels.count(family, times, **shape)
+    kernels.count("multi_eval_plain", 2)
+    kernels.count("upload", kind="pinned")  # not a kernel: in no family
+    rep = kernel_health.report()
+    assert rep["launches"] == {family: sum(e[0] for e in entries) for family, entries in _LEDGER.items()}
+    assert rep["total"] == 45 and rep["plain_calls"] == {"multi_eval": 2}
+    assert rep["launches_by_shape"] == {family: {key: times for times, _, key in entries}
+                                        for family, entries in _LEDGER.items()}
+    assert list(rep["launches_by_shape"]["merkle"]) == ["N=65536", "N=524288"]  # by shape, ascending
+    kernel_health.reset()
+    assert not kernels.launched
     assert kernel_health.launches() == dict.fromkeys(kernel_health.FAMILIES, 0)
     assert all(v == {} for v in kernel_health.launches_by_shape().values())
     assert kernel_health.plain_calls() == {"multi_eval": 0}

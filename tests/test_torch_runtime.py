@@ -15,7 +15,7 @@ import torch
 import zkvm.fhe
 import zkvm.isa
 from zkvm.runtime import NativeProcessor as JaxNativeProcessor
-from zkvm_torch import vm
+from zkvm_torch import kernels, vm
 from zkvm_torch.field import limbs
 from zkvm_torch.field.limbs import to_limbs
 from zkvm_torch.fhe import LweParameters, ServerKey
@@ -122,12 +122,12 @@ def test_native_limbs_without_a_card_are_a_plain_array(monkeypatch):
 def test_upload_of_pageable_limbs_is_from_numpy_counted(monkeypatch):
     """``limbs.upload`` gives a pageable array (the native trace's, and a
     strided view that must be copied) the int32 bits ``from_numpy`` gives,
-    and counts each upload ``pageable``."""
-    monkeypatch.setattr(limbs, "uploads", collections.Counter())
+    and counts each upload ``pageable`` in the launch ledger."""
+    monkeypatch.setattr(kernels, "launched", collections.Counter())
     key, _ = _keys()
     arr = NativeProcessor.run(*_fhe_trace(key)).as_limbs()
     for host in (arr, arr.transpose(0, 2, 1)):
         got = limbs.upload(host, "cpu")
         assert got.dtype == torch.int32 and torch.equal(got, limbs.from_numpy(host, "cpu"))
         np.testing.assert_array_equal(got.numpy().view(np.uint32), host)
-    assert limbs.uploads == {"pageable": 2}
+    assert kernels.launched == {("upload", (("kind", "pageable"),)): 2}

@@ -1,8 +1,9 @@
 """The trace's upload on the card (skipped without one): the native
 generator's 2^16 limbs are page-locked, ``limbs.upload`` copies them by DMA
 bit for bit as the pageable copy does, a prove of the page-locked trace in
-each mode counts one pinned upload and gives the pageable trace's bytes,
-and a freed trace's page-locked block serves the next trace of its size.
+each mode counts one pinned upload (in the launch ledger,
+``kernels.launched``) and gives the pageable trace's bytes, and a freed
+trace's page-locked block serves the next trace of its size.
 
 The file imports no JAX, so it runs where the port runs alone; the
 suite's conftest sets JAX up, so leave it out there:
@@ -18,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from zkvm_torch import vm
+from zkvm_torch import kernels, vm
 from zkvm_torch.field import limbs
 from zkvm_torch.processor.golden import ExecutionTrace
 from zkvm_torch.prover import pipeline as tpl
@@ -45,16 +46,21 @@ def _pinned(arr) -> bool:
     return torch.from_numpy(arr.view(np.int32)).is_pinned()
 
 
+def _uploads():
+    """The ledger's uploads by host memory kind."""
+    return {dict(shape)["kind"]: k for (name, shape), k in kernels.launched.items() if name == "upload"}
+
+
 @pytest.mark.chip
 def test_native_limbs_are_pinned_and_upload_as_the_pageable_copy(card, chain, monkeypatch):
     trace = chain[2]
     pageable = np.array(trace.limbs)
     assert type(trace.limbs) is np.ndarray and trace.limbs.dtype == np.uint32
     assert _pinned(trace.limbs) and not _pinned(pageable)
-    monkeypatch.setattr(limbs, "uploads", collections.Counter())
+    monkeypatch.setattr(kernels, "launched", collections.Counter())
     got, want = limbs.upload(trace.limbs, card), limbs.upload(pageable, card)
     torch.cuda.synchronize(card)
-    assert limbs.uploads == {"pinned": 1, "pageable": 1}
+    assert _uploads() == {"pinned": 1, "pageable": 1}
     assert torch.equal(got, want)
 
 
@@ -65,11 +71,11 @@ def test_pinned_trace_proves_the_pageable_bytes(card, chain, mode, monkeypatch):
     prove of its pageable copy."""
     _, _, trace, pub = chain
     pageable = ExecutionTrace(None, trace.program_hash, trace.outputs, limbs=np.array(trace.limbs))
-    monkeypatch.setattr(limbs, "uploads", collections.Counter())
+    monkeypatch.setattr(kernels, "launched", collections.Counter())
     pinned_bytes = tpl.prove(trace, pub, device=card, mode=mode).to_wire_bytes()
-    assert limbs.uploads == {"pinned": 1}
+    assert _uploads() == {"pinned": 1}
     assert tpl.prove(pageable, pub, device=card, mode=mode).to_wire_bytes() == pinned_bytes
-    assert limbs.uploads == {"pinned": 1, "pageable": 1}
+    assert _uploads() == {"pinned": 1, "pageable": 1}
 
 
 @pytest.mark.chip

@@ -24,7 +24,7 @@ Layer map (mirrors :mod:`zkvm`):
   verifier/  the host verifier
   isa/, processor/, fhe/  assembler, golden processor, LWE
   utils/     serde, the prover's spans (profiler) and the kernel-health report
-             (each kernel's launches, by shape)
+             (each kernel's launches by shape, from ``kernels.launched``)
   csrc/      the CUDA C++ sources, built with nvcc at first use
   convert.py build the port's trace, key and public inputs from plain data
   config.py  the typed configuration (a copy of zkvm/config.py)

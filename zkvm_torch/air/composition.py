@@ -13,7 +13,6 @@ reads them at n % 16 and the plain version tiles them.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 
@@ -168,8 +167,6 @@ def composition_body_t(cur, nxt, mask, ark, ee, i0, i1, mds, inv_mds, alphas,
 # kernel K3
 # ---------------------------------------------------------------------------
 
-launches = 0  # launches of the CUDA kernel in this process
-launches_by_shape = collections.Counter()  # the same, by T
 MAX_BOUNDARY = 16  # boundary columns per group that the kernel's arguments hold
 
 
@@ -237,6 +234,7 @@ def launch_composition(lib, stream, cur_t, mask_pat, ark_pat, ee_t, i0_t, i1_t, 
         *delta_words(delta), p(bv0), p(bb0), bc0, k0, p(bv1), p(bb1), bc1, k1, p(out), t, stream,
     )
     kernels.check(rc, "zk_composition")
+    kernels.count("composition", T=t)
     return out
 
 
@@ -250,16 +248,12 @@ def composition_t(cur_t, mask_pat, ark_pat, ee_t, i0_t, i1_t, alphas,
     and coefficients; delta a host int; bcols* the boundary column tuples.
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (or raises)."""
-    global launches
     args = (cur_t, mask_pat, ark_pat, ee_t, i0_t, i1_t, alphas, bv0, bb0, bv1, bb1)
     if cur_t.device.type == "cpu":
         return composition_plain(*args, delta, bcols0, bcols1)
     if cur_t.device.type != "cuda":
         raise ValueError(f"composition: no kernel for device {cur_t.device}")
-    out = launch_composition(
+    return launch_composition(
         kernels.lib(), kernels.stream_of(cur_t), *(a.contiguous() for a in args),
         delta, bcols0, bcols1,
     )
-    launches += 1
-    launches_by_shape[cur_t.shape[-1]] += 1
-    return out

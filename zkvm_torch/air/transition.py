@@ -15,15 +15,11 @@ the periodic columns are tables of length P read at n mod P
 
 from __future__ import annotations
 
-import collections
-
 import torch
 
 from zkvm_torch import kernels
 from .composition import delta_words, mds_dev, mds_pair, merged_transition_t
 
-launches = 0  # launches of the CUDA kernel in this process
-launches_by_shape = collections.Counter()  # the same, by (N, step)
 MAX_PERIOD = 1024  # the longest periodic table the kernel stages into shared memory
 
 
@@ -59,6 +55,7 @@ def launch_transition(lib, stream, lde_t, mask_tab, ark_tab, alphas, delta, step
         p_(out), n, p, step, stream,
     )
     kernels.check(rc, "zk_transition")
+    kernels.count("transition", N=n, step=step)
     return out
 
 
@@ -69,15 +66,11 @@ def merged_transition(lde_t, mask_tab, ark_tab, alphas, delta, step) -> torch.Te
     N; mask_tab (8, P) and ark_tab (8, 8, P) periodic tables read at n mod
     P (P divides N); alphas (20, 8); delta a host int.  A CPU tensor takes
     the plain version; a CUDA tensor launches the kernel (or raises)."""
-    global launches
     args = (lde_t, mask_tab, ark_tab, alphas)
     if lde_t.device.type == "cpu":
         return merged_transition_plain(*args, delta, step)
     if lde_t.device.type != "cuda":
         raise ValueError(f"transition: no kernel for device {lde_t.device}")
-    out = launch_transition(
+    return launch_transition(
         kernels.lib(), kernels.stream_of(lde_t), *(a.contiguous() for a in args), delta, step,
     )
-    launches += 1
-    launches_by_shape[(lde_t.shape[-1], step)] += 1
-    return out

@@ -24,7 +24,6 @@ tensor (its plain version is :func:`batch_inverse_plain`).
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 from typing import Callable, NamedTuple
@@ -189,8 +188,6 @@ def fpow_const_plain(a: torch.Tensor, e: int) -> torch.Tensor:
 
 OPS = {"add": 0, "sub": 1, "mul": 2}  # the C entry's op codes
 MAX_DIMS = 8  # element axes the kernel takes, after coalescing
-op_launches = collections.Counter()  # launches of the field-op kernel in this process, by op
-op_launches_by_shape = collections.Counter()  # the same, by (op, output elements)
 
 
 @functools.lru_cache(maxsize=4096)
@@ -256,6 +253,7 @@ def launch_field_op(lib, stream, op: str, a: torch.Tensor, b: torch.Tensor) -> t
         p = kernels.ptr
         rc = lib.zk_field_op(OPS[op], nd, sizes, strides, p(a), p(b), p(out), stream)
         kernels.check(rc, "zk_field_op")
+        kernels.count("field_ops", op=op, n=out.numel() // NLIMBS)
     return out
 
 
@@ -266,11 +264,7 @@ def _dispatch(op: str, plain, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return plain(a, b)
     if kind != "cuda":
         raise ValueError(f"field op: no kernel for device {a.device}")
-    out = launch_field_op(kernels.lib(), kernels.stream_of(a), op, a, b)
-    if out.numel():
-        op_launches[op] += 1
-        op_launches_by_shape[(op, out.numel() // NLIMBS)] += 1
-    return out
+    return launch_field_op(kernels.lib(), kernels.stream_of(a), op, a, b)
 
 
 def fadd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -318,10 +312,6 @@ DISPATCH = Arith(fadd, fsub, fmul)
 # the batch inverse: csrc/batch_inverse.cu
 # ---------------------------------------------------------------------------
 
-launches = 0  # launches of the batch-inverse kernel in this process
-launches_by_shape = collections.Counter()  # the same, by (R, N)
-
-
 def batch_inverse_plain(a: torch.Tensor) -> torch.Tensor:
     """Plain version of the batch inverse: elementwise a^(p-2) (Fermat),
     zero -> zero, as ``jax_f128.batch_inverse`` (which uses Montgomery's
@@ -339,8 +329,9 @@ def launch_batch_inverse(lib, stream, a: torch.Tensor) -> torch.Tensor:
     kernels.expect(a, a.shape, a.device, "a")
     n = a.shape[-1]
     out = torch.empty_like(a)
-    rc = lib.zk_batch_inverse(kernels.ptr(a), kernels.ptr(out), a.numel() // (NLIMBS * n), n, stream)
-    kernels.check(rc, "zk_batch_inverse")
+    r = a.numel() // (NLIMBS * n)
+    kernels.check(lib.zk_batch_inverse(kernels.ptr(a), kernels.ptr(out), r, n, stream), "zk_batch_inverse")
+    kernels.count("batch_inverse", R=r, N=n)
     return out
 
 
@@ -349,12 +340,8 @@ def batch_inverse(a: torch.Tensor) -> torch.Tensor:
     (``jax_f128.batch_inverse``): the kernel ``csrc/batch_inverse.cu``
     for a CUDA tensor (or it raises), :func:`batch_inverse_plain` for a
     CPU tensor."""
-    global launches
     if a.device.type == "cpu":
         return batch_inverse_plain(a)
     if a.device.type != "cuda":
         raise ValueError(f"batch_inverse: no kernel for device {a.device}")
-    out = launch_batch_inverse(kernels.lib(), kernels.stream_of(a), a.contiguous())
-    launches += 1
-    launches_by_shape[(a.numel() // (NLIMBS * a.shape[-1]), a.shape[-1])] += 1
-    return out
+    return launch_batch_inverse(kernels.lib(), kernels.stream_of(a), a.contiguous())

@@ -17,8 +17,6 @@ card with it.
 
 from __future__ import annotations
 
-import collections
-
 import numpy as np
 import torch
 
@@ -78,11 +76,10 @@ def from_numpy(arr, device="cpu") -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(np.asarray(arr), dtype=np.uint32).view(np.int32)).to(device)
 
 
-uploads = collections.Counter()  # calls of upload in this process, by host memory kind: pinned, pageable
-
-
 def upload(arr, device) -> torch.Tensor:
-    """:func:`from_numpy` for a trace's limbs, counted in :data:`uploads`.
+    """:func:`from_numpy` for a trace's limbs, counted in the launch ledger
+    (``kernels.launched``) as ``upload`` by host memory kind, ``pinned``
+    or ``pageable``.
 
     A contiguous uint32 array in page-locked memory (the native generator's
     on a machine with a card) is copied by an asynchronous DMA on the current
@@ -90,7 +87,7 @@ def upload(arr, device) -> torch.Tensor:
     the copy; any other array by the blocking copy of :func:`from_numpy`."""
     host = from_numpy(arr)  # on the array's own memory where it is contiguous uint32
     kind = "pinned" if host.is_pinned() else "pageable"
-    uploads[kind] += 1
+    kernels.count("upload", kind=kind)
     return host.to(device, non_blocking=kind == "pinned")
 
 
@@ -112,10 +109,6 @@ def ttensor(vals, device="cpu") -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # (C, N, 8) -> (C, 8, N): the kernel csrc/limb_transpose.cu
 # ---------------------------------------------------------------------------
-
-transpose_launches = 0  # launches of zk_limb_transpose in this process
-transpose_launches_by_shape = collections.Counter()  # the same, by (C, N)
-
 
 def limb_transpose_plain(x: torch.Tensor) -> torch.Tensor:
     """(C, N, 8) limbs -> contiguous (C, 8, N): the plain version."""
@@ -143,15 +136,7 @@ def launch_limb_transpose(lib, stream, x: torch.Tensor) -> torch.Tensor:
         raise ValueError("limb_transpose: the limbs must start on a 16-byte boundary")
     out = torch.empty((c, NLIMBS, n), dtype=torch.int32, device=x.device)
     kernels.check(lib.zk_limb_transpose(kernels.ptr(x), kernels.ptr(out), c, n, stream), "zk_limb_transpose")
-    return out
-
-
-def limb_transpose_kernel(lib, stream, x: torch.Tensor) -> torch.Tensor:
-    """:func:`launch_limb_transpose`, counted."""
-    global transpose_launches
-    out = launch_limb_transpose(lib, stream, x)
-    transpose_launches += 1
-    transpose_launches_by_shape[(x.shape[0], x.shape[1])] += 1
+    kernels.count("limb_transpose", C=c, N=n)
     return out
 
 
@@ -164,4 +149,4 @@ def limb_transpose(x: torch.Tensor) -> torch.Tensor:
         return limb_transpose_plain(x)
     if x.device.type != "cuda":
         raise ValueError(f"limb_transpose: no kernel for device {x.device}")
-    return limb_transpose_kernel(kernels.lib(), kernels.stream_of(x), x)
+    return launch_limb_transpose(kernels.lib(), kernels.stream_of(x), x)

@@ -13,8 +13,6 @@ as ``blake3_jax._compress`` does; adds and rotations mask with 0xFFFFFFFF.
 
 from __future__ import annotations
 
-import collections
-
 import torch
 
 from zkvm_torch.hash.blake3 import CHUNK_END, CHUNK_START, IV, MSG_PERMUTATION, ROOT
@@ -88,10 +86,6 @@ def hash_rows_plain(x: torch.Tensor) -> torch.Tensor:
 # kernel K2
 # ---------------------------------------------------------------------------
 
-launches = 0  # launches of the CUDA kernel in this process
-launches_by_shape = collections.Counter()  # the same, by (C, N)
-
-
 def launch_rows(lib, stream, x: torch.Tensor) -> torch.Tensor:
     """Call the K2 entry point of ``lib`` on (C, 8, N) limbs."""
     c, _, n = x.shape
@@ -99,6 +93,7 @@ def launch_rows(lib, stream, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((8, n), dtype=torch.int32, device=x.device)
     rc = lib.zk_blake3_rows(kernels.ptr(x), kernels.ptr(out), c, n, stream)
     kernels.check(rc, "zk_blake3_rows")
+    kernels.count("blake3_rows", C=c, N=n)
     return out
 
 
@@ -108,12 +103,8 @@ def hash_rows_t(x: torch.Tensor) -> torch.Tensor:
     Equal to blake3_jax.hash_rows of the (N, C, 8) view, transposed.  A CPU
     tensor takes the plain version; a CUDA tensor launches the kernel (or
     raises)."""
-    global launches
     if x.device.type == "cpu":
         return hash_rows_plain(x)
     if x.device.type != "cuda":
         raise ValueError(f"row hash: no kernel for device {x.device}")
-    out = launch_rows(kernels.lib(), kernels.stream_of(x), x.contiguous())
-    launches += 1
-    launches_by_shape[(x.shape[0], x.shape[-1])] += 1
-    return out
+    return launch_rows(kernels.lib(), kernels.stream_of(x), x.contiguous())

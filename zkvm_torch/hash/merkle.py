@@ -21,7 +21,6 @@ the reference), with the root and paths of one tree over all the leaves.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 from typing import List, Sequence
 
@@ -66,11 +65,6 @@ def merkle_flat_plain(leaves: torch.Tensor) -> torch.Tensor:
     return heap.transpose(0, 1).to(torch.int32).contiguous()
 
 
-launches = 0  # calls of the CUDA kernel's entry in this process (one a tree)
-# by the tree's leaf count: the kernel launches the entry reported, and the trees
-launches_by_size = collections.Counter()
-trees_by_size = collections.Counter()
-
 # the kernel's counters, per device: int32 zeros that every launch leaves
 # at zero, so trees that follow one another on the device's stream share
 # them (the kernel needs the trees of one device on one stream at a time)
@@ -102,6 +96,7 @@ def launch_heap(lib, stream, leaves_8n: torch.Tensor):
     rc = lib.zk_merkle_heap(kernels.ptr(leaves_8n), kernels.ptr(heap), n, kernels.ptr(scratch), scratch.numel(),
                             ctypes.byref(made), stream)
     kernels.check(rc, "zk_merkle_heap")
+    kernels.count("merkle", made.value, N=n)
     return heap, made.value
 
 
@@ -110,18 +105,12 @@ def merkle_flat(leaves: torch.Tensor) -> torch.Tensor:
     (``blake3_jax.merkle_flat``).  A CPU tensor takes the plain version; a
     CUDA tensor launches the kernel (or raises).  The provers pass the
     transposed view of (8, N) digests, which the kernel reads as it is."""
-    global launches
     if leaves.device.type == "cpu":
         return merkle_flat_plain(leaves)
     if leaves.device.type != "cuda":
         raise ValueError(f"Merkle heap: no kernel for device {leaves.device}")
     leaves_8n = leaves.transpose(0, 1).contiguous()
-    heap, made = launch_heap(kernels.lib(), kernels.stream_of(leaves_8n), leaves_8n)
-    launches += 1
-    n = leaves_8n.shape[-1]
-    launches_by_size[n] += made
-    trees_by_size[n] += 1
-    return heap
+    return launch_heap(kernels.lib(), kernels.stream_of(leaves_8n), leaves_8n)[0]
 
 
 class DeviceMerkleTree:

@@ -8,11 +8,14 @@ in ``zkvm_torch/build/`` under a name keyed by a digest of the sources and
 flags, so an edited source rebuilds and an unchanged one loads at once.
 
 Each C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; :func:`check` raises on anything but 0.
+``cudaGetLastError()``; :func:`check` raises on anything but 0.  Each
+wrapper's launch then adds itself to :data:`launched` by :func:`count`,
+the one launch ledger that ``utils.kernel_health`` reads.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -90,6 +93,16 @@ SIGNATURES = {
     # in (C, N, 8), out (C, 8, N), C, N, stream: the trace's limb transpose
     "zk_limb_transpose": (_P, _P, _I, _L, _P),
 }
+
+# the families of hand-written kernels, one a launch_* wrapper: the names
+# under which they count in :data:`launched`
+FAMILIES = ("ntt_stages", "blake3_rows", "merkle", "composition", "transition", "batch_inverse", "field_ops",
+            "multi_eval", "meval_ladders", "fri_fold", "ladder", "ladder_const", "weighted_sum", "deep_quotient",
+            "limb_transpose")
+# launches in this process by (family, shape), the shape the (name, value)
+# pairs a wrapper gives; beside FAMILIES, "multi_eval_plain" counts the
+# multi-eval's plain version and "upload" a trace's uploads by memory kind
+launched = collections.Counter()
 
 build_seconds = 0.0  # wall time of the last nvcc build in this process
 build_log = ""  # nvcc / ptxas output of that build
@@ -170,6 +183,12 @@ def lib() -> ctypes.CDLL:
 def check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+def count(family: str, times: int = 1, **shape) -> None:
+    """Add ``times`` launches of ``family`` at ``shape`` to :data:`launched`:
+    a wrapper calls it once a launch, after :func:`check`."""
+    launched[family, tuple(shape.items())] += times
 
 
 def ptr(t):

@@ -22,7 +22,6 @@ cached.
 
 from __future__ import annotations
 
-import collections
 import functools
 from typing import NamedTuple
 
@@ -141,13 +140,6 @@ def _ladder_impl(base: torch.Tensor, scale: torch.Tensor, n: int) -> torch.Tenso
     return prod.transpose(0, 1).reshape(8, n)
 
 
-# launches of the ladder kernel's two entries (csrc/fri_fold.cu) in this
-# process, and by (B, n): zk_ladder (device bases and scales) and
-# zk_ladder_const (a base and a scale known on the host)
-ladder_launches = 0
-ladder_launches_by_shape = collections.Counter()
-ladder_const_launches = 0
-ladder_const_launches_by_shape = collections.Counter()
 LADDER_LEVELS = 48  # the tables of the fold and zk_ladder_const: base^(2^e) for e < 48 (kMaxLevels)
 WARP_POWERS = 32  # and base^i for i < 32 (kWarpPowers)
 
@@ -217,18 +209,10 @@ def launch_ladder(lib, stream, base, scale, n: int, x=None) -> torch.Tensor:
     rc = lib.zk_ladder(p(rows_x), xr, xl, p(base), *_limb_strides(base), p(scale), *_limb_strides(scale), p(out),
                        b, n, stream)
     kernels.check(rc, "zk_ladder")
+    kernels.count("ladder", B=b, n=n)
     if x is not None:
         return out.reshape(x.shape) if b == rows_x.shape[0] else out
     return out[0] if base.dim() == 1 and scale.dim() == 1 else out
-
-
-def ladder_kernel(lib, stream, base, scale, n: int, x=None) -> torch.Tensor:
-    """:func:`launch_ladder`, counted."""
-    global ladder_launches
-    out = launch_ladder(lib, stream, base, scale, n, x)
-    ladder_launches += 1
-    ladder_launches_by_shape[(out.numel() // (8 * n), n)] += 1
-    return out
 
 
 def ladder_t(base: torch.Tensor, scale: torch.Tensor, n: int, x=None) -> torch.Tensor:
@@ -241,7 +225,7 @@ def ladder_t(base: torch.Tensor, scale: torch.Tensor, n: int, x=None) -> torch.T
         return ladder_plain(base, scale, n, x)
     if base.device.type != "cuda":
         raise ValueError(f"ladder: no kernel for device {base.device}")
-    return ladder_kernel(kernels.lib(), kernels.stream_of(base), base, scale, n, x)
+    return launch_ladder(kernels.lib(), kernels.stream_of(base), base, scale, n, x)
 
 
 def host_limbs(values, device) -> torch.Tensor:
@@ -305,16 +289,8 @@ def launch_ladder_const(lib, stream, base: int, scale: int, n: int, x=None, devi
     xr, xl = (0, 0) if rows_x is None else (rows_x.stride(0), rows_x.stride(1))
     rc = lib.zk_ladder_const(kernels.ptr(rows_x), xr, xl, ladder_table(base, scale), kernels.ptr(out), b, n, stream)
     kernels.check(rc, "zk_ladder_const")
+    kernels.count("ladder_const", B=b, n=n)
     return out[0] if x is None else out.reshape(x.shape)
-
-
-def ladder_const_kernel(lib, stream, base: int, scale: int, n: int, x=None, device=None) -> torch.Tensor:
-    """:func:`launch_ladder_const`, counted."""
-    global ladder_const_launches
-    out = launch_ladder_const(lib, stream, base, scale, n, x, device)
-    ladder_const_launches += 1
-    ladder_const_launches_by_shape[(out.numel() // (8 * n), n)] += 1
-    return out
 
 
 def ladder_t_host(base: int, n: int, scale: int = 1, device="cpu", x=None) -> torch.Tensor:
@@ -329,7 +305,7 @@ def ladder_t_host(base: int, n: int, scale: int = 1, device="cpu", x=None) -> to
         return ladder_plain(ops[0], ops[1], n, x)
     if dev.type != "cuda":
         raise ValueError(f"ladder: no kernel for device {dev}")
-    return ladder_const_kernel(kernels.lib(), torch.cuda.current_stream(dev).cuda_stream, base, scale, n, x, dev)
+    return launch_ladder_const(kernels.lib(), torch.cuda.current_stream(dev).cuda_stream, base, scale, n, x, dev)
 
 
 def ladders_split(bases: torch.Tensor, n: int, arith: ft.Arith = ft.DISPATCH):
@@ -396,10 +372,6 @@ def _mid_twiddles(n: int, inverse: bool, scaled: bool, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # kernel K1: the stage network along axis -3, natural order in and out
 # ---------------------------------------------------------------------------
-
-# launches of the CUDA kernel in this process, by (M, B, NL, variant)
-launches = collections.Counter()
-
 
 def pack_t(x: torch.Tensor) -> torch.Tensor:
     """(..., 8, L) limbs -> (..., L, 4) int32: each element as the four
@@ -480,6 +452,7 @@ def launch_stages(lib, stream, yb, tw, pre=None, r1=None) -> torch.Tensor:
         kernels.ptr(rs), kernels.ptr(ls), b, m, nl, s, variant, stream,
     )
     kernels.check(rc, "zk_ntt_stages")
+    kernels.count("ntt_stages", M=m, B=b, NL=nl, variant=("plain", "full", "r1")[variant])
     return out
 
 
@@ -495,13 +468,10 @@ def pease_stages(yb, tw, pre=None, r1=None) -> torch.Tensor:
         raise ValueError(f"stage network: no kernel for device {yb.device}")
     contig = lambda t: None if t is None else t.contiguous()
     r1 = None if r1 is None else (contig(r1[0]), contig(r1[1]))
-    out = launch_stages(
+    return launch_stages(
         kernels.lib(), kernels.stream_of(yb), yb.contiguous(), tw.contiguous(),
         contig(pre), r1,
     )
-    b, m, _, nl = yb.shape
-    launches[(m, b, nl, "full" if pre is not None else "r1" if r1 is not None else "plain")] += 1
-    return out
 
 
 # ---------------------------------------------------------------------------

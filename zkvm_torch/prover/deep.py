@@ -22,7 +22,6 @@ every form gives the same values.
 
 from __future__ import annotations
 
-import collections
 from typing import Sequence
 
 import torch
@@ -34,11 +33,6 @@ from zkvm_torch.field.limbs import NLIMBS, tensor
 COLUMN_BLOCK = 4  # columns a plain product
 MAX_K = 4  # weight sets a sum, terms a quotient (csrc/deep.cu kMaxK)
 MAX_WEIGHTS = 128  # K C of a sum (csrc/deep.cu kMaxWeights)
-
-sum_launches = 0  # launches of zk_weighted_sum in this process
-sum_launches_by_shape = collections.Counter()  # the same, by (K, C, N)
-quotient_launches = 0  # launches of zk_deep_quotient in this process
-quotient_launches_by_shape = collections.Counter()  # the same, by (K, N)
 
 
 def _lanes(t: torch.Tensor) -> torch.Tensor:
@@ -93,15 +87,7 @@ def launch_weighted_sum(lib, stream, cols: torch.Tensor, weights: Sequence[Seque
     rc = lib.zk_weighted_sum(kernels.ptr(cols), cols.stride(0), cols.stride(1),
                              kernels.words([v for w in weights for v in w]), kernels.ptr(out), k, c, n, stream)
     kernels.check(rc, "zk_weighted_sum")
-    return out
-
-
-def weighted_sum_kernel(lib, stream, cols, weights, out=None):
-    """:func:`launch_weighted_sum`, counted."""
-    global sum_launches
-    out = launch_weighted_sum(lib, stream, cols, weights, out)
-    sum_launches += 1
-    sum_launches_by_shape[(len(weights), cols.shape[0], cols.shape[-1])] += 1
+    kernels.count("weighted_sum", K=k, C=c, N=n)
     return out
 
 
@@ -116,7 +102,7 @@ def weighted_sum(cols: torch.Tensor, weights: Sequence[Sequence[int]], out=None)
         return sums if out is None else out.copy_(sums)
     if cols.device.type != "cuda":
         raise ValueError(f"weighted_sum: no kernel for device {cols.device}")
-    return weighted_sum_kernel(kernels.lib(), kernels.stream_of(cols), cols, weights, out)
+    return launch_weighted_sum(kernels.lib(), kernels.stream_of(cols), cols, weights, out)
 
 
 # ---------------------------------------------------------------------------
@@ -154,15 +140,7 @@ def launch_deep_quotient(lib, stream, vals: torch.Tensor, at: Sequence[int], inv
     rc = lib.zk_deep_quotient(kernels.ptr(vals), vals.stride(0), vals.stride(1), kernels.ptr(inv), inv.stride(0),
                               inv.stride(1), kernels.words(at), kernels.ptr(out), k, n, stream)
     kernels.check(rc, "zk_deep_quotient")
-    return out
-
-
-def deep_quotient_kernel(lib, stream, vals, at, inv):
-    """:func:`launch_deep_quotient`, counted."""
-    global quotient_launches
-    out = launch_deep_quotient(lib, stream, vals, at, inv)
-    quotient_launches += 1
-    quotient_launches_by_shape[(len(at), vals.shape[-1])] += 1
+    kernels.count("deep_quotient", K=k, N=n)
     return out
 
 
@@ -175,4 +153,4 @@ def deep_quotient(vals: torch.Tensor, at: Sequence[int], inv: torch.Tensor) -> t
         return deep_quotient_plain(vals, tensor(list(at), vals.device), inv)
     if vals.device.type != "cuda":
         raise ValueError(f"deep_quotient: no kernel for device {vals.device}")
-    return deep_quotient_kernel(kernels.lib(), kernels.stream_of(vals), vals, at, inv)
+    return launch_deep_quotient(kernels.lib(), kernels.stream_of(vals), vals, at, inv)

@@ -17,7 +17,6 @@ host-constant ladder (``ntt_t.ladder_t_host``).
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 from typing import List
@@ -89,10 +88,6 @@ def fold_scalars(scale: int, base: int):
     return (ctypes.c_uint32 * len(words))(*words)
 
 
-fold_launches = 0  # launches of the fold kernel (csrc/fri_fold.cu zk_fri_fold) in this process
-fold_launches_by_shape = collections.Counter()  # the same, by n
-
-
 def _fold_checked(v: torch.Tensor) -> int:
     """n of the groups v, after checking what the kernel takes: (FOLD, 8, n)
     int32 limbs, n >= 1.  Runs on every device."""
@@ -113,15 +108,7 @@ def launch_fold(lib, stream, v: torch.Tensor, scale: int, base: int) -> torch.Te
     out = torch.empty((8, n), dtype=torch.int32, device=v.device)
     rc = lib.zk_fri_fold(kernels.ptr(v), kernels.ptr(out), n, fold_scalars(scale, base), stream)
     kernels.check(rc, "zk_fri_fold")
-    return out
-
-
-def fold_kernel(lib, stream, v: torch.Tensor, scale: int, base: int) -> torch.Tensor:
-    """:func:`launch_fold`, counted."""
-    global fold_launches
-    out = launch_fold(lib, stream, v, scale, base)
-    fold_launches += 1
-    fold_launches_by_shape[v.shape[-1]] += 1
+    kernels.count("fri_fold", n=n)
     return out
 
 
@@ -136,7 +123,7 @@ def fold_t(v: torch.Tensor, scale: int, base: int) -> torch.Tensor:
         return fold_plain(v, scale, base)
     if v.device.type != "cuda":
         raise ValueError(f"fri fold: no kernel for device {v.device}")
-    return fold_kernel(kernels.lib(), kernels.stream_of(v), v.contiguous(), scale, base)
+    return launch_fold(kernels.lib(), kernels.stream_of(v), v.contiguous(), scale, base)
 
 
 class FriProverResult:

@@ -27,13 +27,12 @@ anti-diagonal buckets over i + j and the base-2^4 recombination mod p
 happen on the host, and its ladders take the plain arithmetic
 (``f128t.PLAIN``) by name.  On the card it runs only as the kernel's
 yardstick (``chip_smoke.py``, ``kernel_bench.py``), and then launches no
-kernel; ``plain_calls`` counts its calls, so a run can show that no prove
-took it.  The ladder kernel's plain version is :func:`ladders_plain`.
+kernel; each call counts in the launch ledger as ``multi_eval_plain``
+(``kernels.count``), so a run can show that no prove took it.  The ladder kernel's plain version is :func:`ladders_plain`.
 """
 
 from __future__ import annotations
 
-import collections
 from typing import List, NamedTuple, Sequence
 
 import numpy as np
@@ -50,11 +49,6 @@ MAX_T = 1 << 40  # 225 * T stays below 2^53 (exact float64 sums)
 MAX_S = 1 << 15  # the kernel's s32 sums of S products of two bytes, 255^2 S < 2^31
 LADDER_ALIGN = 64  # a ladder byte row's length is a multiple of this (csrc/multi_eval.cu kLdbAlign)
 
-launches = 0  # calls of the multi-eval kernel's entry in this process (two launches each)
-launches_by_shape = collections.Counter()  # the same, by (C, Q, T)
-ladder_launches = 0  # launches of the ladder kernel (one a point set)
-ladder_launches_by_shape = collections.Counter()  # the same, by (Q, T)
-plain_calls = 0  # calls of multi_eval_rows_plain in this process
 
 
 class Ladders(NamedTuple):
@@ -139,8 +133,7 @@ def multi_eval_rows_plain(coeffs_t: torch.Tensor, points: Sequence[int]) -> List
     """The plain version: the ladders by the plain arithmetic, the nibble
     contraction as a float64 product, the buckets and the recombination
     on the host; host ints as rows[q][c]."""
-    global plain_calls
-    plain_calls += 1
+    kernels.count("multi_eval_plain")
     t = coeffs_t.shape[-1]
     if t > MAX_T:
         raise ValueError(f"multi_eval_rows: T={t} exceeds exact float64 range")
@@ -183,6 +176,7 @@ def launch_ladders(lib, stream, bases: torch.Tensor, t: int) -> Ladders:
     cells = torch.empty((q, n2, 4), dtype=torch.int32, device=bases.device)
     p = kernels.ptr
     kernels.check(lib.zk_meval_ladders(p(bases), p(digits), ldb, p(cells), q, s, n2, stream), "zk_meval_ladders")
+    kernels.count("meval_ladders", Q=q, T=t)
     return Ladders(digits, cells, s)
 
 
@@ -217,6 +211,7 @@ def launch_multi_eval(lib, stream, coeffs_t: torch.Tensor, lad: Ladders) -> torc
     rc = lib.zk_multi_eval(p(coeffs_t), p(lad.digits), ldb, p(lad.cells), p(work), slices, p(out), c, q, t, s, n2,
                            stream)
     kernels.check(rc, "zk_multi_eval")
+    kernels.count("multi_eval", C=c, Q=q, T=t)
     return out
 
 
@@ -236,19 +231,14 @@ def evaluate(lib, stream, coeffs_ts: Sequence[torch.Tensor], bases: torch.Tensor
     bases in one launch, then for each coefficient tensor (one T for all)
     its (Q', C, 8) canonical limbs in one multi-eval call at the points of
     its span (``spans``: one (start, stop) a tensor, every point by
-    default; a span reads its rows of the one :class:`Ladders`); counted."""
-    global launches, ladder_launches
+    default; a span reads its rows of the one :class:`Ladders`)."""
     q, t = bases.shape[0], coeffs_ts[0].shape[-1]
     spans = _spans(spans, q, len(coeffs_ts))
     lad = launch_ladders(lib, stream, bases, t)
-    ladder_launches += 1
-    ladder_launches_by_shape[(q, t)] += 1
     outs = []
     for x, (a, b) in zip(coeffs_ts, spans):
         view = lad if (a, b) == (0, q) else Ladders(lad.digits[16 * a:16 * b], lad.cells[a:b], lad.s)
         outs.append(launch_multi_eval(lib, stream, x, view))
-        launches += 1
-        launches_by_shape[(x.shape[0], b - a, t)] += 1
     return outs
 
 
