@@ -15,7 +15,10 @@ Phases, each printing one JSON line:
       instructions of the f128 multiply zk::mul32, counted from its probe
       kernel by cuobjdump, and the opcodes of K2 and the Merkle kernels
       (each BLAKE3 rotation one PRMT or SHF);
-  (c) kernels: K1 (NTT stage network, natural row order in and out), K2
+  (c) kernels: K1 (NTT stage network, natural row order in and out) at
+      every launch of the main paths' transforms, on the strided views the
+      prover launches on (kernel_bench's K1_*TRANSFORMS and k1_passes:
+      each side walking its unit-stride rows or lanes), K2
       (BLAKE3 rows), the Merkle heap, K3 (composition) and K4 (merged
       transition) against their plain PyTorch versions on the card, at the
       main paths' shapes,
@@ -42,7 +45,8 @@ Phases, each printing one JSON line:
       launches of the coset LDE of 28 columns, K2 at C = 28 and 8 over 2^23
       lanes, K4 over the 2^23-row domain at step 8 and the batch inverse at
       (3, 8, 2^23) and (2, 8, 2^23), each over the whole input, its plain
-      version on windows of it (K1's first and last batch rows, three
+      version on windows of it (K1's first and last rows of each batch
+      axis and its first lanes, three
       windows of lanes, K4's first and last 2^16 output rows with the
       wrap), inputs drawn on the card; every yardstick above runs the
       plain arithmetic (f128t's *_plain) by name, and the field-op kernel
@@ -192,8 +196,9 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from kernel_bench import (BINV_CASES, BINV_MONO_CASES, K1_CASES, K1_DIST_CASES, K1_LARGE_CASES,  # noqa: E402
-                          K1_MONO_CASES, K2_CASES, K2_DIST_CASES, K2_LARGE_CASES, K2_MONO_CASES, K3_LARGE_T, LT_CASES,
+from kernel_bench import (BINV_CASES, BINV_MONO_CASES, K1_DIST_TRANSFORMS, K1_LARGE_TRANSFORMS,  # noqa: E402
+                          K1_MONO_TRANSFORMS, K1_TRANSFORMS, k1_case, k1_passes,
+                          K2_CASES, K2_DIST_CASES, K2_LARGE_CASES, K2_MONO_CASES, K3_LARGE_T, LT_CASES,
                           MERKLE_CASES, MERKLE_DIST_CASES, MERKLE_LARGE_CASES, MEVAL_CASES, MLAD_CASES, MONO_T,
                           air_calls, air_cases, binv_name, capture_entry, clock_ms, cuda_ms, fop_calls, fop_cases,
                           fop_name, fri_deep_cases, meval_name, meval_operands, meval_plain_t, meval_points,
@@ -465,14 +470,15 @@ def phase_build():
           "sqr32_probe_sass": {"total": sum(sqr_ops.values()), "opcodes": sqr_ops}, "hash_sass": hash_ops})
 
 
-def _k1_work(b, m, nl, variant):
-    """Bytes and operations of one stage-network call on (B, M, 8, NL); the
-    stage twiddles and the full premultiplier come packed, 16 bytes each."""
+def _k1_work(b, m, nl, variant, pre_cells=0):
+    """Bytes and operations of one stage-network call over B x M x NL
+    elements; the stage twiddles and the full premultiplier (its
+    ``pre_cells`` distinct elements) come packed, 16 bytes each."""
     elems = b * m * nl
     nbytes = 2 * elems * LIMB_BYTES + (m.bit_length() - 1) * (m // 2) * PACKED_BYTES
     ops = (elems // 2) * (m.bit_length() - 1) * (OPS_MUL + 2 * OPS_ADD)  # butterflies
     if variant == "full":
-        nbytes += m * nl * PACKED_BYTES
+        nbytes += pre_cells * PACKED_BYTES
         ops += elems * OPS_MUL
     elif variant == "r1":
         nbytes += (m + nl) * LIMB_BYTES
@@ -490,13 +496,30 @@ def _air_work(kind, args, host):
     return n * 29 * LIMB_BYTES, n * (K4_MULS * OPS_MUL + K4_ADDS * OPS_ADD)
 
 
-def k1_plain(y, tw, pre, r1, elems=1 << 22):
-    """K1's plain version over slices of y along B of about ``elems``
-    elements (its int64 transients are ~50 bytes an input byte), joined:
-    the same values at the 2^20-row path's shapes within the card's
-    memory."""
-    step = max(1, elems // (y.shape[1] * y.shape[3]))
-    return torch.cat([nt.stages_plain(y[i:i + step], tw, pre=pre, r1=r1) for i in range(0, y.shape[0], step)])
+def k1_compare(transform, i, rec, seed, elems=1 << 22):
+    """Pass ``i`` of a transform (kernel_bench.k1_passes) on the card, on
+    strided views of the recorded geometry drawn from ``seed``, against
+    K1's plain version on windows of it: the first and last rows of each
+    batch axis and the first lanes, about ``elems`` elements (the plain
+    version's int64 transients are ~50 bytes an input byte)."""
+    name, y, tw, pre, r1, out = k1_case(nt, transform, i, rec, DEV, seed)
+    b1, b2, m, _, nl = nt._sizes5(y).shape
+    i1, i2 = sorted({0, b1 - 1}), sorted({0, b2 - 1})
+    lanes = max(1, min(nl, elems // (len(i1) * len(i2) * m)))
+    pick = lambda t: nt._sizes5(t)[i1][:, i2][..., :lanes]
+    variant, pre_cells, pw, rw = "plain", 0, None, None
+    if pre is not None:
+        variant, full = "full", pre.expand(b1, b2, m, nl, 4)
+        pre_cells = int(np.prod([n for n, st in zip(full.shape[:4], full.stride()[:4]) if st]))
+        pw = full[i1][:, i2][..., :lanes, :]
+    elif r1 is not None:
+        variant, rw = "r1", (r1[0], r1[1][:, :lanes].contiguous())
+    res = compare(name, lambda: nt.pease_stages(y, tw, pre=pre, r1=r1, out=out),
+                  lambda: nt.stages_plain(pick(y), tw, pw, rw), *_k1_work(b1 * b2, m, nl, variant, pre_cells),
+                  plain_reps=0, windows=(f"batch rows {i1} x {i2}, lanes [0, {lanes})", pick))
+    del y, out, pw, rw
+    torch.cuda.empty_cache()
+    return res
 
 
 def phase_kernels():
@@ -505,27 +528,13 @@ def phase_kernels():
     # the yardsticks below run the plain arithmetic by name: across them
     # the field-op kernel must not launch
     field_ops_before = kernel_health.launches()["field_ops"]
-    # K1 at the main paths' axes: M = 8 (FRI fold, D/8 lanes), 256 (both
-    # passes of every T = 2^16 transform, 28 columns), 512 (pass 2 of the
-    # size-2^19 transforms: the composition iNTT, and the mono coset LDE of
-    # the 28 trace columns), 32 (both passes of that LDE's size-1024 pass 1,
-    # over 28 x 512 rows); then the 2^20-row path's (K1_LARGE_CASES)
-    k1 = []
-    for m, b, nl, variants in K1_CASES + K1_LARGE_CASES + K1_DIST_CASES:
-        tw = nt._stage_twiddles_dev(m, False, DEV)
-        y = rand_limbs(rng, (b, m, 8, nl))
-        for variant in variants:
-            pre = nt.pack_t(rand_limbs(rng, (m, 8, nl), pair=1)) if variant == "full" else None
-            r1 = None
-            if variant == "r1":
-                r1 = (rand_limbs(rng, (8, m), pair=1), rand_limbs(rng, (8, nl), pair=1))
-            k1.append(compare(
-                f"K1 M={m} B={b} NL={nl} {variant}",
-                lambda: nt.pease_stages(y, tw, pre=pre, r1=r1),
-                lambda: k1_plain(y, tw, pre, r1),
-                *_k1_work(b, m, nl, variant), plain_reps=1,
-            ))
-    results["ntt_stages"] = dict(k1[5], max_abs_err=max(r["max_abs_err"] for r in k1))  # M=256 r1
+    # K1 at every launch of the main paths' transforms, on the strided
+    # views the prover launches on: T = 2^16 (K1_TRANSFORMS), the 2^20-row
+    # path's (K1_LARGE_TRANSFORMS) and the sharded path's
+    k1 = [k1_compare(transform, i, rec, seed=i)
+          for transform in K1_TRANSFORMS + K1_LARGE_TRANSFORMS + K1_DIST_TRANSFORMS
+          for i, rec in enumerate(k1_passes(nt, *transform, DEV))]
+    results["ntt_stages"] = dict(k1[0], max_abs_err=max(r["max_abs_err"] for r in k1))  # 2^16 class NTT, pass 1
     # zk::mul32 alone: every pair of edge values, then random pairs
     a, b = rand_limbs(rng, (8, 1 << 16)), rand_limbs(rng, (8, 1 << 16), pair=1)
     pa, pb = nt.pack_t(a), nt.pack_t(b)  # held until the kernel has run
@@ -692,20 +701,9 @@ def mono_kernels():
     seeds = itertools.count(2026)
     lib = kernels.lib()
     out = {"ntt_stages": [], "blake3_rows": [], "transition": [], "batch_inverse": []}
-    for m, b, nl, variants in K1_MONO_CASES:
-        tw = nt._stage_twiddles_dev(m, False, DEV)
-        y = dev_limbs(next(seeds), (b, m, 8, nl))
-        w = max(1, min(b // 2, (1 << 22) // (m * nl)))  # batch rows a window: ~2^22 elements
-        pick = lambda o: torch.cat([o[:w], o[-w:]])
-        for variant in variants:
-            pre = nt.pack_t(dev_limbs(next(seeds), (m, 8, nl))) if variant == "full" else None
-            r1 = (dev_limbs(next(seeds), (8, m)), dev_limbs(next(seeds), (8, nl))) if variant == "r1" else None
-            out["ntt_stages"].append(compare(
-                f"K1 M={m} B={b} NL={nl} {variant}", lambda: nt.pease_stages(y, tw, pre=pre, r1=r1),
-                lambda: k1_plain(pick(y), tw, pre, r1), *_k1_work(b, m, nl, variant), plain_reps=0,
-                windows=(f"batch rows [0, {w}), [{b - w}, {b})", pick)))
-        del y, pre, r1
-        torch.cuda.empty_cache()
+    for transform in K1_MONO_TRANSFORMS:
+        for i, rec in enumerate(k1_passes(nt, *transform, DEV)):
+            out["ntt_stages"].append(k1_compare(transform, i, rec, seed=next(seeds)))
     for c, n in K2_MONO_CASES:
         x = dev_limbs(next(seeds), (c, 8, n))
         desc, idx = lane_windows(n)
@@ -752,12 +750,12 @@ def _fop_work(op, a, b, out):
 
 
 def _fop_patterns():
-    """The broadcast and strided operands of the main paths beside
-    kernel_bench.FOP_CASES, as (op, make) with make(limbs) -> (a, b): the
-    multi-eval's ladders_join at the queries' 32 points over T = 2^16
-    ((Q, N2, 8, 1) x (Q, 1, 8, S), stride 0 along the lanes and along a
-    batch axis), and the class scale of ntt_t.scale_by_ladder_t on a
-    transposed (C, N2, 8, N1) view of 28 columns at T = 2^16."""
+    """The broadcast and strided operands beside kernel_bench.FOP_CASES,
+    as (op, make) with make(limbs) -> (a, b): the multi-eval's
+    ladders_join at the queries' 32 points over T = 2^16 ((Q, N2, 8, 1) x
+    (Q, 1, 8, S), stride 0 along the lanes and along a batch axis), and a
+    lane ladder times a transposed (C, N2, 8, N1) view of 28 columns at T
+    = 2^16 (a strided operand with a broadcast one)."""
     yield "mul", lambda limbs: (limbs((32, 8, 256)).transpose(-1, -2)[:, :, :, None], limbs((32, 8, 256))[:, None])
     yield "mul", lambda limbs: (limbs((28, 8, 256, 256)).transpose(-3, -2), limbs((8, 256)))
 

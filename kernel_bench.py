@@ -12,12 +12,12 @@ The first form times, at the cases of chip_smoke.py's phase (c), the
 calls of the ``zkvm_torch`` package found in DIR (default: this checkout)
 from the call the prover makes down to the C entry point:
 
-  K1 (zkvm_torch/csrc/ntt_stages.cu):
-    axis     ``ntt_t._axis_ntt`` (natural order in and out; with any layout
-             gathers the tree does around the kernel),
+  K1 (zkvm_torch/csrc/ntt_stages.cu), at each launch of the transforms
+  of K1_TRANSFORMS, on strided views of the geometry the prover launches
+  on (k1_passes; a tree whose K1 takes no strided views cannot run them):
     wrapper  ``ntt_t.pease_stages``,
-    launch   ``ntt_t.launch_stages`` (the input checks and the C call),
-    entry    the C entry point ``zk_ntt_stages`` alone;
+    launch   ``ntt_t.launch_stages`` (the input checks, the walks and the
+             C call);
   K2 (blake3_rows.cu), K3 (composition.cu), K4 (transition.cu), the
   Merkle heap (merkle.cu) and the batch inverse (batch_inverse.cu, BINV):
     wrapper  ``blake3_t.hash_rows_t`` / ``composition.composition_t`` /
@@ -73,9 +73,9 @@ from the call the prover makes down to the C entry point:
   The Merkle heap's cases are MERKLE_CASES and the sharded path's
   MERKLE_DIST_CASES.
   ``--large`` takes the cases of the 2^20-row path instead: T-mode's and
-  cls's (K1_LARGE_CASES, K2_LARGE_CASES, K3 and K4's class shape at
+  cls's (K1_LARGE_TRANSFORMS, K2_LARGE_CASES, K3 and K4's class shape at
   K3_LARGE_T, MERKLE_LARGE_CASES) and mono's over the whole D = 2^23
-  domain (K1_MONO_CASES, K2_MONO_CASES, K4's mono shape at N = 2^23, step
+  domain (K1_MONO_TRANSFORMS, K2_MONO_CASES, K4's mono shape at N = 2^23, step
   8, and the batch inverse's BINV_MONO_CASES); where a tree other than
   this checkout refuses the Merkle heap at 2^23 leaves (the parent of the
   three-level heap), each refused call prints its error; any other error
@@ -139,30 +139,31 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# K1's cases in chip_smoke.py's phase (c): (M, B, NL, variants), the axes of
-# the main paths (see there)
-ALL3 = ("plain", "full", "r1")
-K1_CASES = [(8, 1, 1 << 16, ALL3), (256, 28, 256, ALL3), (512, 1, 1024, ALL3),
-            (512, 28, 1024, ("full",)), (32, 28 * 512, 32, ("plain", "full"))]
-# K1 at the axes of the 2^20-row path (zkvm_torch.examples.prove_lr_large):
-# the class NTTs at T = 2^20 recurse (pass 1's 2048 = 32 x 64, then pass
-# 2's 512 over 2048 lanes), over blocks of 7 trace columns (7 x 512 rows),
-# the 8 composition columns, all 28 columns (the trace iNTT) and the one
-# DEEP column; the size-2^23 composition iNTT (128 x 128 over 512 rows,
-# then 512 over 2^14 lanes) and the first FRI fold
-K1_LARGE_CASES = [(32, 7 * 512, 64, ("plain",)), (64, 7 * 512, 32, ("full",)), (512, 7, 2048, ("full",)),
-                  (32, 8 * 512, 64, ("plain",)), (64, 8 * 512, 32, ("full",)), (512, 8, 2048, ("full",)),
-                  (32, 28 * 512, 64, ("plain",)), (64, 28 * 512, 32, ("full",)), (512, 28, 2048, ("full",)),
-                  (128, 512, 128, ("plain", "full")), (512, 1, 1 << 14, ("full",)), (8, 1, 1 << 20, ("plain",))]
-# K1 on the sharded mono path (zkvm_torch.dist.ntt_dist) at T = 2^16: the
-# P-point NTTs along the ranks' axis M = P, over L / P lanes (L = D / P) of
-# the trace LDE's 28 columns at P = 2 and 4, and of the composition LDE's 8
-# at P = 4; the first pass of the trace LDE's L-point NTT with the rank's
-# twiddles as its premultiplier (r1) at P = 2 (512 x 512) and 4 (256 x 512)
-K1_DIST_CASES = [(2, 28, 1 << 17, ("plain",)), (4, 28, 1 << 16, ("plain",)), (4, 8, 1 << 16, ("plain",)),
-                 (512, 28, 512, ("r1",)), (256, 28, 512, ("r1",))]
-K1_SWEEP_CASES = [(256, 28, 256, "r1"), (256, 8, 256, "full"), (512, 28, 1024, "full"),
-                  (32, 28 * 512, 32, "full"), (8, 1, 1 << 16, "plain"), (512, 1, 1024, "full")]
+# K1's cases in chip_smoke.py's phase (c): the launches of the main paths'
+# transforms, as the prover makes them (each a strided view of the input,
+# one intermediate or the output; k1_passes records them): (kind, columns,
+# N), kind "ntt", "intt", "class" (a coset scale on the first launch), "lde"
+# (the coset LDE of N / 8 coefficients, blowup 8) or "axisP" (the sharded
+# NTT's P-point transform along the ranks' axis of an all_to_all's view of
+# a (columns, 8, N) block).  At T = 2^16: the 28 trace columns' class NTT
+# (256 x 256) and iNTT, the three DEEP columns' class NTT, the size-2^19
+# composition iNTT (1024 x 512: pass 1 recurses, 32 x 32), and mono's
+# coset LDEs of the 28 trace and the 8 composition columns to D = 2^19
+# (the same three passes, the offset ladder on the first)
+K1_TRANSFORMS = [("class", 28, 1 << 16), ("intt", 28, 1 << 16), ("class", 3, 1 << 16), ("intt", 1, 1 << 19),
+                 ("lde", 28, 1 << 19), ("lde", 8, 1 << 19)]
+# the 2^20-row path (zkvm_torch.examples.prove_lr_large): the class NTTs
+# recurse (pass 1's 2048 = 32 x 64, then 512 over 2048 lanes), over blocks
+# of 7 trace columns, the 8 composition columns, all 28 (the trace iNTT);
+# the size-2^23 composition iNTT (128 x 128, then 512 over 2^14 lanes)
+K1_LARGE_TRANSFORMS = [("class", 7, 1 << 20), ("class", 8, 1 << 20), ("intt", 28, 1 << 20), ("intt", 1, 1 << 23)]
+# the sharded mono path (zkvm_torch.dist.ntt_dist) at T = 2^16: the P-point
+# NTTs along the ranks' axis of the trace LDE's 28 columns at P = 2 and 4
+# (a rank's block of D / P lanes) and of the composition LDE's 8 at P = 4;
+# a rank's local transform with its twiddles as the scale, at P = 2 and 4
+K1_DIST_TRANSFORMS = [("axis2", 28, 1 << 18), ("axis4", 28, 1 << 17), ("axis4", 8, 1 << 17),
+                      ("class", 28, 1 << 18), ("class", 28, 1 << 17)]
+K1_SWEEP_TRANSFORMS = [("class", 28, 1 << 16), ("class", 7, 1 << 20)]
 # The other launch shapes of each kernel, as -D defines; the first of each
 # list is the shipped default.  K1: (tile, lanes, butterflies per thread).
 # K3 / K4: threads per block, the blocks per SM that __launch_bounds__
@@ -184,13 +185,13 @@ MERKLE_CASES = [1 << 19, 1 << 16, 1 << 13, 1 << 10]
 K2_LARGE_CASES = [(28, 1 << 20), (8, 1 << 20)]
 K3_LARGE_T = 1 << 20
 MERKLE_LARGE_CASES = [1 << 23, 1 << 20]
-# mono at T = 2^20 (D = 2^23): K1 at the launches of the coset LDE of the
-# 28 trace columns (pass 1 recurses: 128 x 128 over 28 x 512 rows, the
-# offset ladder its premultiplier (r1), then its mid twiddles (full); pass
-# 2's 512 over 2^14 lanes); K2 over the trace (C = 28) and composition
-# (C = 8) rows of 2^23 lanes; the batch inverse of the DEEP (3, 8, D) and
-# of the constants (2, 8, D); K4's mono shape at MONO_T (N = 8 MONO_T)
-K1_MONO_CASES = [(128, 28 * 512, 128, ("r1", "full")), (512, 28, 1 << 14, ("full",))]
+# mono at T = 2^20 (D = 2^23): K1 at the launches of the coset LDEs of the
+# 28 trace and the 8 composition columns (pass 1 recurses: 128 x 128 with
+# the offset ladder on its first launch, then 512 over 2^14 lanes); K2 over the trace (C = 28)
+# and composition (C = 8) rows of 2^23 lanes; the batch inverse of the DEEP
+# (3, 8, D) and of the constants (2, 8, D); K4's mono shape at MONO_T (N = 8
+# MONO_T)
+K1_MONO_TRANSFORMS = [("lde", 28, 1 << 23), ("lde", 8, 1 << 23)]
 K2_MONO_CASES = [(28, 1 << 23), (8, 1 << 23)]
 BINV_MONO_CASES = [(3, 8, 1 << 23), (2, 8, 1 << 23)]
 MONO_T = 1 << 20
@@ -691,32 +692,23 @@ def bench_tree(tree, label, only, reps=20, large=False):
     rng = np.random.default_rng(20261017)
     limbs = lambda shape: _limbs(rng, shape, dev)
     if large:
-        k1_cases = K1_LARGE_CASES + K1_MONO_CASES
+        k1_cases = K1_LARGE_TRANSFORMS + K1_MONO_TRANSFORMS
         hashes = hash_cases(rng, dev, K2_LARGE_CASES + K2_MONO_CASES, MERKLE_LARGE_CASES)
         airs = itertools.chain(air_cases(limbs, dev, K3_LARGE_T, ("class",)),
                                air_cases(limbs, dev, MONO_T, ("mono",), k3=False))
     else:
-        k1_cases, airs = K1_CASES, air_cases(limbs, dev)
+        k1_cases, airs = K1_TRANSFORMS, air_cases(limbs, dev)
         hashes = hash_cases(rng, dev, merkle=MERKLE_CASES + MERKLE_DIST_CASES)
-    for m, b, nl, variants in k1_cases if "K1" in only else []:
-        for variant in variants:
-            y, tw, pre, r1 = _k1_inputs(nt, rng, m, b, nl, variant, dev)
-            rs, ls = r1 if r1 is not None else (None, None)
-            out = torch.empty_like(y)
-            args = [kernels.ptr(t) for t in (y, out, tw, pre, rs, ls)]
-            args += [b, m, nl, m.bit_length() - 1, ("plain", "full", "r1").index(variant), stream]
-            calls = {
-                "axis": lambda: nt._axis_ntt(y, m, False, pre=pre, r1=r1),
-                "wrapper": lambda: nt.pease_stages(y, tw, pre=pre, r1=r1),
-                "launch": lambda: nt.launch_stages(lib, stream, y, tw, pre, r1),
-                "entry": lambda: kernels.check(lib.zk_ntt_stages(*args), "zk_ntt_stages"),
-            }
+    for transform in k1_cases if "K1" in only else []:
+        for i, rec in enumerate(k1_passes(nt, *transform, dev)):
+            name, y, tw, pre, r1, out = k1_case(nt, transform, i, rec, dev, seed=i)
+            calls = {"wrapper": lambda: nt.pease_stages(y, tw, pre=pre, r1=r1, out=out),
+                     "launch": lambda: nt.launch_stages(lib, stream, y, tw, pre, r1, out)}
             for level, fn in calls.items():
                 ms, host_ms = cuda_ms(fn, reps)
                 rate = [cuda_ms(fn, reps, spin=False)[0] for _ in range(3)]
-                _emit({"tree": label, "case": f"K1 M={m} B={b} NL={nl} {variant}", "level": level,
-                       "ms": ms, "host_ms": host_ms, "rate_ms": rate})
-            del y, out, pre, r1, rs, ls, args
+                _emit({"tree": label, "case": name, "level": level, "ms": ms, "host_ms": host_ms, "rate_ms": rate})
+            del y, out, pre, r1
             torch.cuda.empty_cache()
     for name, kind, args in hashes:
         if kind not in only:
@@ -833,18 +825,68 @@ def bench_tree(tree, label, only, reps=20, large=False):
         torch.cuda.empty_cache()
 
 
-def _k1_inputs(nt, rng, m, b, nl, variant, dev):
-    """y, stage twiddles, pre and r1 in the tree's own formats (the full
-    premultiplier is packed where the tree has ``pack_t``)."""
-    y = _limbs(rng, (b, m, 8, nl), dev)
-    tw = nt._stage_twiddles_dev(m, False, dev)
-    pre = r1 = None
-    if variant == "full":
-        pre = _limbs(rng, (m, 8, nl), dev)
-        pre = nt.pack_t(pre) if hasattr(nt, "pack_t") else pre
-    elif variant == "r1":
-        r1 = (_limbs(rng, (8, m), dev), _limbs(rng, (8, nl), dev))
-    return y, tw, pre, r1
+def _geometry(t):
+    """(shape, strides, storage offset, storage elements) of a view."""
+    return tuple(t.shape), t.stride(), t.storage_offset(), t.untyped_storage().nbytes() // t.element_size()
+
+
+def k1_passes(nt, kind, cols, n, dev):
+    """The K1 launches of one transform (a K1_TRANSFORMS entry) on ``dev``,
+    as the tree's wrapper makes them, without running them: (M, y, tw, pre,
+    r1, out), y and out as :func:`_geometry` of the views launched on; the
+    constants as built."""
+    calls = []
+
+    def record(y, tw, pre=None, r1=None, out=None):
+        out = torch.empty_like(y) if out is None else out
+        calls.append((y.shape[-3], _geometry(y), tw, pre, r1, _geometry(out)))
+        return out
+
+    saved = nt.pease_stages
+    nt.pease_stages = record
+    try:
+        x = torch.empty((cols, 8, n // 8 if kind == "lde" else n), dtype=torch.int32, device=dev)
+        if kind.startswith("axis"):
+            p = int(kind[4:])
+            nt._axis_ntt(torch.empty((p, cols, 8, n // p), dtype=torch.int32, device=dev).movedim(0, -3), p, False)
+        else:
+            {"ntt": nt.ntt_t, "intt": nt.intt_t, "class": lambda v: nt.class_ntt_t(v, 7),
+             "lde": lambda v: nt.coset_lde_t(v, 8)}[kind](x)
+        del x
+    finally:
+        nt.pease_stages = saved
+    return calls
+
+
+def _strided(geometry, dev, seed=None):
+    """A view of the given geometry over a new buffer: random canonical
+    limbs drawn on the card from ``seed``, else empty."""
+    shape, stride, offset, size = geometry
+    if seed is None:
+        buf = torch.empty(size, dtype=torch.int32, device=dev)
+    else:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        buf = torch.randint(0, 1 << 16, (size,), generator=gen, device=dev, dtype=torch.int32)
+    view = buf.as_strided(shape, stride, offset)
+    if seed is not None:
+        view[..., 7, :] %= 0xFFFF  # below p
+    return view
+
+
+def k1_case(nt, transform, i, rec, dev, seed=0):
+    """(name, y, tw, pre, r1, out) of pass ``i`` of a transform, its input
+    drawn from ``seed`` on buffers of the recorded geometry."""
+    m, gy, tw, pre, r1, go = rec
+    kind, cols, n = transform
+    shape = gy[0]
+    b = int(np.prod(shape[:-3]))
+    variant = "full" if pre is not None else "r1" if r1 is not None else "plain"
+    y, out = _strided(gy, dev, seed), _strided(go, dev)
+    walk = lambda t: nt._walk(nt._sizes5(t))
+    name = (f"K1 {kind} C={cols} N={n} pass {i}: M={m} B={b} NL={shape[-1]} {variant} "
+            f"load={walk(y)} store={walk(out)}")
+    return name, y, tw, pre, r1, out
 
 
 def _build_sweep(kernels, kernel):
@@ -891,10 +933,12 @@ def sweep(tree, label, kernels_to_sweep, reps=20):
         shapes = SWEEPS[kernel][2]
         if kernel == "K1":
             cases = []
-            for m, b, nl, variant in K1_SWEEP_CASES:
-                y, tw, pre, r1 = _k1_inputs(nt, rng, m, b, nl, variant, dev)
-                cases.append((f"K1 M={m} B={b} NL={nl} {variant}", nt.stages_plain(y, tw, pre, r1),
-                              lambda lib, y=y, tw=tw, pre=pre, r1=r1: nt.launch_stages(lib, stream, y, tw, pre, r1)))
+            for transform in K1_SWEEP_TRANSFORMS:
+                for i, rec in enumerate(k1_passes(nt, *transform, dev)):
+                    name, y, tw, pre, r1, out = k1_case(nt, transform, i, rec, dev, seed=i)
+                    cases.append((name, nt.stages_plain(y, tw, pre, r1),
+                                  lambda lib, y=y, tw=tw, pre=pre, r1=r1, out=out:
+                                  nt.launch_stages(lib, stream, y, tw, pre, r1, out)))
         elif kernel in ("K2", "Merkle"):
             _, plain, launch = hash_calls(kernel)
             # this tree's Merkle launch returns the heap and the launches it made

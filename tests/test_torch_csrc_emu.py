@@ -111,6 +111,147 @@ def test_ntt_stages_emulated(emu, m, nl, variant, inverse):
     np.testing.assert_array_equal(to_numpy(got), to_numpy(want))
 
 
+def _laid_out(vals, order, offset=0):
+    """A view equal to ``vals`` (B1, B2, M, 8, NL) whose buffer holds its
+    axes in ``order`` (the last unit-stride), starting ``offset`` elements
+    into the buffer (an offset of 1 or 2 takes the kernel's 4- and 8-byte
+    accesses)."""
+    buf = torch.zeros(offset + vals.numel(), dtype=torch.int32)[offset:]
+    view = buf.view([vals.shape[i] for i in order]).permute(*np.argsort(order).tolist())
+    return view.copy_(vals)
+
+
+_ROWS_LAST, _LANES_LAST = (0, 3, 4, 1, 2), (1, 3, 2, 0, 4)  # memory orders: rows or lanes unit-stride
+# (M, B1, B2, NL, load, store, premultiplier, offset): every S from 1 to 9;
+# rows and lanes unit-stride on each side; two batch axes; the full
+# premultiplier by (row, lane) and by (row, batch), the rank-1 one; aligned
+# and unaligned pointers; fewer lanes than a quarter-warp
+_STRIDED = [
+    (2, 3, 1, 8, "rows", "lanes", "plain", 0), (4, 1, 3, 16, "lanes", "rows", "row_lane", 0),
+    (8, 2, 2, 4, "rows", "rows", "r1", 0), (16, 2, 3, 8, "lanes", "lanes", "row_batch", 1),
+    (32, 1, 2, 64, "rows", "lanes", "row_batch", 0), (64, 2, 1, 32, "rows", "rows", "row_lane", 2),
+    (128, 1, 1, 16, "lanes", "rows", "r1", 0), (256, 1, 2, 8, "rows", "lanes", "row_lane", 0),
+    (512, 1, 1, 8, "rows", "lanes", "row_lane", 0), (512, 2, 1, 1, "rows", "rows", "plain", 0),
+    (4, 1, 1, 2, "rows", "lanes", "plain", 1), (32, 2, 3, 2, "lanes", "rows", "row_batch", 0),
+    (8, 3, 2, 16, "rows", "rows", "row_batch", 2), (64, 1, 2, 16, "lanes", "rows", "plain", 1),
+]
+
+
+@pytest.mark.parametrize("m,b1,b2,nl,load,store,pre_by,offset", _STRIDED)
+def test_ntt_stages_strided_emulated(emu, monkeypatch, m, b1, b2, nl, load, store, pre_by, offset):
+    """K1 reading and writing strided views, each side walking its
+    unit-stride axis, equals its plain version on the same views exactly,
+    counts the walks in the ledger and copies nothing."""
+    ledger = collections.Counter()
+    monkeypatch.setattr(kernels, "launched", ledger)
+    rng = np.random.default_rng(m * 7 + nl + b2)
+    order = {"rows": _ROWS_LAST, "lanes": _LANES_LAST}
+    vals = from_numpy(rand_limbs(rng, (b1, b2, m, 8, nl)))
+    y = _laid_out(vals, order[load], offset)
+    tw = tnt._stage_twiddles_dev(m, m % 3 == 1, torch.device("cpu"))
+    pre = r1 = None
+    if pre_by == "row_lane":
+        pre = tnt.pack_t(from_numpy(rand_limbs(rng, (m, 8, nl))))  # (M, NL, 4)
+    elif pre_by == "row_batch":
+        pre = tnt.pack_t(from_numpy(rand_limbs(rng, (b2, 8, m))))[None, :, :, None]  # (1, B2, M, 1, 4)
+    elif pre_by == "r1":
+        r1 = (from_numpy(rand_limbs(rng, (8, m))), from_numpy(rand_limbs(rng, (8, nl))))
+    out = _laid_out(torch.zeros_like(vals), order[store], offset)
+    got = tnt.launch_stages(emu, 0, y, tw, pre=pre, r1=r1, out=out)
+    assert got is out
+    want = tnt.stages_plain(vals, tw, pre, r1)
+    np.testing.assert_array_equal(to_numpy(out), to_numpy(want))
+    variant = {"plain": "plain", "r1": "r1"}.get(pre_by, "full")
+    walk = lambda side: "lanes" if nl == 1 and side == "lanes" else side
+    assert ledger == {("ntt_stages", (("M", m), ("B", b1 * b2), ("NL", nl), ("variant", variant),
+                                      ("load", walk(load)), ("store", walk(store)))): 1}
+
+
+@pytest.mark.parametrize("side", ["y", "out", "pre"])
+def test_ntt_stages_refuses_a_block_past_32_bit_offsets(emu, side):
+    """K1's offsets inside a tile are 32-bit: the entry refuses a batch's
+    block of y, out or pre that spans 2^31 elements, before any launch,
+    and takes the same block one row shorter."""
+    m, nl = 4, 8
+    y, out = torch.zeros((m, 8, nl), dtype=torch.int32), torch.zeros((m, 8, nl), dtype=torch.int32)
+    tw = tnt._stage_twiddles_dev(m, False, torch.device("cpu"))
+    pre = tnt.pack_t(torch.zeros((m, 8, nl), dtype=torch.int32))
+    longs = lambda v: (ctypes.c_long * len(v))(*v)
+
+    def call(row):  # the row stride of one side; the launch reads nothing past (M, 8, NL) otherwise
+        ys, os_, ps = [0, 0, 8 * nl, nl, 1], [0, 0, 8 * nl, nl, 1], [0, 0, nl, 1]
+        {"y": ys, "out": os_, "pre": ps}[side][2] = row
+        return emu.zk_ntt_stages(kernels.ptr(y), longs(ys), kernels.ptr(out), longs(os_), kernels.ptr(tw),
+                                 kernels.ptr(pre), longs(ps), None, None, 1, 1, m, nl, 2, 1, 0, None)
+
+    limit = 1 << 31
+    assert call(-(-limit // (m - 1))) == -1  # (M - 1) rows reach 2^31
+    assert call(8 * nl if side != "pre" else nl) == 0
+
+
+@pytest.mark.parametrize("operand", ["y", "out", "pre", "x", "x_out", "r1"])
+def test_ntt_stages_refuses_what_it_cannot_walk(emu, monkeypatch, operand):
+    """An operand K1 cannot take as it is raises and launches nothing: y or
+    out with neither unit-stride rows nor lanes, a premultiplier whose
+    cells are not unit-stride, a transform's input or output with no (B, 8,
+    N) view of unit-stride lanes, and a coset scale shaped for another
+    split than the first launch's."""
+    ledger = collections.Counter()
+    monkeypatch.setattr(kernels, "launched", ledger)
+    monkeypatch.setattr(tnt, "pease_stages", lambda y, tw, pre=None, r1=None, out=None:
+                        tnt.launch_stages(emu, 0, y, tw, pre, r1, out))
+    rng = np.random.default_rng(3)
+    vals = from_numpy(rand_limbs(rng, (2, 1, 8, 8, 4)))
+    neither = (2, 4, 0, 1, 3)  # limbs unit-stride
+    tw = tnt._stage_twiddles_dev(8, False, torch.device("cpu"))
+    x = from_numpy(rand_limbs(rng, (3, 8, 64)))
+    scale = tnt.premultiplier(7, 64, "cpu")  # for the first launch at the shipped MAX_AXIS: 8 x 8
+    cells = torch.zeros(8, 4, 4, dtype=torch.int32).transpose(-1, -2)
+    calls = {
+        "y": lambda: tnt.launch_stages(emu, 0, _laid_out(vals, neither), tw),
+        "out": lambda: tnt.launch_stages(emu, 0, vals, tw, out=_laid_out(torch.zeros_like(vals), neither)),
+        "pre": lambda: tnt.launch_stages(emu, 0, vals, tw, pre=cells),
+        "x": lambda: tnt.ntt_t(x.transpose(0, 1)),
+        "x_out": lambda: tnt.class_ntt_t(x, 7, out=torch.zeros(3, 64, 8, dtype=torch.int32).transpose(-1, -2)),
+        "r1": lambda: tnt.class_ntt_t(x, 7, scale),
+    }
+    if operand == "r1":
+        monkeypatch.setattr(tnt, "MAX_AXIS", 4)  # the first launch 4 rows over 16 lanes
+    with pytest.raises(ValueError):
+        calls[operand]()
+    assert not ledger
+
+
+@pytest.mark.parametrize("max_axis,n", [(tnt.MAX_AXIS, 256), (8, 512), (4, 64), (2, 32)],
+                         ids=["one_pass", "recursing", "nested", "nested2"])
+def test_transforms_through_emulated_k1(emu, monkeypatch, max_axis, n):
+    """``ntt_t``, ``intt_t``, ``class_ntt_t`` (also into a slice of a
+    larger output, as the column blocks write theirs) and ``coset_lde_t``
+    with K1 emulated equal the plain path, with MAX_AXIS patched down so
+    pass 1 recurses once or more: every pass a strided view, the last
+    walking its input's rows."""
+    ledger = collections.Counter()
+    monkeypatch.setattr(kernels, "launched", ledger)
+    monkeypatch.setattr(tnt, "MAX_AXIS", max_axis)
+    rng = np.random.default_rng(n + max_axis)
+    x = from_numpy(rand_limbs(rng, (3, 8, n)))
+    coeffs = x[..., : n // 8]
+    base = 0xC0FFEE + n
+    calls = {"ntt": lambda: tnt.ntt_t(x), "intt": lambda: tnt.intt_t(x), "class": lambda: tnt.class_ntt_t(x, base),
+             "lde": lambda: tnt.coset_lde_t(coeffs, 8)}
+    want = {name: to_numpy(f()) for name, f in calls.items()}
+    monkeypatch.setattr(tnt, "pease_stages", lambda y, tw, pre=None, r1=None, out=None:
+                        tnt.launch_stages(emu, 0, y, tw, pre, r1, out))
+    for name, f in calls.items():
+        np.testing.assert_array_equal(to_numpy(f()), want[name], err_msg=name)
+    whole = torch.full((5, 8, n), 7, dtype=torch.int32)
+    tnt.class_ntt_t(x[1:], base, tnt.premultiplier(base, n, "cpu"), out=whole[2:4])
+    np.testing.assert_array_equal(to_numpy(whole[2:4]), want["class"][1:])
+    assert (whole[:2] == 7).all() and (whole[4:] == 7).all()
+    walks = collections.Counter((dict(k[1])["load"], dict(k[1])["store"]) for k in ledger if k[0] == "ntt_stages")
+    assert walks[("rows", "lanes")] > 0 and set(walks) <= {("rows", "lanes"), ("lanes", "lanes")}
+
+
 def test_mul32_emulated(emu):
     """zk::mul32, K1's multiply, alone (its probe kernel) against the
     golden f128.fmul on every pair of edge values and on random pairs."""
@@ -654,7 +795,7 @@ def _ledger_cases(emu):
     lad = tme.launch_ladders(emu, 0, bases, 16)
     return {
         "ntt_stages": ("zk_ntt_stages", lambda lib: tnt.launch_stages(lib, 0, limbs((2, 8, 8, 4)), tw),
-                       dict(M=8, B=2, NL=4, variant="plain")),
+                       dict(M=8, B=2, NL=4, variant="plain", load="lanes", store="lanes")),
         "blake3_rows": ("zk_blake3_rows", lambda lib: tb3t.launch_rows(lib, 0, limbs((8, 8, 32))), dict(C=8, N=32)),
         "merkle": ("zk_merkle_heap", lambda lib: tmerkle.launch_heap(lib, 0, limbs((8, 8, 16))[0]), dict(N=16)),
         "composition": ("zk_composition", lambda lib: tcp.launch_composition(lib, 0, *comp, delta, bcols0, bcols1),

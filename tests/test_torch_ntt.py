@@ -106,7 +106,7 @@ def test_ladders_match_golden():
     lad = from_t(to_numpy(tnt.ladder_t_host(5, 512, 7)))
     assert [int(v) for v in lad] == [7 * pow(5, i, f128.P) % f128.P for i in range(512)]
     vals = [[v % f128.P for v in row] for row in _rand_vals(5, 2, 64)]
-    got = tnt.scale_by_ladder_t(from_numpy(_t(vals)), 11, 64)
+    got = tnt.ladder_t_host(11, 64, x=from_numpy(_t(vals)))
     assert _ints(got) == [[v * pow(11, i, f128.P) % f128.P for i, v in enumerate(r)] for r in vals]
 
 
@@ -122,7 +122,7 @@ def test_coset_lde_t_fuses_the_offset(monkeypatch, max_axis, t):
     monkeypatch.setattr(tnt, "MAX_AXIS", max_axis)
     vals = _rand_vals(31, 3, t)
     coeffs = from_numpy(_t(vals))
-    scaled = tnt.scale_by_ladder_t(coeffs, f128.DOMAIN_OFFSET, t)
+    scaled = tnt.ladder_t_host(f128.DOMAIN_OFFSET, t, x=coeffs)
     unfused = tnt.ntt_t(torch.nn.functional.pad(scaled, (0, 7 * t)))
     got = tnt.coset_lde_t(coeffs, 8)
     np.testing.assert_array_equal(to_numpy(got), to_numpy(unfused))

@@ -70,27 +70,44 @@ def test_pack_roundtrip():
 
 
 def test_recursion_branch(monkeypatch):
-    """MAX_AXIS = 4 in both packages forces N2 > MAX_AXIS (flat recursion:
-    n = 32 splits 8 x 4, and the 8-point pass recurses 2 x 4)."""
+    """MAX_AXIS = 4 in both packages forces N2 > MAX_AXIS (n = 32 splits
+    8 x 4, and the 8-point pass 1 splits 2 x 4): three K1 passes over
+    strided views of the input, one intermediate and the output, the
+    first (M = 2 over 16 lanes) carrying the coset scale, the last reading
+    its rows unit-stride; against the JAX transform and the golden one."""
     from zkvm.ntt import golden as gntt
     from zkvm_torch.field.limbs import from_t
 
     monkeypatch.setattr(jnt, "MAX_AXIS", 4)
     monkeypatch.setattr(tnt, "MAX_AXIS", 4)
+    passes = []
+    plain = tnt.pease_stages
+
+    def record(y, tw, pre=None, r1=None, out=None):
+        passes.append((y.shape[-3], y.shape[-1], tnt._walk(tnt._sizes5(y)), tnt._walk(tnt._sizes5(out)),
+                       "full" if pre is not None else "r1" if r1 is not None else "plain"))
+        return plain(y, tw, pre, r1, out)
+
+    monkeypatch.setattr(tnt, "pease_stages", record)
     rng = np.random.default_rng(77)
     x = rand_limbs(rng, (2, 8, 32))
     got = tnt.ntt_t(from_numpy(x))
     np.testing.assert_array_equal(to_numpy(got), np.asarray(jnt.ntt_t(jnp.asarray(x))))
+    assert passes == [(2, 16, "lanes", "lanes", "plain"), (4, 4, "lanes", "lanes", "full"),
+                      (4, 8, "rows", "lanes", "full")]
+    assert tnt._first_pass(32) == (2, 16)
     vals = [[int(v) for v in row] for row in from_t(x)]
     ints = lambda t: [[int(v) for v in row] for row in from_t(to_numpy(t))]
     assert ints(tnt.intt_t(from_numpy(x))) == [gntt.intt(r) for r in vals]
     base = 0xABCDEF
+    passes.clear()
     got = tnt.class_ntt_t(from_numpy(x), base)
     assert ints(got) == [
         gntt.ntt([v * pow(base, i, f128.P) % f128.P for i, v in enumerate(r)]) for r in vals
     ]
-    # the recursion path takes the coset scale cached by the provers too
-    scale = tnt.class_scale(base, 32, "cpu")
+    assert [p[-1] for p in passes] == ["r1", "full", "full"]  # the scale fused into the first pass
+    # the coset scale cached by the provers gives the same values
+    scale = tnt.premultiplier(base, 32, "cpu")
     np.testing.assert_array_equal(to_numpy(tnt.class_ntt_t(from_numpy(x), base, scale)),
                                   to_numpy(got))
 

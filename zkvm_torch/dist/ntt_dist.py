@@ -14,9 +14,8 @@ and an output row k = k1 + P k2,
 4. the twiddles w^(n2 k1) = (w^q)^n2 and the L-point NTT along n2 (K1):
    on rank q the twiddles are a coset scale of the host int w^q, built
    from host-constant ladders (``ntt_t.ladder_t_host``) and fused into K1
-   as its premultiplier
-   (``ntt_t.premultiplier``: pass 1's where it is one launch; where it
-   recurses, L > 2^18, the inner transform's and pass 2's).  The reference
+   as the rank-1 premultiplier of its first launch
+   (``ntt_t.premultiplier``, at every L).  The reference
    multiplies them in before exchange 2, from P host starts
    (``zkvm/dist/ntt_dist.py:48-66``); after it they are one geometric
    ladder a rank, and fused they cost no launch of their own (a plain
@@ -45,12 +44,12 @@ from . import comm
 def _twiddle_scale(n: int, p: int, q: int, inverse: bool, device, max_axis: int):
     """Rank q's twiddles w_N^(q n2) over n2 < L = N / P (times 1/P for the
     inverse) as the premultiplier of its L-point transform
-    (``ntt_t.premultiplier`` of base w^q, fused into K1 at every L; the
-    cache key holds ``ntt_t.MAX_AXIS``, which shapes it)."""
+    (``ntt_t.premultiplier`` of base w^q, fused into K1's first launch at
+    every L; the cache key holds ``ntt_t.MAX_AXIS``, which shapes it)."""
     w = f128.get_root_of_unity(n)
     if inverse:
         w = f128.finv(w)
-    return nt.premultiplier(pow(w, q, f128.P), n // p, inverse, device, f128.finv(p) if inverse else 1)
+    return nt.premultiplier(pow(w, q, f128.P), n // p, device, f128.finv(p) if inverse else 1)
 
 
 def _twiddled_transform(y: torch.Tensor, n: int, p: int, q: int, inverse: bool) -> torch.Tensor:
@@ -82,9 +81,11 @@ def _ntt_dist(x: torch.Tensor, mesh, inverse: bool) -> torch.Tensor:
     y = comm.all_to_all(y, mesh, dim=-3)
     # P-point NTTs along n1 (K1 at M = P)
     y = nt._axis_ntt(y, p, inverse)
-    # exchange 2: k1 = r to rank r -> (..., P[n2 chunk], 8, chunk), n2 natural
+    # exchange 2: k1 = r to rank r -> (..., P[n2 chunk], 8, chunk), n2 natural;
+    # K1's transform takes lanes that are unit-stride (a reshape of chunks
+    # of one lane is a view without them)
     y = comm.all_to_all(y, mesh, dim=-3)
-    y = y.transpose(-3, -2).reshape(batch + (8, local))
+    y = y.transpose(-3, -2).reshape(batch + (8, local)).contiguous()
     # the twiddles w^(n2 q) and the L-point NTT along n2: position k2 holds
     # X[q + P k2]
     y = _twiddled_transform(y, local * p, p, q, inverse)

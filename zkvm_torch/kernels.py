@@ -47,8 +47,9 @@ _UP = ctypes.POINTER(ctypes.c_uint32)  # a host array of 32-bit words
 # C signatures: every device pointer and the stream are void*, sizes are
 # int/long; delta goes as two uint64 words, boundary columns as host ints
 SIGNATURES = {
-    # y, out, tw, pre, rs, ls, B, M, NL, S, variant, stream
-    "zk_ntt_stages": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # y, y strides (host: b1, b2, row, limb, lane), out, out strides, tw, pre, pre cell strides (host: b1, b2,
+    # row, lane), rs, ls, B1, B2, M, NL, S, variant, walks (bit 0 load, bit 1 store: along rows), stream
+    "zk_ntt_stages": (_P, _LP, _P, _LP, _P, _P, _LP, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # a, b, out (packed elements), n, stream: zk::mul32 alone (a check)
     "zk_mul32": (_P, _P, _P, _I, _P),
     # a, out (packed elements), n, stream: zk::sqr32 alone (a check)

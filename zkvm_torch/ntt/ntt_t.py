@@ -5,15 +5,18 @@ With N = N1*N2, n = n1 + N1*n2 and k = k2 + N2*k1,
 
     X[k2 + N2*k1] = NTT_N1 over n1 [ w_N^(n1*k2) * NTT_N2 over n2 [ x ] ]
 
-Both inner transforms run along axis -3 of a ``(..., M, 8, L)`` view as the
-constant-geometry (Pease) stage network of :func:`pease_stages`, natural
-row order in and out — CUDA kernel K1 (``csrc/ntt_stages.cu``, which does
-the two layout permutations itself) for a CUDA tensor, its plain PyTorch
-version for a CPU tensor.  The n1*k2 mid twiddles are fused into the
-pass-2 kernel as a premultiplier (carrying the iNTT's 1/N at the top
-level); the coset shift of :func:`class_ntt_t` is fused into pass 1 as a
-rank-1 premultiplier.  When N2 exceeds :data:`MAX_AXIS` the first pass
-recurses through the flat transform.
+Each inner transform is the constant-geometry (Pease) stage network of
+:func:`pease_stages` along the row axis of a (B1, B2, M, 8, L) view, natural
+row order in and out: CUDA kernel K1 (``csrc/ntt_stages.cu``, which does the
+layout permutations itself and reads and writes through its operands'
+strides) for a CUDA tensor, its plain PyTorch version for a CPU tensor.
+Every pass is a strided view of the input, one intermediate or the output,
+so no transpose is materialised between passes.  The n1*k2 mid twiddles are
+fused into the pass-2 kernel as a premultiplier (carrying the iNTT's 1/N at
+the top level); a coset shift (:func:`premultiplier`) rides on the first
+launch as a rank-1 premultiplier at every size.  When N2 exceeds
+:data:`MAX_AXIS` pass 1 is itself a four-step transform over the same
+buffers (:func:`_column_ntt`).
 
 Device tables (layout indices, and the stage and mid twiddles packed for
 K1 by :func:`pack_t`) are built once per (size, direction, device) and
@@ -22,8 +25,8 @@ cached.
 
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -416,62 +419,114 @@ def pease_stages_plain(y: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def stages_plain(yb, tw, pre=None, r1=None) -> torch.Tensor:
+def stages_plain(yb, tw, pre=None, r1=None, out=None) -> torch.Tensor:
     """K1's plain version, natural row order in and out: gather by the
-    initial layout indices, premultiply (``pre`` packed (M, NL, 4), or
-    ``r1`` = (rs (8, M), ls (8, NL)) limbs; both in the gathered row
-    order), run the stages (``tw`` packed (S, M/2, 4)), gather by the final
-    indices.  The JAX ``ntt_t._axis_ntt``'s contract."""
+    initial layout indices, premultiply (``pre`` packed, broadcasting to
+    (..., M, NL, 4), or ``r1`` = (rs (8, M), ls (8, NL)) limbs; both in the
+    gathered row order), run the stages (``tw`` packed (S, M/2, 4)), gather
+    by the final indices.  yb (..., M, 8, NL) is read through its strides,
+    and the result written into ``out`` where given (a view of yb's shape,
+    any strides).  The JAX ``ntt_t._axis_ntt``'s contract."""
     initial, final = _layout_dev(yb.shape[-3], yb.device)
     y = _apply_pre(yb.index_select(-3, initial), None if pre is None else unpack_t(pre), r1, ft.fmul_plain)
-    return pease_stages_plain(y, unpack_t(tw).transpose(-1, -2)).index_select(-3, final)
+    res = pease_stages_plain(y, unpack_t(tw).transpose(-1, -2)).index_select(-3, final)
+    return res if out is None else out.copy_(res)
 
 
-def launch_stages(lib, stream, yb, tw, pre=None, r1=None) -> torch.Tensor:
-    """Call the K1 entry point of ``lib`` on (B, M, 8, NL) limbs."""
-    b, m, _, nl = yb.shape
+def _sizes5(t):
+    """A (M, 8, NL), (B, M, 8, NL) or (B1, B2, M, 8, NL) operand as 5-D."""
+    return t.reshape((1,) * (5 - t.dim()) + tuple(t.shape)) if t.dim() < 5 else t
+
+
+def _strides5(t):
+    """The element strides of a 5-D operand, 0 along an axis of one."""
+    return [0 if n == 1 else s for n, s in zip(t.shape, t.stride())]
+
+
+def _walk(t) -> str | None:
+    """The axis K1 walks on a 5-D operand: "lanes" where the lanes are
+    unit-stride, "rows" where the rows are, else None (it cannot)."""
+    _, _, m, _, nl = t.shape
+    if nl > 1 and t.stride(4) == 1:
+        return "lanes"
+    if t.stride(2) == 1:
+        return "rows"
+    return "lanes" if nl == 1 else None
+
+
+def launch_stages(lib, stream, yb, tw, pre=None, r1=None, out=None) -> torch.Tensor:
+    """Call the K1 entry point of ``lib`` on (M, 8, NL), (B, M, 8, NL) or
+    (B1, B2, M, 8, NL) limbs, read through their strides, into ``out`` (a
+    view of the same shape, any strides) or a new tensor.  Each side walks
+    its unit-stride axis (rows or lanes); a side with neither is refused.
+    ``pre`` (packed, last axis unit-stride, 16-byte cells) broadcasts to
+    (B1, B2, M, NL, 4); ``r1`` = (rs (8, M), ls (8, NL))."""
+    shape = tuple(yb.shape)
+    if yb.dim() not in (3, 4, 5):
+        raise ValueError(f"stage network: unsupported shape {shape}")
+    y = _sizes5(yb)
+    b1, b2, m, limbs, nl = y.shape
     s = m.bit_length() - 1
     dev = yb.device
-    if m < 2 or m > 512 or m & (m - 1) or nl & (nl - 1) or b > 65535:
-        raise ValueError(f"stage network: unsupported shape {tuple(yb.shape)}")
-    kernels.expect(yb, (b, m, 8, nl), dev, "y")
+    if limbs != 8 or m < 2 or m > 512 or m & (m - 1) or nl & (nl - 1) or b1 > 65535 or b2 > 65535:
+        raise ValueError(f"stage network: unsupported shape {shape}")
+    if yb.dtype != torch.int32:
+        raise TypeError(f"y: expected int32 limbs, got {yb.dtype}")
+    if out is None:
+        out = torch.empty(shape, dtype=torch.int32, device=dev)
+    o = _sizes5(out)
+    if tuple(o.shape) != tuple(y.shape) or out.dtype != torch.int32 or out.device != dev:
+        raise ValueError(f"out: {tuple(out.shape)} {out.dtype} on {out.device}, expected {shape} int32 on {dev}")
     kernels.expect(tw, (s, m // 2, 4), dev, "tw")
+    for name, t in (("y", y), ("out", o)):
+        if _walk(t) is None:
+            raise ValueError(f"{name}: strides {t.stride()} of {tuple(t.shape)} have neither unit-stride rows nor lanes")
     rs = ls = None
-    variant = 0
+    variant, pstr = 0, [0] * 4
     if pre is not None:
         variant = 1
-        kernels.expect(pre, (m, nl, 4), dev, "pre")
+        pv = pre.expand(b1, b2, m, nl, 4)
+        if pv.dtype != torch.int32 or pv.device != dev:
+            raise ValueError(f"pre: {pre.dtype} on {pre.device}, expected int32 on {dev}")
+        st = _strides5(pv)
+        if pv.stride(4) != 1 or pv.data_ptr() % 16 or any(x % 4 for x in st[:4]):
+            raise ValueError(f"pre: strides {pv.stride()} at byte {pv.data_ptr() % 16} of 16 are not whole "
+                             "unit-stride 16-byte cells")
+        pstr = [x // 4 for x in st[:4]]
+        pre = pv
     elif r1 is not None:
         variant = 2
         rs, ls = r1
         kernels.expect(rs, (8, m), dev, "rs")
         kernels.expect(ls, (8, nl), dev, "ls")
-    out = torch.empty_like(yb)
+    walks = (_walk(y), _walk(o))
+    longs = lambda v: (ctypes.c_long * len(v))(*v)
+    ys, os_ = _strides5(y), _strides5(o)
+    for st, walk in ((ys, walks[0]), (os_, walks[1])):
+        st[4 if walk == "lanes" else 2] = 1
     rc = lib.zk_ntt_stages(
-        kernels.ptr(yb), kernels.ptr(out), kernels.ptr(tw), kernels.ptr(pre),
-        kernels.ptr(rs), kernels.ptr(ls), b, m, nl, s, variant, stream,
+        kernels.ptr(y), longs(ys), kernels.ptr(o), longs(os_), kernels.ptr(tw), kernels.ptr(pre), longs(pstr),
+        kernels.ptr(rs), kernels.ptr(ls), b1, b2, m, nl, s, variant,
+        (walks[0] == "rows") | (walks[1] == "rows") << 1, stream,
     )
     kernels.check(rc, "zk_ntt_stages")
-    kernels.count("ntt_stages", M=m, B=b, NL=nl, variant=("plain", "full", "r1")[variant])
+    kernels.count("ntt_stages", M=m, B=b1 * b2, NL=nl, variant=("plain", "full", "r1")[variant], load=walks[0],
+                  store=walks[1])
     return out
 
 
-def pease_stages(yb, tw, pre=None, r1=None) -> torch.Tensor:
-    """K1 on (B, M, 8, NL) limbs in natural row order: the NTT along M,
-    premultiplied, as :func:`stages_plain` states it.
+def pease_stages(yb, tw, pre=None, r1=None, out=None) -> torch.Tensor:
+    """K1 on (M, 8, NL), (B, M, 8, NL) or (B1, B2, M, 8, NL) limbs in
+    natural row order, any strides: the NTT along M, premultiplied, as
+    :func:`stages_plain` states it, into ``out`` where given.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel (or raises)."""
     if yb.device.type == "cpu":
-        return stages_plain(yb, tw, pre, r1)
+        return stages_plain(yb, tw, pre, r1, out)
     if yb.device.type != "cuda":
         raise ValueError(f"stage network: no kernel for device {yb.device}")
-    contig = lambda t: None if t is None else t.contiguous()
-    r1 = None if r1 is None else (contig(r1[0]), contig(r1[1]))
-    return launch_stages(
-        kernels.lib(), kernels.stream_of(yb), yb.contiguous(), tw.contiguous(),
-        contig(pre), r1,
-    )
+    return launch_stages(kernels.lib(), kernels.stream_of(yb), yb, tw, pre, r1, out)
 
 
 # ---------------------------------------------------------------------------
@@ -479,76 +534,124 @@ def pease_stages(yb, tw, pre=None, r1=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _axis_ntt(y, m, inverse, pre=None, r1=None):
-    """NTT along axis -3 of (..., M, 8, L); natural order in/out.
+    """NTT along axis -3 of (..., M, 8, L), any strides; natural order in/out.
 
-    ``pre`` (packed (M, L, 4)) or ``r1`` premultiply the INPUT, given in
-    permuted row order."""
+    ``pre`` (packed, broadcasting to (..., M, L, 4)) or ``r1`` premultiply
+    the INPUT, given in permuted row order."""
     if m == 1:
         return _apply_pre(y, None if pre is None else unpack_t(pre), r1, ft.fmul)
     batch = y.shape[:-3]
-    yb = y.reshape((-1,) + tuple(y.shape[-3:]))
+    yb = y if y.dim() <= 5 else y.reshape((-1,) + tuple(y.shape[-3:]))
     out = pease_stages(yb, _stage_twiddles_dev(m, inverse, y.device), pre=pre, r1=r1)
     return out.reshape(batch + tuple(out.shape[-3:]))
 
 
-def _ntt_t_core(x, inverse, top=True, scale_r1=None):
-    """Four-step transform of (..., 8, N) -> (..., 8, N), natural order.
+def _pass(src, dst, m, inverse, pre=None, r1=None):
+    """One K1 launch along axis 2 of (B1, B2, M, 8, NL) views, src into dst
+    (at M = 1, a size-1 transform's, the premultiply alone)."""
+    if m == 1:
+        dst.copy_(_apply_pre(src, None if pre is None else unpack_t(pre), r1, ft.fmul))
+        return
+    pease_stages(src, _stage_twiddles_dev(m, inverse, src.device), pre=pre, r1=r1, out=dst)
 
-    ``scale_r1`` = (row ladder (8, N2), lane ladder (8, N1)) premultiplies
-    the input by base^n, fused into the pass-1 kernel; where pass 1
-    recurses it is a :class:`Recursed` form (:func:`premultiplier`).  The
-    iNTT's 1/N is fused into the top-level mid-twiddle tensor."""
+
+def _lanes3(x: torch.Tensor, name: str) -> torch.Tensor:
+    """An (..., 8, N) operand as a (B, 8, N) view with unit-stride lanes, or
+    a ValueError where it has none."""
     n = x.shape[-1]
+    try:
+        v = x.view(-1, 8, n)
+    except RuntimeError:
+        v = None
+    if v is None or (n > 1 and v.stride(-1) != 1):
+        raise ValueError(f"{name}: strides {x.stride()} of {tuple(x.shape)} have no (B, 8, N) view with "
+                         "unit-stride lanes")
+    return v
+
+
+def _column_ntt(src, dst, scratch, inverse, r1=None):
+    """The L-point transform along axis 2 of (B, 8, L, W) views (rows of W
+    unit-stride lanes), natural order in and out, into ``dst``.  Where L <=
+    MAX_AXIS, one K1 launch (``r1`` its premultiplier).  Else the four-step
+    over n = a + L1 b: the L2-point transform along b of the (B, 8, L2, L1 W)
+    view into ``scratch`` (recursing, with ``dst`` its scratch), then K1
+    along a over the W lanes and the batch k_b, premultiplied by the mid
+    twiddles w_L^(a k_b) by (row, batch), writing X[k_b + L2 k_a] into
+    ``dst``.  ``r1`` rides on the first launch of all, whose rows are the
+    top digit of n and whose lanes all the others (:func:`_first_pass`
+    shapes it).  Every buffer is taken by ``view``, so a layout that has no
+    such view raises rather than being written through a copy."""
+    b, _, n, w = src.shape
+    if n <= MAX_AXIS:
+        if r1 is not None and (r1[0].shape[-1], r1[1].shape[-1]) != (n, w):
+            raise ValueError(f"r1: shaped for a first launch of {r1[0].shape[-1]} rows and {r1[1].shape[-1]} "
+                             f"lanes, the first launch has {n} and {w}")
+        _pass(src.transpose(1, 2), dst.transpose(1, 2), n, inverse, r1=r1)
+        return
+    l2, l1 = _split(n)
+    flat = lambda t: t.view(b, 8, l2, l1 * w)
+    _column_ntt(flat(src), flat(scratch), flat(dst), inverse, r1)
+    s = scratch.view(b, 8, l2, l1, w).permute(0, 2, 3, 1, 4)  # (B, L2[k_b], L1[a], 8, W)
+    d = dst.view(b, 8, l1, l2, w).permute(0, 3, 2, 1, 4)  # (B, L2[k_b], L1[k_a], 8, W)
+    pre = _mid_twiddles(n, inverse, False, src.device).transpose(0, 1)[None, :, :, None]  # (1, L2, L1, 1, 4)
+    _pass(s, d, l1, inverse, pre=pre)
+
+
+def _ntt_t_core(x, inverse, scale_r1=None, out=None):
+    """Four-step transform of (..., 8, N) -> (..., 8, N), natural order,
+    into ``out`` where given (its lanes unit-stride).
+
+    With n = n1 + N1 n2 and k = k2 + N2 k1: pass 1, the N2-point transform
+    along n2 of x's (B, 8, N2, N1) view into Z (B, 8, N2[k2], N1[n1])
+    (:func:`_column_ntt`, recursing where N2 > MAX_AXIS, the output its
+    scratch); pass 2, K1 along n1 of Z's rows (unit-stride: a walk along
+    rows) over the lanes k2, premultiplied by the mid twiddles w_N^(n1 k2)
+    (carrying the iNTT's 1/N), writing X[k2 + N2 k1] through the output's
+    lanes.  Every pass reads and writes strided views of x, Z and the
+    output: nothing copies between them.  ``scale_r1`` (a
+    :func:`premultiplier`) premultiplies the input by base^n, fused into
+    the first launch."""
+    n = x.shape[-1]
+    xb = _lanes3(x, "x")
+    b, dev = xb.shape[0], x.device
+    if out is None:
+        out = torch.empty(x.shape, dtype=torch.int32, device=dev)
+    res = _lanes3(out, "out")
     n2, n1 = _split(n)
-    batch = tuple(x.shape[:-2])
-    y = x.reshape(batch + (8, n2, n1)).transpose(-3, -2)  # (..., N2, 8, N1)
-    pre = _mid_twiddles(n, inverse, inverse and top, x.device)
-    if n2 <= MAX_AXIS:
-        r1 = None
-        if scale_r1 is not None:
-            lad_m, lad_lane = scale_r1
-            if n2 > 1:
-                lad_m = lad_m.index_select(1, _layout_dev(n2, x.device)[0])
-            r1 = (lad_m, lad_lane)
-        y = _axis_ntt(y, n2, inverse, r1=r1)  # [k2][limb][n1]
-        y = y.transpose(-3, -1)  # (..., N1, 8, N2)
+    if n2 == 1:  # no pass 1: the scale alone
+        z = xb if scale_r1 is None else _apply_pre(xb[:, None], None, scale_r1, ft.fmul)[:, 0]
     else:
-        inner = None
-        if scale_r1 is not None:
-            inner, pre = scale_r1
-        y = y.transpose(-3, -1)  # (..., N1, 8, N2)
-        y = _ntt_t_core(y.contiguous(), inverse, top=False, scale_r1=inner)
-    y = _axis_ntt(y, n1, inverse, pre=pre)  # [k1][limb][k2]
-    return y.transpose(-3, -2).reshape(batch + (8, n))
+        z = torch.empty((b, 8, n), dtype=torch.int32, device=dev)
+        _column_ntt(xb.view(b, 8, n2, n1), z.view(b, 8, n2, n1), res.view(b, 8, n2, n1), inverse, scale_r1)
+    src = z.view(b, 8, n2, n1).permute(0, 3, 1, 2)[:, None]  # (B, 1, N1[n1], 8, N2[k2])
+    dst = res.view(b, 8, n1, n2).transpose(1, 2)[:, None]  # (B, 1, N1[k1], 8, N2[k2])
+    _pass(src, dst, n1, inverse, pre=_mid_twiddles(n, inverse, inverse, dev)[None, None])
+    return out
 
 
-class Recursed(NamedTuple):
-    """The premultiplier base^n of a transform whose pass 1 recurses, with
-    n = n1 + N1 n2: ``inner``, the recursing pass-1 transform's own
-    premultiplier (base^N1)^n2; and ``pre``, pass 2's packed mid twiddles
-    times base^n1, which is constant over each pass-1 transform and so
-    moves past it."""
-
-    inner: object
-    pre: torch.Tensor
-
-
-def premultiplier(base: int, n: int, inverse: bool, device, factor: int = 1, top: bool = True):
-    """``factor`` * base^i (i < n; host ints) on ``device`` in the form
-    :func:`_ntt_t_core`'s ``scale_r1`` takes for a size-n (i)NTT: the two
-    ladders of :func:`class_scale` where pass 1 is one launch, else a
-    :class:`Recursed` form, so the scale is fused into the kernels at
-    every size.  Holds an O(n) table where pass 1 recurses: cache it."""
+def _first_pass(n: int):
+    """(M, W): the rows and lanes of the first K1 launch of a size-n
+    transform (n = lane + W row): :func:`_column_ntt`'s descent, which
+    refuses a premultiplier of other shapes."""
     n2, n1 = _split(n)
-    lad_lane = ladder_t_host(base, n1, factor, device)  # factor * base^n1
-    base_m = pow(base, n1, f128.P)  # base^N1
-    if n2 <= MAX_AXIS:
-        return ladder_t_host(base_m, n2, device=device), lad_lane
-    if n1 > 1:  # pass 2's rows are in its initial layout order
-        lad_lane = lad_lane.index_select(1, _layout_dev(n1, lad_lane.device)[0])
-    mid = unpack_t(_mid_twiddles(n, inverse, inverse and top, device))  # (N1, 8, N2)
-    pre = pack_t(ft.fmul(mid, lad_lane.transpose(0, 1)[:, :, None]))
-    return Recursed(premultiplier(base_m, n2, inverse, device, top=False), pre)
+    while n2 > MAX_AXIS:
+        n2, l1 = _split(n2)
+        n1 *= l1
+    return n2, n1
+
+
+def premultiplier(base: int, n: int, device, factor: int = 1):
+    """``factor`` * base^i (i < n; host ints) on ``device`` as the rank-1
+    premultiplier of a size-n transform's first K1 launch (its rows M the
+    top digit of i, its lanes the W others: base^i = (base^W)^row
+    base^lane), so the scale is fused at every size: (rs (8, M) in the
+    kernel's row order, ls (8, W)), two host-constant ladders; ls holds W =
+    n / M elements (32,768 at n = 2^20)."""
+    m, w = _first_pass(n)
+    rs = ladder_t_host(pow(base, w, f128.P), m, device=device)
+    if m > 1:
+        rs = rs.index_select(1, _layout_dev(m, rs.device)[0])
+    return rs, ladder_t_host(base, w, factor, device)
 
 
 def ntt_t(x: torch.Tensor) -> torch.Tensor:
@@ -565,56 +668,33 @@ def intt_t(x: torch.Tensor) -> torch.Tensor:
     return _ntt_t_core(x, True)
 
 
-def scale_by_ladder_t(x: torch.Tensor, base: int, n: int, scale=None) -> torch.Tensor:
-    """x[..., 8, n] * base^i along the lane axis (``base`` a host int), via
-    the index split n = n1 + N1*n2 (two broadcast multiplies, O(sqrt N)
-    ladder memory).  ``scale``: the two ladders, :func:`class_scale` of
-    the same base."""
-    n2, n1 = _split(n)
-    batch = tuple(x.shape[:-2])
-    lad2, lad1 = class_scale(base, n, x.device) if scale is None else scale  # (8, N2), (8, N1)
-    y = x.reshape(batch + (8, n2, n1)).transpose(-3, -2)  # (..., N2, 8, N1)
-    y = ft.fmul(ft.fmul(y, lad1), lad2.transpose(0, 1)[:, :, None])
-    return y.transpose(-3, -2).reshape(batch + (8, n))
-
-
-def class_scale(base: int, t: int, device):
-    """The rank-1 premultiplier of a size-t coset NTT at ``base`` (a host
-    int), on ``device``: ((base^N1)^n2 over N2 rows, base^n1 over N1
-    lanes), two host-constant ladders.  When the transform recurses,
-    :func:`class_ntt_t` applies it unfused."""
-    n2, n1 = _split(t)
-    return ladder_t_host(pow(base, n1, f128.P), n2, device=device), ladder_t_host(base, n1, device=device)
-
-
-def class_ntt_t(coeffs_t: torch.Tensor, base: int, scale=None) -> torch.Tensor:
+def class_ntt_t(coeffs_t: torch.Tensor, base: int, scale=None, out=None) -> torch.Tensor:
     """Evaluate degree-<T polynomials on the coset base*<w_T>: the base^n
-    scale fused into the pass-1 kernel.  coeffs_t (..., 8, T); base a host
-    int; ``scale`` = a cached :func:`class_scale` of the same base."""
+    scale fused into the first K1 launch at every T.  coeffs_t (..., 8, T);
+    base a host int; ``scale`` = a cached :func:`premultiplier` of the
+    same base; ``out`` a view to write the result into (lanes
+    unit-stride)."""
     t = coeffs_t.shape[-1]
     if t == 1:
-        return coeffs_t
+        return coeffs_t if out is None else out.copy_(coeffs_t)
     if scale is None:
-        scale = class_scale(base, t, coeffs_t.device)
-    if _split(t)[0] > MAX_AXIS:  # recursion path: apply the scale unfused
-        return _ntt_t_core(scale_by_ladder_t(coeffs_t, base, t, scale), False)
-    return _ntt_t_core(coeffs_t, False, scale_r1=scale)
+        scale = premultiplier(base, t, coeffs_t.device)
+    return _ntt_t_core(coeffs_t, False, scale_r1=scale, out=out)
 
 
 @functools.lru_cache(maxsize=None)
 def _coset_premultiplier(offset: int, d: int, max_axis: int, device):
     """:func:`premultiplier` of offset^i for a size-d transform; the key
-    holds MAX_AXIS, which shapes the form (tests patch it).  An O(d) table
-    where pass 1 recurses (128 MiB at d = 2^23)."""
-    return premultiplier(offset, d, False, device)
+    holds MAX_AXIS, which shapes the form (tests patch it)."""
+    return premultiplier(offset, d, device)
 
 
 def coset_lde_t(coeffs_t: torch.Tensor, blowup: int, offset: int = f128.DOMAIN_OFFSET) -> torch.Tensor:
     """Evaluate degree-<T polynomials (..., 8, T) on the whole coset
     offset*<w_D>, D = blowup*T: (..., 8, D) in natural order
     (``ntt_jax.coset_lde``).  Zero-pad to D and run one size-D transform
-    with the offset ladder fused into K1 as its premultiplier (pass 1
-    recurses past MAX_AXIS)."""
+    with the offset ladder fused into its first K1 launch; it holds the
+    padded input, the output and one intermediate."""
     d = blowup * coeffs_t.shape[-1]
     pre = _coset_premultiplier(offset, d, MAX_AXIS, coeffs_t.device)
     return _ntt_t_core(torch.nn.functional.pad(coeffs_t, (0, d - coeffs_t.shape[-1])), False, scale_r1=pre)

@@ -96,7 +96,7 @@ def _class_base_t(t_len: int, blowup: int, device):
         g_trace=g_trace,
         w_d=w_d,
         class_bases=bases,
-        class_scales=[nt.class_scale(bases[r], t_len, device) for r in range(blowup)],
+        class_scales=[nt.premultiplier(bases[r], t_len, device) for r in range(blowup)],
         mask_cls_t=from_numpy(np.swapaxes(mask_cls, -1, -2), device),  # (B, 8, 16)
         ark_cls_t=from_numpy(np.swapaxes(ark_cls, -1, -2), device),  # (B, 8, 8, 16)
         inv_off_t=nt.ladder_t_host(f128.finv(offset), d, device=device),  # (8, D)
@@ -133,8 +133,8 @@ def _class_constants_t(t_len: int, blowup: int, device):
     return dict(dct, ee_cls_t=torch.stack(ee), i0_cls_t=inv[:blowup], i1_cls_t=inv[blowup:])
 
 
-def _class_ntt(coeffs_t, dct, r):
-    return nt.class_ntt_t(coeffs_t, dct["class_bases"][r], dct["class_scales"][r])
+def _class_ntt(coeffs_t, dct, r, out=None):
+    return nt.class_ntt_t(coeffs_t, dct["class_bases"][r], dct["class_scales"][r], out=out)
 
 
 def _interleave(per_class):
@@ -145,19 +145,22 @@ def _interleave(per_class):
 def _class_ntt_blocked(coeffs_t, dct, r):
     """Class r's coset NTT of the trace columns; from ``limits.CHUNK_T`` on,
     in ``limits.COLUMN_BLOCKS`` blocks of columns (the reference's
-    ``lax.map`` over 4 blocks, pipeline.py:303, :339).  Columns transform
-    independently, so the values are the same.  From T = 2^19 the coset
-    scale is not fused into K1 (``ntt_t.class_ntt_t`` recurses), and one
-    plain limb multiply over all 28 columns allocates ~28 GiB at once at T
-    = 2^20; a block needs a quarter of that.  That is the CPU's multiply:
-    on a card the field-op kernel allocates its output alone, and the
-    trace commit at T = 2^18 peaked at 1.46 GiB in blocks, 1.71 in one
-    piece (``chip_smoke.py`` phase g, NVIDIA H100 80GB HBM3)."""
+    ``lax.map`` over 4 blocks, pipeline.py:303, :339), each block's last
+    pass writing its rows of the one result.  Columns transform
+    independently, so the values are the same; a block's transform holds a
+    quarter of the intermediate.  That bound was set for the CPU's plain
+    arithmetic, whose int64 transients are ~50 bytes an input byte; on a
+    card the trace commit at T = 2^18 peaked at 1.46 GiB in blocks, 1.71 in
+    one piece (``chip_smoke.py`` phase g, NVIDIA H100 80GB HBM3)."""
     n_cols, t = coeffs_t.shape[0], coeffs_t.shape[-1]
     blocks = limits.COLUMN_BLOCKS
     if t < limits.CHUNK_T or n_cols % blocks:
         return _class_ntt(coeffs_t, dct, r)
-    return torch.cat([_class_ntt(blk, dct, r) for blk in coeffs_t.split(n_cols // blocks)])
+    out = torch.empty(coeffs_t.shape, dtype=coeffs_t.dtype, device=coeffs_t.device)
+    step = n_cols // blocks
+    for c in range(0, n_cols, step):
+        _class_ntt(coeffs_t[c:c + step], dct, r, out=out[c:c + step])
+    return out
 
 
 def _commit_classes(coeffs_t, dct, class_ntt=_class_ntt):
